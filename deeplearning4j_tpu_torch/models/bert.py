@@ -1,11 +1,17 @@
-"""BERT-class transformer as a causal LM, and its paged generation functions
-— the PyTorch counterpart of ``deeplearning4j_tpu/models/bert.py``.
+"""BERT-class transformer (bidirectional MLM or causal LM): its training
+step and its paged generation functions — the PyTorch counterpart of
+``deeplearning4j_tpu/models/bert.py`` without a mesh.
 
 Parameters are a plain nested dict of fp32 tensors with the JAX package's
 names and layouts (kernel matrices ``(in, out)``, used as ``x @ W``).
 Compute runs in ``cfg.dtype`` (bf16 at full width) with a cast of each
 operand at its matmul, as the reference's ``_block`` does; layernorm and
 softmax run in fp32.
+
+Training (:func:`make_train_step`) takes gradients with ``torch.autograd``
+through the attention kernels' autograd Functions and applies AdamW with
+optax's semantics to the fp32 master params IN PLACE (the reference
+donates them to a jitted executable and returns new ones).
 
 Generation keeps the JAX package's paged design (vLLM's block pool): K/V
 live in a shared pool of fixed-size blocks addressed through per-slot
@@ -17,17 +23,33 @@ return the cache so the call shapes match.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from deeplearning4j_tpu_torch import default_device
 from deeplearning4j_tpu_torch.models.random import as_key, fold_in, gumbel
 from deeplearning4j_tpu_torch.ops.attention_kernels import (
-    mha_attention_packed, packed_kernel_shape_ok, paged_decode_attention)
+    flash_attention, flash_envelope_ok, mha_attention_packed,
+    packed_kernel_shape_ok, paged_decode_attention)
+
+_log = logging.getLogger(__name__)
+_flash_fallback_warned: set = set()
+
+
+def _warn_flash_fallback(reason: str) -> None:
+    """One-time notice when attention_impl='flash' routes to the einsum
+    path anyway (the reference's warning, same text)."""
+    if reason not in _flash_fallback_warned:
+        _flash_fallback_warned.add(reason)
+        _log.warning(
+            "attention_impl='flash' falling back to the XLA einsum path: %s",
+            reason)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +63,11 @@ class TransformerConfig:
     dropout: float = 0.0
     causal: bool = False            # False = BERT (bidirectional MLM); True = GPT-style LM
     dtype: torch.dtype = torch.bfloat16   # compute dtype (params stay fp32)
-    attention_impl: str = "full"    # 'full' | 'flash' (the packed kernel)
-    remat: bool = True              # read by training; the forward-only port ignores it
+    # 'full' | 'flash' (the packed kernel at T <= 1024, the streamed one
+    # beyond) | 'ring' | 'ulysses' (without a mesh both are 'full', as in
+    # the reference)
+    attention_impl: str = "full"
+    remat: bool = True              # checkpoint each block when training
     # softmax probability dtype of both attention paths: the einsum path's
     # softmax and the packed kernel's p_dtype
     softmax_dtype: torch.dtype = torch.float32
@@ -171,6 +196,20 @@ def _use_packed_kernel(cfg: TransformerConfig, T: int) -> bool:
     return cfg.attention_impl == "flash" and packed_kernel_shape_ok(T)
 
 
+def _attention(q, k, v, cfg: TransformerConfig):
+    """(B, H, T, D) attention as the reference's ``_attention`` routes it
+    with no mesh: ``"flash"`` takes the streamed kernels where
+    :func:`flash_envelope_ok` holds and the einsum path (with a one-time
+    warning) where it does not; every other impl is the einsum path."""
+    if cfg.attention_impl == "flash":
+        T = q.shape[2]
+        if flash_envelope_ok(T):
+            return flash_attention(q, k, v, cfg.causal)
+        _warn_flash_fallback(
+            f"streamed kernel unavailable for T={T} under mesh None")
+    return _full_attention(q, k, v, cfg.causal, cfg.softmax_dtype)
+
+
 def _block(params, x, cfg: TransformerConfig, return_kv: bool = False):
     B, T, H = x.shape
     h = _layernorm(x, params["ln1"])
@@ -185,17 +224,11 @@ def _block(params, x, cfg: TransformerConfig, return_kv: bool = False):
         o = mha_attention_packed(q.contiguous(), k.contiguous(),
                                  v.contiguous(), cfg.heads, cfg.causal, None,
                                  cfg.softmax_dtype)
-    elif cfg.attention_impl == "full":
+    else:
         def heads(t):  # (B, T, H) -> (B, heads, T, D)
             return t.reshape(B, T, cfg.heads, cfg.head_dim).transpose(1, 2)
-        o = _full_attention(heads(q), heads(k), heads(v), cfg.causal,
-                            cfg.softmax_dtype)
+        o = _attention(heads(q), heads(k), heads(v), cfg)
         o = o.transpose(1, 2).reshape(B, T, H)
-    else:
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} at T={T}: only the "
-            "packed kernel's envelope (T % 8 == 0, T <= 1024) and 'full' "
-            "are ported; the streamed flash kernel and ring/Ulysses are not")
     x = x + _dense(o, params["attn_out"])
     h = _layernorm(x, params["ln2"])
     h = F.gelu(_dense(h, params["mlp_in"]), approximate="tanh")
@@ -211,20 +244,143 @@ def _embed(params, token_ids, positions, cfg: TransformerConfig):
 
 
 def encode(params, token_ids, cfg: TransformerConfig):
-    """Embeddings + transformer stack + final layernorm (no lm_head)."""
+    """Embeddings + transformer stack + final layernorm (no lm_head). With
+    ``cfg.remat`` and autograd recording, each block runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward (the reference's ``jax.checkpoint``; its policy changes
+    memory, not results), so each block's attention forward launches
+    twice per training step."""
     _, T = token_ids.shape
     x = _embed(params, token_ids,
                torch.arange(T, device=token_ids.device)[None], cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp in params["blocks"]:
-        x = _block(bp, x, cfg)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_block, bp, x, cfg,
+                                                  use_reentrant=False)
+        else:
+            x = _block(bp, x, cfg)
     return _layernorm(x, params["ln_f"])
+
+
+def _forward_raw(params, token_ids, cfg: TransformerConfig):
+    """Logits in the COMPUTE dtype: the loss upcasts them, as the
+    reference's loss path does."""
+    x = encode(params, token_ids, cfg)
+    return x @ params["lm_head"].to(x.dtype)
 
 
 @torch.no_grad()
 def forward(params, token_ids, cfg: TransformerConfig):
     """token_ids (B, T) integer -> logits (B, T, vocab) fp32."""
-    x = encode(params, token_ids.long(), cfg)
-    return (x @ params["lm_head"].to(x.dtype)).float()
+    return _forward_raw(params, token_ids.long(), cfg).float()
+
+
+def loss_from_logits(logits, batch):
+    """Weighted LM cross-entropy from compute-dtype logits, as
+    logsumexp(logits) - logits[target] with fp32 accumulation."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
+    w = batch["weights"]
+    return ((lse - tgt.float()) * w).sum() / w.sum().clamp_min(1.0)
+
+
+def lm_loss(params, batch, cfg: TransformerConfig):
+    """Masked/causal LM cross-entropy. batch = {'tokens': (B, T) int,
+    'targets': (B, T) int, 'weights': (B, T) float} — weights zero out
+    unmasked positions (MLM) or padding."""
+    return loss_from_logits(
+        _forward_raw(params, batch["tokens"].long(), cfg), batch)
+
+
+def make_infer_last_logits(cfg: TransformerConfig):
+    """Token ids (B, T) -> last-position logits (B, vocab) fp32, without
+    autograd (the reference returns a jitted function; the port runs
+    eagerly)."""
+
+    @torch.no_grad()
+    def last_logits(params, tokens):
+        return forward(params, tokens, cfg)[:, -1, :]
+
+    return last_logits
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a parameter tree in a fixed order (dict keys sorted,
+    lists in order), so params and optimizer moments pair up."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _leaves(x)]
+    return [tree]
+
+
+def grad_aliases(params):
+    """``(tree, leaves)``: a copy of ``params`` whose tensors are detached
+    aliases that require grad, and those aliases in :func:`_leaves`
+    order. Differentiate a loss of ``tree`` w.r.t. ``leaves``; the
+    caller's tensors never require grad, and the storage is shared."""
+    leaves = [p.detach().requires_grad_() for p in _leaves(params)]
+    it = iter(leaves)
+
+    def rebuild(tree):
+        if isinstance(tree, dict):
+            return {k: rebuild(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return [rebuild(x) for x in tree]
+        return next(it)
+
+    return rebuild(params), leaves
+
+
+def _batch_on(batch, device):
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v))).to(device)
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-4,
+                    weight_decay: float = 0.01):
+    """Build ``(init_state, step)``; ``step(params, opt_state, batch) ->
+    (params, opt_state, loss)``, the reference's single-device step.
+
+    Gradients of :func:`lm_loss` come from ``torch.autograd`` (compute in
+    ``cfg.dtype`` over the fp32 master params). AdamW follows
+    ``optax.adamw(learning_rate, weight_decay=weight_decay)``: b1 0.9,
+    b2 0.999, eps 1e-8 outside the sqrt, eps_root 0; the moments update
+    as ``(1 - b) * g + b * m``, the count is incremented first and the
+    bias corrections ``1 - b ** count`` divide the moments; the decoupled
+    decay ``wd * p`` is added to the update of EVERY leaf (optax's mask
+    is None), then the update is scaled by ``-lr``. Params and state are
+    updated IN PLACE and returned (the reference donates them)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def init_state(params):
+        leaves = _leaves(params)
+        return {"count": 0,
+                "mu": [torch.zeros_like(p) for p in leaves],
+                "nu": [torch.zeros_like(p) for p in leaves]}
+
+    def step(params, opt_state, batch):
+        leaves = _leaves(params)
+        tree, xs = grad_aliases(params)
+        loss = lm_loss(tree, _batch_on(batch, leaves[0].device), cfg)
+        grads = torch.autograd.grad(loss, xs)
+        count = opt_state["count"] + 1
+        bc1 = 1 - b1 ** count
+        bc2 = 1 - b2 ** count
+        with torch.no_grad():
+            for p, g, mu, nu in zip(leaves, grads, opt_state["mu"],
+                                    opt_state["nu"]):
+                mu.mul_(b1).add_(g * (1 - b1))
+                nu.mul_(b2).add_(g * g * (1 - b2))
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+                u = u + weight_decay * p
+                p.add_(-learning_rate * u)
+        opt_state["count"] = count
+        return params, opt_state, loss.detach()
+
+    return init_state, step
 
 
 # --------------------------------------------------------------------------

@@ -59,8 +59,10 @@ __global__ void paged_decode_kernel(
   float acc = 0.f;   // output dimension tid (tid < D)
   for (int j = 0; j < n_blocks; ++j) {
     int phys = tables[static_cast<long long>(s) * nbmax + j];
-    // an out-of-range entry is clamped, as XLA clamps the gather the
-    // reference routes use; the engine never writes one
+    // an out-of-range entry is read as the reference's gather reads it: a
+    // negative id counts from the end (numpy indexing), then XLA clamps
+    // into [0, num_blocks); the engine never writes one
+    if (phys < 0) phys += num_blocks;
     phys = min(max(phys, 0), num_blocks - 1);
     __syncthreads();   // q_s written / previous block's readers done
     for (int idx = tid; idx < B * D; idx += nthreads) {

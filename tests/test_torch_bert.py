@@ -7,6 +7,8 @@ Both packages get the same numpy-drawn parameters and inputs; dtypes are
 pinned because the test suite runs JAX with x64 enabled. The JAX side
 reaches its Pallas kernels in interpret mode.
 """
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -124,10 +126,28 @@ class TestForward:
                           tcfg(causal=False, attention_impl="flash"))
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
-    def test_unported_attention_raises(self, tparams):
-        toks = torch.zeros(1, 12, dtype=torch.long)   # T % 8 != 0
-        with pytest.raises(NotImplementedError, match="streamed flash"):
-            tbert.forward(tparams, toks, tcfg(attention_impl="flash"))
+    def test_unported_attention_raises(self, jparams, tparams, caplog):
+        """attention_impl='flash' outside the packed envelope routes as the
+        reference routes it without a mesh, and raises nothing: T=100 has
+        no usable streamed block, so it takes the einsum path with the
+        reference's one-time warning, and matches it."""
+        toks = np.random.default_rng(3).integers(0, 1024, (2, 100)).astype(
+            np.int32)
+        jcfg = jbert.TransformerConfig(**{
+            **{f: getattr(JCFG, f) for f in
+               ("vocab_size", "hidden", "layers", "heads", "mlp_dim",
+                "max_seq", "dtype", "causal", "remat")},
+            "attention_impl": "flash"})
+        ref = np.asarray(jbert.forward(jparams, jnp.asarray(toks), jcfg))
+        tbert._flash_fallback_warned.clear()
+        with caplog.at_level(logging.WARNING,
+                             logger="deeplearning4j_tpu_torch.models.bert"):
+            out = tbert.forward(tparams, torch.from_numpy(toks),
+                                tcfg(attention_impl="flash")).numpy()
+        assert any("falling back to the XLA einsum path" in r.getMessage()
+                   and "T=100" in r.getMessage() for r in caplog.records)
+        # fp32 on both sides; the reference's scores are fp64 under x64
+        np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
 
     def test_compute_params_keep_layernorm_fp32(self, tparams):
         cp = tbert.compute_params(tparams, tcfg(dtype=torch.bfloat16), "cpu")

@@ -27,6 +27,34 @@ def _tensor(rng, shape, dtype, device):
                            dtype=torch.float32).to(device, dtype)
 
 
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _bound(ref, rel):
+    return rel * max(ref.float().abs().max().item(), 1.0)
+
+
+# bf16 results against the plain version, per element: |a - b| <= 2^-7 |b|
+# (one bf16 ulp of the output; each side rounds once) + a floor in units of
+# the rms of b's row (one head's D values), never of the tensor's largest
+# |b|, so late causal rows are held as tightly as the first. Forward: p is
+# rounded to bf16 for P.V under the running max there and the row max here,
+# independently, moving o by ~2^-8.7 of the row's rms (one standard
+# deviation): floor 2^-5. Backward: ds rounds to bf16 on both sides, and an
+# element whose dp or delta (fp32 sums in another order) sits at a rounding
+# boundary lands one ulp away, moving a gradient row by ~2^-8 of one term:
+# floor 2^-6.
+FWD_FLOOR, BWD_FLOOR = 2 ** -5, 2 ** -6
+
+
+def _within(a, b, d, floor):
+    a = a.float().unflatten(-1, (-1, d))
+    b = b.float().unflatten(-1, (-1, d))
+    rms = b.square().mean(-1, keepdim=True).sqrt()
+    return bool(((a - b).abs() <= 2 ** -7 * b.abs() + floor * rms).all())
+
+
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_packed_fp32_matches_plain(card, head_dim, causal):
@@ -53,12 +81,11 @@ def test_packed_bf16_matches_plain(card, p_dtype):
     ro, rlse = ak.mha_packed_forward_reference(q, k, v, 12, True, None,
                                                p_dtype)
     torch.cuda.synchronize()
-    # bf16 output rounds on both sides, and p is rounded for P.V under a
-    # running max here and the row max there: 2^-6 of the largest |o|;
-    # bf16 probabilities: the JAX package's 5e-2 bound for that mode
-    tol = (2 ** -6 if p_dtype == torch.float32 else 5e-2) \
-        * max(ro.float().abs().max().item(), 1.0)
-    assert (o.float() - ro.float()).abs().max().item() <= tol
+    if p_dtype == torch.float32:
+        assert _within(o, ro, 64, FWD_FLOOR)
+    else:
+        # bf16 probabilities: the JAX package's 5e-2 bound for that mode
+        assert _max_err(o, ro) <= _bound(ro, 5e-2)
     # lse: fp32 sums of the same p (1e-3), or of p rounded to bf16 under
     # different maxima (2^-8 relative in l: the same 5e-2 bound)
     lse_tol = 1e-3 if p_dtype == torch.float32 else 5e-2
@@ -69,6 +96,20 @@ def test_packed_refuses_unbuilt_head_dim(card):
     q = torch.zeros(1, 8, 2 * 48, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         ak.mha_packed_forward(q, q, q, 2)
+
+
+def test_backward_kernels_refuse_unbuilt_head_dim(card):
+    """The backward kernels are built for head_dim 64 only."""
+    q = torch.zeros(1, 8, 2 * 32, device=card)
+    lse = torch.zeros(1, 2, 8, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        ak.mha_packed_backward(q, q, q, q, lse, 2)
+    q3, vec = torch.zeros(2, 8, 32, device=card), torch.zeros(2, 1, 8,
+                                                               device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        ak.flash_bwd_dq(q3, q3, q3, q3, vec, vec)
+    with pytest.raises(ValueError, match="head_dim"):
+        ak.flash_bwd_dkv(q3, q3, q3, q3, vec, vec)
 
 
 def _paged_case(rng, block, q_dtype, device):
@@ -115,3 +156,160 @@ def test_paged_matches_plain(card, block, pool, q_dtype):
         # bf16 output: one rounding apart at most, 2^-7 of the largest |o|
         tol = 2 ** -7 * max(ref.float().abs().max().item(), 1.0)
         assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+
+
+@pytest.mark.parametrize("t", [72, 1032])     # partial 16-row / 64-key tiles
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_backward_matches_plain(card, t, causal):
+    rng = np.random.default_rng(t)
+    heads, d = 3, 64
+    q, k, v, do = (_tensor(rng, (2, t, heads * d), torch.float32, card)
+                   for _ in range(4))
+    _, lse = ak.mha_packed_forward(q, k, v, heads, causal)
+    before = ak.mha_packed_backward.launches
+    got = ak.mha_packed_backward(q, k, v, do, lse, heads, causal)
+    ref = ak.mha_packed_backward_reference(q, k, v, do, lse, heads, causal)
+    torch.cuda.synchronize()
+    assert ak.mha_packed_backward.launches == before + 1
+    for a, b in zip(got, ref):
+        # fp32 end to end; the dq pass's delta and every sum reassociate
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_packed_backward_bf16_matches_plain(card, p_dtype):
+    rng = np.random.default_rng(8)
+    q, k, v, do = (_tensor(rng, (1, 128, 12 * 64), torch.bfloat16, card)
+                   for _ in range(4))
+    _, lse = ak.mha_packed_forward(q, k, v, 12, True, None, p_dtype)
+    got = ak.mha_packed_backward(q, k, v, do, lse, 12, True, None, p_dtype)
+    ref = ak.mha_packed_backward_reference(q, k, v, do, lse, 12, True, None,
+                                           p_dtype)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        if p_dtype == torch.float32:
+            assert _within(a, b, 64, BWD_FLOOR)
+        else:
+            # bf16 p: the JAX package's 5e-2 bound for that mode
+            assert _max_err(a, b) <= _bound(b, 5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [72, 1032])
+@pytest.mark.parametrize("causal", [True, False])
+def test_streamed_kernels_match_plain(card, dtype, t, causal):
+    rng = np.random.default_rng(t + 1)
+    q, k, v, do = (_tensor(rng, (3, t, 64), dtype, card) for _ in range(4))
+    counts = (ak.flash_forward.launches, ak.flash_bwd_dq.launches,
+              ak.flash_bwd_dkv.launches)
+    o, lse = ak.flash_forward(q, k, v, causal, t, t)
+    ro, rlse = ak.flash_forward_reference(q, k, v, causal)
+    delta = (do.float() * ro.float()).sum(-1).reshape(3, 1, t)
+    dq = ak.flash_bwd_dq(q, k, v, do, rlse, delta, causal)
+    dk, dv = ak.flash_bwd_dkv(q, k, v, do, rlse, delta, causal)
+    rdq = ak.flash_bwd_dq_reference(q, k, v, do, rlse, delta, causal)
+    rdk, rdv = ak.flash_bwd_dkv_reference(q, k, v, do, rlse, delta, causal)
+    torch.cuda.synchronize()
+    assert (ak.flash_forward.launches, ak.flash_bwd_dq.launches,
+            ak.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    if dtype == torch.float32:
+        # fp32 end to end; online vs whole-row softmax reassociates
+        torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+        for a, b in ((dq, rdq), (dk, rdk), (dv, rdv)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    else:
+        assert _within(o, ro, 64, FWD_FLOOR)
+        # lse: fp32 sums of the same p in another order
+        assert _max_err(lse, rlse) <= 1e-3
+        for a, b in ((dq, rdq), (dk, rdk), (dv, rdv)):
+            assert _within(a, b, 64, BWD_FLOOR)
+
+
+@pytest.mark.parametrize("impl", ["packed", "flash"])
+def test_autograd_matches_plain_autograd(card, impl):
+    rng = np.random.default_rng(9)
+    # head_dim 64 on both layouts: packed (B, T, 2 heads x 64), streamed
+    # (BH, T, 64)
+    shape = (2, 200, 2 * 64) if impl == "packed" else (4, 200, 64)
+    q, k, v, g = (_tensor(rng, shape, torch.float32, card)
+                  for _ in range(4))
+
+    def run(fn):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fn(*xs), xs, g)
+
+    if impl == "packed":
+        before = ak.mha_packed_backward.launches
+        got = run(lambda a, b, c: ak.mha_attention_packed(a, b, c, 2, True))
+        with ak.higher_order_attention():
+            ref = run(lambda a, b, c: ak.mha_attention_packed(a, b, c, 2,
+                                                              True))
+        assert ak.mha_packed_backward.launches == before + 1
+    else:
+        before = ak.flash_bwd_dkv.launches
+        got = run(lambda a, b, c: ak.flash_attention(a, b, c, True, 100,
+                                                     100))
+        with ak.higher_order_attention():
+            ref = run(lambda a, b, c: ak.flash_attention(a, b, c, True))
+        assert ak.flash_bwd_dkv.launches == before + 1
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        # fp32: kernels against autograd through plain attention
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["packed", "flash"])
+def test_double_backward_raises_on_card(card, impl):
+    rng = np.random.default_rng(10)
+    q, k, v = (_tensor(rng, (1, 64, 64), torch.float32, card)
+               .requires_grad_() for _ in range(3))
+    o = ak.mha_attention_packed(q, k, v, 1) if impl == "packed" \
+        else ak.flash_attention(q, k, v)
+    (gq,) = torch.autograd.grad(o.square().sum(), q, create_graph=True)
+    with pytest.raises(RuntimeError, match="higher_order_attention"):
+        gq.sum().backward()
+
+
+def test_paged_reads_out_of_range_ids_as_plain(card):
+    rng = np.random.default_rng(11)
+    q, kp, vp, tables, pos = _paged_case(rng, 4, torch.float32, card)
+    nb = kp.shape[0]
+    tables[1, :2] = torch.tensor([nb, -1], dtype=torch.int32)
+    tables[2, :4] = torch.tensor([-3, 31, -40, 5], dtype=torch.int32)
+    out = ak.paged_decode_attention(q, kp, vp, tables, pos, block_size=4)
+    ref = ak.paged_decode_attention_reference(q, kp, vp, tables, pos,
+                                              block_size=4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_launches_the_packed_kernels(card, remat):
+    """One make_train_step step of a small bf16 MLM on the card: the packed
+    backward launches once per layer; the forward once, or twice with remat
+    (the checkpoint recomputes each block in the backward)."""
+    from deeplearning4j_tpu_torch.models import (
+        TransformerConfig, init_params, make_train_step)
+
+    cfg = TransformerConfig(vocab_size=64, hidden=128, layers=2, heads=2,
+                            mlp_dim=128, max_seq=64, remat=remat,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=0, device=card)
+    init_state, step = make_train_step(cfg)
+    opt_state = init_state(params)
+    rng = np.random.default_rng(12)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, 64, (2, 64)),
+                                       device=card),
+             "targets": torch.as_tensor(rng.integers(0, 64, (2, 64)),
+                                        device=card),
+             "weights": torch.ones(2, 64, device=card)}
+    fwd = ak.mha_attention_packed.launches
+    bwd = ak.mha_packed_backward.launches
+    params, opt_state, loss = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert ak.mha_attention_packed.launches - fwd == (4 if remat else 2)
+    assert ak.mha_packed_backward.launches - bwd == 2

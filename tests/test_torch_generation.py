@@ -230,6 +230,9 @@ def test_port_imports_no_jax():
         "deeplearning4j_tpu_torch.ops._build, "
         "deeplearning4j_tpu_torch.models, "
         "deeplearning4j_tpu_torch.models.random, "
+        "deeplearning4j_tpu_torch.models.bert, "
+        "deeplearning4j_tpu_torch.ops.attention_kernels, "
+        "deeplearning4j_tpu_torch.profiler, "
         "deeplearning4j_tpu_torch.serving\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'deeplearning4j_tpu.')) "

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deeplearning4j_tpu.models import quantize_kv as jax_quantize_kv
@@ -19,6 +20,16 @@ from deeplearning4j_tpu.ops.pallas_kernels import (
     _mha_packed_forward, paged_decode_attention as jax_paged_decode)
 from deeplearning4j_tpu_torch.models import quantize_kv
 from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The torch side of these tests is small; one intra-op thread keeps it
+    from competing for every core with the other test workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _packed_inputs(seed, b, t, hd):
@@ -144,6 +155,24 @@ class TestPagedDecode:
                                       vp.to(torch.int8), tables, pos,
                                       block_size=8)
 
+    def test_out_of_range_block_ids_read_as_the_jax_gather(self):
+        from deeplearning4j_tpu.ops.pallas_kernels import (
+            paged_decode_attention_reference as jax_paged_ref)
+        q, kp, vp, tables, pos = _paged_case(7, 8)
+        nb = kp.shape[0]
+        # NB and 31 clamp to NB - 1; -1 counts from the end (NB - 1), -3
+        # too (NB - 3); -40 (< -NB) clamps to 0 after the wrap
+        tables[1, :2] = [nb, -1]
+        tables[2, :4] = [-3, 31, -40, 5]
+        ref = np.asarray(jax_paged_ref(
+            *(jnp.asarray(x) for x in (q, kp, vp, tables, pos)),
+            block_size=8))
+        out = ak.paged_decode_attention(
+            *(torch.from_numpy(x) for x in (q, kp, vp, tables, pos)),
+            block_size=8)
+        # fp32 softmax on both sides over the same gathered blocks
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
     def test_quantize_kv_bit_equal(self):
         x = np.random.default_rng(3).standard_normal(
             (4, 8, 2, 16)).astype(np.float32)
@@ -156,3 +185,227 @@ class TestPagedDecode:
         assert q.dtype == torch.int8 and s.dtype == torch.float32
         np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
         np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+# ---------------------------------------------------------------------------
+# Packed backward (row 2), autograd, higher-order escape
+# ---------------------------------------------------------------------------
+def _t(*xs):
+    return [torch.from_numpy(np.array(x, np.float32)) for x in xs]
+
+
+def _jax_packed_vjp(q, k, v, g, heads, causal, p_dtype):
+    from deeplearning4j_tpu.ops.pallas_kernels import mha_attention_packed
+
+    def f(q_, k_, v_):
+        return mha_attention_packed(q_, k_, v_, heads, causal, None, True,
+                                    p_dtype)
+    o, vjp = jax.vjp(f, *(jnp.asarray(x, jnp.float32) for x in (q, k, v)))
+    return np.asarray(o), [np.asarray(x)
+                           for x in vjp(jnp.asarray(g, jnp.float32))]
+
+
+class TestPackedBackward:
+    @pytest.mark.parametrize("t", [16, 24])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+    def test_plain_backward_matches_pallas_vjp(self, t, causal, p_dtype):
+        q, k, v = _packed_inputs(20 + t, 2, t, 32)
+        g = np.random.default_rng(t).standard_normal(q.shape).astype(
+            np.float32)
+        _, ref = _jax_packed_vjp(q, k, v, g, 2, causal,
+                                 getattr(jnp, p_dtype))
+        tp = getattr(torch, p_dtype)
+        tq, tk, tv, tg = _t(q, k, v, g)
+        _, lse = ak.mha_packed_forward(tq, tk, tv, 2, causal, None, tp)
+        got = ak.mha_packed_backward(tq, tk, tv, tg, lse, 2, causal, None, tp)
+        # fp32 p: the same fp32 arithmetic, only summation order differs
+        # (2e-5: the gradients sum T products of O(1) terms); bf16 p: p is
+        # rebuilt at bf16 resolution on both sides from lse values that
+        # agree to 1e-6, so an element can round to a neighbouring bf16
+        # value — the JAX package's own 5e-2 bound for this mode
+        tol = 2e-5 if p_dtype == "float32" else 5e-2
+        for name, a, b in zip("qkv", got, ref):
+            np.testing.assert_allclose(a.numpy(), b, rtol=tol, atol=tol,
+                                       err_msg=f"d{name}")
+
+    def test_backward_counts_no_cpu_launch(self):
+        q, k, v, g = _t(*_packed_inputs(5, 1, 16, 32), np.ones((1, 16, 32)))
+        _, lse = ak.mha_packed_forward(q, k, v, 2)
+        before = ak.mha_packed_backward.launches
+        ak.mha_packed_backward(q, k, v, g, lse, 2)
+        assert ak.mha_packed_backward.launches == before
+        with pytest.raises(ValueError, match="lse"):
+            ak.mha_packed_backward(q, k, v, g, lse[:, :1], 2)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_autograd_matches_jax(self, causal):
+        q, k, v = _packed_inputs(30, 2, 16, 32)
+        g = np.random.default_rng(31).standard_normal(q.shape).astype(
+            np.float32)
+        ref_o, ref = _jax_packed_vjp(q, k, v, g, 4, causal, jnp.float32)
+        tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+        o = ak.mha_attention_packed(tq, tk, tv, 4, causal)
+        grads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(g))
+        # same fp32 arithmetic both sides, summation order aside
+        np.testing.assert_allclose(o.detach().numpy(), ref_o, rtol=1e-5,
+                                   atol=1e-5)
+        for a, b in zip(grads, ref):
+            np.testing.assert_allclose(a.numpy(), b, rtol=2e-5, atol=2e-5)
+
+    def test_mha_attention_4d_is_one_head_per_row(self):
+        from deeplearning4j_tpu.ops.pallas_kernels import mha_attention
+        rng = np.random.default_rng(32)
+        q, k, v, g = (rng.standard_normal((2, 3, 16, 16)).astype(np.float32)
+                      for _ in range(4))
+        o, vjp = jax.vjp(lambda *a: mha_attention(*a, True, None, True),
+                         *(jnp.asarray(x) for x in (q, k, v)))
+        ref = vjp(jnp.asarray(g))
+        tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+        to = ak.mha_attention(tq, tk, tv, True)
+        grads = torch.autograd.grad(to, (tq, tk, tv), torch.from_numpy(g))
+        np.testing.assert_allclose(to.detach().numpy(), np.asarray(o),
+                                   rtol=1e-5, atol=1e-5)
+        for a, b in zip(grads, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5,
+                                       atol=2e-5)
+
+
+class TestHigherOrder:
+    @pytest.mark.parametrize("impl", ["packed", "flash"])
+    def test_double_backward_raises_naming_the_escape(self, impl):
+        q, k, v = (x.requires_grad_()
+                   for x in _t(*_packed_inputs(40, 2, 16, 16)))
+        if impl == "packed":
+            o = ak.mha_attention_packed(q, k, v, 2, True)
+        else:
+            o = ak.flash_attention(q, k, v, True)
+        (gq,) = torch.autograd.grad(o.square().sum(), q, create_graph=True)
+        with pytest.raises(RuntimeError, match="higher_order_attention"):
+            gq.sum().backward()
+
+    @pytest.mark.parametrize("impl", ["packed", "flash"])
+    def test_hvp_inside_context_matches_jax(self, impl):
+        from deeplearning4j_tpu.ops import pallas_kernels as pk
+        rng = np.random.default_rng(41)
+        q, k, v, u = (rng.standard_normal((2, 16, 16)).astype(np.float32)
+                      for _ in range(4))
+        if impl == "packed":
+            def jf(q_):
+                return (pk.mha_attention_packed(q_, jnp.asarray(k),
+                                               jnp.asarray(v), 2, True, None,
+                                               True) ** 2).sum()
+
+            def tf(q_):
+                return ak.mha_attention_packed(q_, tk, tv, 2,
+                                               True).square().sum()
+        else:
+            def jf(q_):
+                return (pk.flash_attention(q_, jnp.asarray(k),
+                                           jnp.asarray(v), True,
+                                           interpret=True) ** 2).sum()
+
+            def tf(q_):
+                return ak.flash_attention(q_, tk, tv, True).square().sum()
+        with pk.higher_order_attention():
+            _, ref = jax.jvp(jax.grad(jf), (jnp.asarray(q),),
+                             (jnp.asarray(u),))
+        tq, tk, tv, tu = _t(q, k, v, u)
+        tq.requires_grad_()
+        with ak.higher_order_attention():
+            (g,) = torch.autograd.grad(tf(tq), tq, create_graph=True)
+            (hvp,) = torch.autograd.grad((g * tu).sum(), tq)
+        # fp32 second derivatives of the same plain attention; 1e-4 for
+        # the longer chains of sums
+        np.testing.assert_allclose(hvp.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Streamed forward, dq, dk/dv (rows 3-5)
+# ---------------------------------------------------------------------------
+class TestStreamed:
+    T, BLK = 64, 16
+
+    def _inputs(self, seed):
+        rng = np.random.default_rng(seed)
+        return [rng.standard_normal((3, self.T, 16)).astype(np.float32)
+                for _ in range(4)]
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_forward_and_passes_match_pallas(self, causal):
+        from deeplearning4j_tpu.ops.pallas_kernels import (
+            _flash_forward, _launch_bwd_dkv, _launch_bwd_dq)
+        q, k, v, do = self._inputs(50)
+        jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+        ro, rlse = _flash_forward(jq, jk, jv, causal=causal,
+                                  block_q=self.BLK, block_k=self.BLK,
+                                  scale=None, interpret=True)
+        delta = jnp.sum(jdo * ro, axis=-1).reshape(3, 1, self.T)
+        sc = 1.0 / 4.0
+        rdq = _launch_bwd_dq(jq, jk, jv, jdo, rlse, delta, causal, self.BLK,
+                             self.BLK, sc, True)
+        rdk, rdv = _launch_bwd_dkv(jq, jk, jv, jdo, rlse, delta, causal,
+                                   self.BLK, self.BLK, sc, True)
+        tq, tk, tv, tdo = _t(q, k, v, do)
+        o, lse = ak.flash_forward(tq, tk, tv, causal, self.BLK, self.BLK)
+        # fp32 both sides; 16-key blocks there, one whole-row softmax here:
+        # the running sums reassociate
+        np.testing.assert_allclose(o.numpy(), np.asarray(ro), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(rlse), rtol=1e-5,
+                                   atol=1e-5)
+        # the passes on the JAX package's own lse and delta: same fp32
+        # arithmetic, summation order aside
+        tlse, tdelta = _t(rlse, delta)
+        dq = ak.flash_bwd_dq(tq, tk, tv, tdo, tlse, tdelta, causal)
+        dk, dv = ak.flash_bwd_dkv(tq, tk, tv, tdo, tlse, tdelta, causal)
+        for a, b in ((dq, rdq), (dk, rdk), (dv, rdv)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5,
+                                       atol=2e-5)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_autograd_matches_jax_vjp_4d(self, causal):
+        from deeplearning4j_tpu.ops.pallas_kernels import flash_attention
+        q, k, v, g = (x.reshape(1, 3, self.T, 16) for x in self._inputs(51))
+        o, vjp = jax.vjp(lambda *a: flash_attention(
+            *a, causal, self.BLK, self.BLK, None, True),
+            *(jnp.asarray(x) for x in (q, k, v)))
+        ref = vjp(jnp.asarray(g))
+        tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+        to = ak.flash_attention(tq, tk, tv, causal, self.BLK, self.BLK)
+        grads = torch.autograd.grad(to, (tq, tk, tv), torch.from_numpy(g))
+        np.testing.assert_allclose(to.detach().numpy(), np.asarray(o),
+                                   rtol=1e-5, atol=1e-5)
+        for a, b in zip(grads, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5,
+                                       atol=2e-5)
+
+    def test_block_rules_match_jax(self):
+        from deeplearning4j_tpu.ops import pallas_kernels as pk
+        for t in (8, 100, 512, 1000, 1024, 1536, 2048, 4104, 8192):
+            assert ak.auto_flash_block(t) == pk.auto_flash_block(t)
+            assert ak.flash_envelope_ok(t) == pk.flash_envelope_ok(t)
+        for args in ((1536, None, None), (64, 16, 32), (100, None, 50)):
+            assert ak._resolve_flash_blocks(*args) == \
+                pk._resolve_flash_blocks(*args)
+        with pytest.raises(ValueError, match="power-of-2"):
+            pk._resolve_flash_blocks(1031, None, None)
+        with pytest.raises(ValueError, match="power-of-2"):
+            ak._resolve_flash_blocks(1031, None, None)
+        x = torch.zeros(1, 48, 16)
+        with pytest.raises(ValueError, match="multiple of the blocks"):
+            ak.flash_forward(x, x, x, False, 32, 16)
+
+    def test_passes_count_no_cpu_launch(self):
+        q, k, v, do = _t(*self._inputs(52))
+        o, lse = ak.flash_forward(q, k, v, True)
+        delta = (do * o).sum(-1).reshape(3, 1, self.T)
+        counts = (ak.flash_forward.launches, ak.flash_bwd_dq.launches,
+                  ak.flash_bwd_dkv.launches)
+        ak.flash_bwd_dq(q, k, v, do, lse, delta, True)
+        ak.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+        assert (ak.flash_forward.launches, ak.flash_bwd_dq.launches,
+                ak.flash_bwd_dkv.launches) == counts
+        with pytest.raises(ValueError, match="delta"):
+            ak.flash_bwd_dq(q, k, v, do, lse, delta[:, :, :8], True)
