@@ -17,6 +17,10 @@ seconds:
    backward at the MLM step's shape (B=96, T=512, H=12, D=64, bf16), a
    causal and a bf16-p case; the streamed forward, dq and dk/dv at T=2048
    (causal and not) and at the long-context shape (B=2, T=8192, causal);
+   loss and update kernels — the fused cross-entropy forward and backward
+   at the MLM step's logits (49152 x 30522, bf16) and at edge cases
+   (fp32, targets -1 and V, N not a multiple of 128), the fused AdamW over
+   BERT-base's fp32 tree (2 applies) and over a bf16 tree;
 5. engine — the BERT-base-width causal LM (12 layers, hidden 768, vocab
    30522, bf16, seeded random weights) served by ``GenerationEngine`` with
    the fused paged decode route, with a bf16 and an int8 KV pool, on the
@@ -40,7 +44,19 @@ seconds:
 11. train parity — a 2-layer fp32 copy at full widths: the kernel route
     and the einsum route give the same loss and gradients at T=512 (packed)
     and T=2048 (streamed);
-12. train profile — one MLM step under torch.profiler.
+12. train profile — one MLM step under torch.profiler, with the device
+    time of make_train_step's eager AdamW tail;
+13. fused mlm train — bench.py's MLM step composed from the public entry
+    points (``_forward_raw``, ``softmax_cross_entropy`` over the (B*T, V)
+    logits, the weighted mean, ``fused_adamw(1e-4, weight_decay=0.01)
+    .apply``) for the MLM phase's 10 steps from the same params and batch:
+    the loss falls and stays within 1e-3 relative of the MLM phase's at
+    every step; the cross-entropy kernels and the AdamW kernel launch once
+    per step, the packed kernels layers x steps;
+14. fused parity — on a 2-layer fp32 copy at full widths (T=512), the
+    composed loss and its gradients equal ``lm_loss``'s;
+15. fused profile — one composed step under torch.profiler: the share of
+    the cross-entropy and AdamW kernels in the device time.
 
 The next-to-last line of standard output is ``{"kernels": [...]}``, the
 last ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -56,13 +72,16 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet; dense, 700 W): HBM bytes/s and the
-# tensor-core bf16 rate
+# H100 SXM peaks (NVIDIA data sheet; dense, 700 W): HBM bytes/s, the
+# tensor-core bf16 rate and the fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # the device of the training phases
 DEVICE = "cuda"
+# the card's name and power limit as nvidia-smi reports them (``probe``)
+CARD = "?"
 
 
 
@@ -75,10 +94,11 @@ def check(ok: bool, msg: str):
         raise AssertionError(msg)
 
 
-def bound(nbytes: float, flops: float):
-    """Least time (ms) for the work, and which of the two bounds it."""
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    """Least time (ms) for the work, and which of the two bounds it;
+    ``peak`` is the rate of the operations' type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -128,25 +148,32 @@ def time_ms(fn, iters: int = 20, reps: int = 5, graph: bool = True) -> float:
     return float(np.median(times))
 
 
+def counted():
+    """Every kernel wrapper that counts its launches, by name."""
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.ops import xent_kernels as xk
+
+    return {"mha_attention_packed": ak.mha_attention_packed,
+            "mha_packed_backward": ak.mha_packed_backward,
+            "flash_forward": ak.flash_forward,
+            "flash_bwd_dq": ak.flash_bwd_dq,
+            "flash_bwd_dkv": ak.flash_bwd_dkv,
+            "paged_decode_attention": ak.paged_decode_attention,
+            "softmax_cross_entropy": xk.softmax_cross_entropy,
+            "softmax_cross_entropy_backward":
+                xk.softmax_cross_entropy_backward,
+            "fused_adamw": updaters.fused_adamw}
+
+
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
-    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
-
-    for fn in (ak.mha_attention_packed, ak.mha_packed_backward,
-               ak.flash_forward, ak.flash_bwd_dq, ak.flash_bwd_dkv,
-               ak.paged_decode_attention):
+    for fn in counted().values():
         fn.launches = 0
 
 
 def read_launches():
-    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
-
-    return {"mha_attention_packed": ak.mha_attention_packed.launches,
-            "mha_packed_backward": ak.mha_packed_backward.launches,
-            "flash_forward": ak.flash_forward.launches,
-            "flash_bwd_dq": ak.flash_bwd_dq.launches,
-            "flash_bwd_dkv": ak.flash_bwd_dkv.launches,
-            "paged_decode_attention": ak.paged_decode_attention.launches}
+    return {name: fn.launches for name, fn in counted().items()}
 
 
 def max_err(a, b) -> float:
@@ -210,11 +237,12 @@ def probe():
     out = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     log(f"nvcc: {out[-1] if out else '?'}")
-    card = subprocess.run(
+    global CARD
+    CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(card)
+    log(CARD)
 
 
 def build():
@@ -734,11 +762,14 @@ def train_batch(cfg, B, T, seed=0):
                                   device=DEVICE)}
 
 
-def train_run(cfg, B, T, warmup, timed, extra=0, label="train"):
-    """The port's make_train_step on ``cfg`` (seeded weights) over one
-    fixed batch: ``warmup`` steps, ``timed`` steps between synchronizes,
-    then ``extra`` steps. Every launch count is set to 0 before the first
-    step and read after the last. Returns the step's metrics."""
+def train_run(cfg, B, T, warmup, timed, extra=0, label="train",
+              make_step=None):
+    """The port's make_train_step on ``cfg`` (seeded weights), or the
+    ``(init_state, step)`` that ``make_step(cfg)`` builds, over one fixed
+    batch: ``warmup`` steps, ``timed`` steps between synchronizes, then
+    ``extra`` steps; the loss of every step is kept. Every launch count is
+    set to 0 before the first step and read after the last. Returns the
+    step's metrics."""
     import torch
 
     from deeplearning4j_tpu_torch import profiler as tprof
@@ -747,24 +778,26 @@ def train_run(cfg, B, T, warmup, timed, extra=0, label="train"):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=0, device=DEVICE)
-    init_state, step = make_train_step(cfg, learning_rate=1e-4)
+    init_state, step = make_step(cfg) if make_step else make_train_step(
+        cfg, learning_rate=1e-4)
     opt_state = init_state(params)
     batch = train_batch(cfg, B, T)
     losses = []
     reset_launches()
     for _ in range(warmup):
         params, opt_state, loss = step(params, opt_state, batch)
-        losses.append(float(loss))
+        losses.append(loss)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed):
         params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / timed
-    losses.append(float(loss))
     for _ in range(extra):
         params, opt_state, loss = step(params, opt_state, batch)
-        losses.append(float(loss))
+        losses.append(loss)
+    losses = [float(x) for x in losses]
     launches = read_launches()
     steps = warmup + timed + extra
     tok_s = B * T / (step_ms / 1e3)
@@ -802,7 +835,8 @@ def mlm_phase():
     check(la["mha_attention_packed"] == n and la["mha_packed_backward"] == n,
           f"mlm train: packed launches {la}, expected layers x steps = {n}")
     check(la["flash_forward"] == la["flash_bwd_dq"] == la["flash_bwd_dkv"]
-          == 0, f"mlm train: streamed kernels launched: {la}")
+          == la["softmax_cross_entropy"] == la["fused_adamw"] == 0,
+          f"mlm train: streamed, xent or adamw kernels launched: {la}")
     return st
 
 
@@ -872,6 +906,7 @@ def train_profile_phase():
     """One MLM step (B=96, T=512, after a warm-up step) under
     torch.profiler: the device's busy share and the top kernels."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.models import (
@@ -890,28 +925,397 @@ def train_profile_phase():
         params, opt_state, _ = step(params, opt_state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall_ms, "train profile")
+    kernels = report_profile(prof, wall_ms, "train profile")
+    # the eager AdamW tail: the device time of every kernel launched inside
+    # make_train_step's "make_train_step.adamw" range
+    tail = [e for e in prof.key_averages()
+            if e.key == "make_train_step.adamw"
+            and e.device_type == DeviceType.CPU]
+    check(len(tail) == 1, "train profile: no make_train_step.adamw range")
+    tail_ms = tail[0].device_time_total / 1e3
+    busy = sum(ms for _, ms, _ in kernels)
+    log(f"train profile: eager AdamW tail {tail_ms:.3f} ms of device time "
+        f"({100 * tail_ms / busy:.2f}% of device time)")
     del params, opt_state
     torch.cuda.empty_cache()
 
 
+def make_fused_mlm_step(cfg, learning_rate=1e-4, weight_decay=0.01):
+    """bench.py's MLM step composed from the port's public entry points,
+    as the JAX package's fused-op experiment composed it outside
+    ``make_train_step``: the logits of ``_forward_raw`` (compute dtype) as
+    (B*T, V), ``softmax_cross_entropy`` per row, ``loss_from_logits``'s
+    weighted mean, ``torch.autograd.grad`` through ``grad_aliases``, then
+    ``fused_adamw(...).apply`` in place. Returns ``(init_state, step,
+    loss_of)``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.bert import (
+        _forward_raw, grad_aliases)
+    from deeplearning4j_tpu_torch.ops import (
+        fused_adamw, softmax_cross_entropy)
+
+    opt = fused_adamw(learning_rate, weight_decay=weight_decay)
+
+    def loss_of(tree, batch):
+        logits = _forward_raw(tree, batch["tokens"], cfg)
+        per_row = softmax_cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                        batch["targets"].reshape(-1))
+        w = batch["weights"].reshape(-1)
+        return (per_row * w).sum() / w.sum().clamp_min(1.0)
+
+    def step(params, opt_state, batch):
+        tree, xs = grad_aliases(params)
+        loss = loss_of(tree, batch)
+        grads = torch.autograd.grad(loss, xs)
+        params, opt_state = opt.apply(params, opt_state, grads)
+        return params, opt_state, loss.detach()
+
+    return opt.init, step, loss_of
+
+
+def fused_mlm_phase(mlm):
+    """The composed MLM step (``make_fused_mlm_step``) at the MLM phase's
+    configuration, batch and seeded weights, for the same 2 + 5 + 3 steps:
+    the loss falls, the cross-entropy kernels launch once per step each,
+    the AdamW kernel once per step (one launch for all 149 leaves), the
+    packed kernels layers x steps, and every step's loss stays within
+    1e-3 relative of the MLM phase's (``make_train_step``) loss."""
+    from deeplearning4j_tpu_torch.models import TransformerConfig
+
+    cfg = TransformerConfig(remat=False, attention_impl="flash")
+    st = train_run(cfg, 96, 512, warmup=2, timed=5, extra=3,
+                   label="fused mlm train",
+                   make_step=lambda c: make_fused_mlm_step(c)[:2])
+    steps, la = st["steps"], st["launches"]
+    n = cfg.layers * steps
+    check(st["losses"][-1] < st["losses"][0],
+          f"fused mlm train: loss did not fall: {st['losses']}")
+    check(la["softmax_cross_entropy"] == la["softmax_cross_entropy_backward"]
+          == la["fused_adamw"] == steps,
+          f"fused mlm train: xent/adamw launches {la}, expected {steps}")
+    check(la["mha_attention_packed"] == la["mha_packed_backward"] == n,
+          f"fused mlm train: packed launches {la}, expected {n}")
+    check(la["flash_forward"] == la["flash_bwd_dq"] == la["flash_bwd_dkv"]
+          == 0, f"fused mlm train: streamed kernels launched: {la}")
+    # the same training as make_train_step: both start from the same
+    # params and batch; the logits' gradient rounds to bf16 at other places
+    # (one rounding here, two at the target column there) and the bias
+    # corrections are fp32 here and float64 there, so near-zero gradients
+    # may flip AdamW's sign step (up to 2 lr per element per step). 1e-3 of
+    # the loss is ~1% of its fall over the 10 steps.
+    rel = [abs(a - b) / abs(b) for a, b in zip(st["losses"], mlm["losses"])]
+    check(len(rel) == steps and max(rel) <= 1e-3,
+          f"fused mlm train: losses {st['losses']} vs make_train_step's "
+          f"{mlm['losses']} (relative {rel}, tol 1e-3)")
+    st["loss_rel_diff_vs_mlm"] = rel
+    log(f"fused vs make_train_step on {CARD}: step "
+        f"{st['step_ms_mean']:.3f} / {mlm['step_ms_mean']:.3f} ms, tokens/s "
+        f"{st['tokens_per_sec']:.1f} / {mlm['tokens_per_sec']:.1f}, mfu "
+        f"{st['mfu']:.5f} / {mlm['mfu']:.5f}, peak memory "
+        f"{st['peak_memory_bytes']} / {mlm['peak_memory_bytes']} bytes; "
+        f"worst loss difference {max(rel):.3e} relative (tol 1e-3)")
+    return st
+
+
+def fused_parity_phase():
+    """A 2-layer fp32 copy of BERT-base (full widths, MLM, T=512): the
+    composed loss (fused cross-entropy) and ``lm_loss`` give the same loss
+    and gradients."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import (
+        TransformerConfig, init_params, lm_loss)
+    from deeplearning4j_tpu_torch.models.bert import grad_aliases
+
+    cfg = TransformerConfig(layers=2, dtype=torch.float32, remat=False,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=2, device=DEVICE)
+    batch = train_batch(cfg, 2, 512, seed=512)
+    loss_of = make_fused_mlm_step(cfg)[2]
+    out = {}
+    for name, fn in (("fused", loss_of), ("lm_loss", lambda tr, b:
+                                           lm_loss(tr, b, cfg))):
+        tree, xs = grad_aliases(params)
+        reset_launches()
+        loss = fn(tree, batch)
+        grads = torch.autograd.grad(loss, xs)
+        out[name] = (float(loss.detach()), grads, read_launches())
+    (lf, gf, la), (lr, gr, _) = out["fused"], out["lm_loss"]
+    check(la["softmax_cross_entropy"] == la["softmax_cross_entropy_backward"]
+          == 1, f"fused parity: xent launches {la}")
+    # fp32 on both sides; the kernel's online exp-sum and logsumexp sum in
+    # other orders: 1e-5 relative on the loss, 1e-4 of each leaf's largest
+    # |gradient| (train_parity_phase's tolerances)
+    check(abs(lf - lr) <= 1e-5 * abs(lr),
+          f"fused parity: loss {lf} vs lm_loss {lr}")
+    worst = max(max_err(a, b) / max(b.abs().max().item(), 1e-12)
+                for a, b in zip(gf, gr))
+    check(worst <= 1e-4, f"fused parity: grad rel err {worst}")
+    log(f"fused parity (2 layers, fp32, T=512): loss fused {lf:.7f} lm_loss "
+        f"{lr:.7f}; worst grad err {worst:.3e} of the leaf's max (tol 1e-4)")
+    del params, out, gf, gr
+    torch.cuda.empty_cache()
+
+
+def fused_profile_phase():
+    """One composed MLM step (after a warm-up step) under torch.profiler:
+    the device's busy share, the top kernels, and the cross-entropy and
+    AdamW kernels' share of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(remat=False, attention_impl="flash")
+    params = init_params(cfg, seed=0, device=DEVICE)
+    init_state, step, _ = make_fused_mlm_step(cfg)
+    opt_state = init_state(params)
+    batch = train_batch(cfg, 96, 512)
+    params, opt_state, _ = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, _ = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = report_profile(prof, wall_ms, "fused profile")
+    busy = sum(ms for _, ms, _ in kernels)
+    for part in ("xent_fwd_kernel", "xent_bwd_kernel", "adamw_kernel"):
+        ms = sum(m for name, m, _ in kernels if part in name)
+        n = sum(c for name, _, c in kernels if part in name)
+        log(f"fused profile: {part} {ms:.3f} ms x{n} "
+            f"({100 * ms / busy:.2f}% of device time)")
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+
+def xent_cases(torch):
+    """(label, N, V, dtype, edge) of rows 7 and 8: the MLM step's logits
+    (N = 96 x 512 rows of BERT's 30522-token vocabulary, bf16) first; then
+    fp32 at the JAX tests' (16, 1000) and an N that is no multiple of 128,
+    whose first four targets are -1 and V (outside the vocabulary)."""
+    return [("N49152 V30522 bf16", 49152, 30522, torch.bfloat16, False),
+            ("N16 V1000 fp32", 16, 1000, torch.float32, True),
+            ("N200 V30522 bf16", 200, 30522, torch.bfloat16, True)]
+
+
+def elementwise(a, b, rel, floor, rows=4096):
+    """(largest |a - b|, largest share of the per-element bound rel |b| +
+    floor that |a - b| takes); equal elements take 0. The check passes at a
+    share <= 1. Taken ``rows`` rows at a time, so a (49152, 30522) pair
+    needs no fp32 copy of itself."""
+    import torch
+
+    err, share = 0.0, 0.0
+    for i in range(0, a.shape[0], rows):
+        x, y = a[i:i + rows].float(), b[i:i + rows].float()
+        diff = (x - y).abs()
+        allowed = rel * y.abs() + floor
+        err = max(err, diff.max().item())
+        share = max(share, torch.where(diff == 0, torch.zeros_like(diff),
+                                       diff / allowed).max().item())
+    return err, share
+
+
+def ce_backward_ms(x, t, g, it, reps):
+    """The library yardstick of row 8: the autograd backward of
+    ``F.cross_entropy(reduction="none")`` (forward + backward, minus the
+    forward alone)."""
+    import torch
+    import torch.nn.functional as F
+
+    xr = x.detach().clone().requires_grad_()
+    gx = g.to(x.dtype)
+
+    def both():
+        torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, gx)
+
+    def fwd():
+        with torch.no_grad():
+            F.cross_entropy(xr, t, reduction="none")
+
+    return max(time_ms(both, it, reps, graph=False)
+               - time_ms(fwd, it, reps, graph=False), 0.0)
+
+
+def loss_update_kernel_phase():
+    """Rows 7-9 against their plain versions on the card, per element,
+    timed beside the plain version, a PyTorch yardstick and the byte
+    bound: the fused cross-entropy forward and backward at the MLM step's
+    logits and at edge cases, and the fused AdamW over BERT-base's fp32
+    tree (2 applies) and over a bf16 tree."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.models import BERT_BASE, init_params
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.ops import xent_kernels as xk
+
+    rows = {n: [] for n in ("softmax_cross_entropy",
+                            "softmax_cross_entropy_backward", "fused_adamw")}
+
+    def add(name, label, judged, rule, ms, plain_ms, lib_ms, nbytes, flops):
+        err, share = judged
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+        log(f"{name} {label}: max_abs_err {err:.3e} ({share:.3f} of its "
+            f"bound {rule}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"library {lib_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
+        rows[name].append(dict(case=label, max_abs_err=err,
+                               bound_share=share, tol=rule, ms=ms,
+                               plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by))
+
+    for label, n, v, dtype, edge in xent_cases(torch):
+        rng = np.random.default_rng(0)
+        t = torch.as_tensor(rng.integers(0, v, n), device=DEVICE)
+        w = torch.as_tensor(rng.random(n) if edge else np.ones(n),
+                            dtype=torch.float32, device=DEVICE)
+        if edge:
+            t[:4] = torch.tensor([-1, v, -1, v])
+        g = w / n
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        x = torch.randn((n, v), generator=gen, device=DEVICE, dtype=dtype)
+        loss, lse = xk.softmax_cross_entropy_forward(x, t)
+        rloss, rlse = xk.xent_forward_reference(x, t)
+        grad = xk.softmax_cross_entropy_backward(x, t, rlse, g)
+        rgrad = xk.xent_backward_reference(x, t, rlse, g)
+        torch.cuda.synchronize()
+        check(loss.dtype == lse.dtype == torch.float32 and grad.dtype == dtype,
+              f"xent {label}: dtypes {loss.dtype} {lse.dtype} {grad.dtype}")
+        # loss and lse: fp32 exp-sums of the same V terms in another order
+        # (online with per-vector rescaling there, whole-row max here):
+        # 1e-6 relative + 1e-5 absolute, ten fp32 ulps of an lse near 10
+        fl, fs = elementwise(loss, rloss, 1e-6, 1e-5)
+        ll, ls = elementwise(lse, rlse, 1e-6, 1e-5)
+        fwd = (max(fl, ll), max(fs, ls))
+        check(fwd[1] <= 1.0, f"xent fwd {label}: loss/lse err {fwd}")
+        if edge:
+            check(bool(torch.equal(loss[:4], lse[:4])),
+                  f"xent fwd {label}: targets -1 and V must give loss = lse")
+        # the gradient: the same fp32 (exp(x - lse) - onehot) g on both
+        # sides but for exp's last ulps, rounded once to the output dtype:
+        # one bf16 ulp (2^-7 |plain|), or 1e-5 relative in fp32; 1e-30 only
+        # lets exact zeros pass
+        bf16 = dtype == torch.bfloat16
+        rule = "2^-7|ref|" if bf16 else "1e-5|ref|"
+        bwd = elementwise(grad, rgrad, 2 ** -7 if bf16 else 1e-5, 1e-30)
+        check(bwd[1] <= 1.0, f"xent bwd {label}: grad err {bwd}")
+        big = n * v > 10 ** 8
+        it, reps = (3, 3) if big else (20, 5)
+        t_lib = t.clamp(0, v - 1)   # F.cross_entropy refuses -1 and V
+        item = x.element_size()
+        add("softmax_cross_entropy", label, fwd, "1e-6|ref| + 1e-5",
+            time_ms(lambda: xk.softmax_cross_entropy_forward(x, t), it, reps,
+                    graph=False),
+            time_ms(lambda: xk.xent_forward_reference(x, t), it, reps,
+                    graph=False),
+            time_ms(lambda: F.cross_entropy(x, t_lib, reduction="none"), it,
+                    reps, graph=False),
+            n * v * item + 12 * n, 5 * n * v)
+        add("softmax_cross_entropy_backward", label, bwd, rule,
+            time_ms(lambda: xk.softmax_cross_entropy_backward(x, t, rlse, g),
+                    it, reps, graph=False),
+            time_ms(lambda: xk.xent_backward_reference(x, t, rlse, g), it,
+                    reps, graph=False),
+            ce_backward_ms(x, t_lib, g, it, reps),
+            2 * n * v * item + 12 * n, 4 * n * v)
+        del x, t, g, loss, lse, rloss, rlse, grad, rgrad
+        torch.cuda.empty_cache()
+
+    hyper = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    bf16 = torch.bfloat16
+    for label in ("BERT-base fp32", "bf16 tree"):
+        rng = np.random.default_rng(0)
+        if label == "BERT-base fp32":
+            params = init_params(BERT_BASE, seed=0, device=DEVICE)
+        else:
+            params = {k: torch.as_tensor(rng.standard_normal(s),
+                                         dtype=torch.float32).to(DEVICE, bf16)
+                      for k, s in (("b", (7,)), ("e", (3000, 128)),
+                                   ("w", (1024, 128)))}
+        leaves = updaters.tree_leaves(params)
+        steps = [[torch.as_tensor(rng.standard_normal(p.shape,
+                                                      dtype=np.float32),
+                                  device=DEVICE).to(p.dtype) for p in leaves]
+                 for _ in range(2)]
+        ref_p = [p.clone() for p in leaves]
+        ref_m = [torch.zeros_like(p) for p in leaves]
+        ref_v = [torch.zeros_like(p) for p in leaves]
+        opt = updaters.fused_adamw(hyper["lr"], weight_decay=hyper["wd"])
+        state = opt.init(params)
+        for count, gs in enumerate(steps, 1):
+            opt.apply(params, state, gs)
+            bc1, bc2 = updaters.bias_corrections(count, 0.9, 0.999)
+            for i, g in enumerate(gs):
+                new = updaters.adamw_reference(ref_p[i], g, ref_m[i],
+                                               ref_v[i], bc1, bc2, **hyper)
+                for dst, src in zip((ref_p[i], ref_m[i], ref_v[i]), new):
+                    dst.copy_(src)
+        torch.cuda.synchronize()
+        check(state["count"] == 2, f"adamw {label}: count {state['count']}")
+        got = leaves + state["mu"] + state["nu"]
+        want = ref_p + ref_m + ref_v
+        check(all(a.dtype == b.dtype for a, b in zip(got, want)),
+              f"adamw {label}: a dtype changed")
+        # every operation rounded once in fp32 on both sides, in the same
+        # order (the kernel contracts nothing into an FMA): two fp32 ulps
+        # (2^-22 relative), or one bf16 ulp (2^-7) where the leaves are bf16
+        rel = 2 ** -7 if leaves[0].dtype == bf16 else 2 ** -22
+        judged = [elementwise(a.reshape(-1, 1), b.reshape(-1, 1), rel, 1e-30,
+                              rows=1 << 24) for a, b in zip(got, want)]
+        judged = (max(e for e, _ in judged), max(s for _, s in judged))
+        check(judged[1] <= 1.0, f"adamw {label}: p/m/v err {judged}")
+        gs = steps[0]
+        bc1, bc2 = updaters.bias_corrections(3, 0.9, 0.999)
+        lib_p = [p.detach().clone() for p in leaves]
+        for p, g in zip(lib_p, gs):
+            p.grad = g.clone()
+        lib = torch.optim.AdamW(lib_p, lr=hyper["lr"],
+                                weight_decay=hyper["wd"], fused=True)
+        numel = sum(p.numel() for p in leaves)
+        add("fused_adamw", label, judged, f"{rel:.3g}|ref|",
+            time_ms(lambda: opt.apply(params, state, gs), 3, 3, graph=False),
+            time_ms(lambda: [updaters.adamw_reference(
+                p, g, m, v, bc1, bc2, **hyper) for p, g, m, v in zip(
+                    leaves, gs, state["mu"], state["nu"])], 3, 3,
+                graph=False),
+            time_ms(lib.step, 3, 3, graph=False),
+            sum(p.numel() * (2 * p.element_size() + g.element_size()
+                             + 2 * m.element_size() + 2 * v.element_size())
+                for p, g, m, v in zip(leaves, gs, state["mu"],
+                                      state["nu"])),
+            15 * numel)
+        log(f"fused_adamw {label}: {len(leaves)} leaves, {numel} params, "
+            f"one launch per apply")
+        del params, leaves, steps, ref_p, ref_m, ref_v, state, lib, lib_p
+        torch.cuda.empty_cache()
+    return rows
+
+
 def report_profile(prof, wall_ms, label):
-    """Device busy time over the wall time, and the top device events.
-    Only events that ran on the device count: the CPU ops that launched
-    them (aten ops, autograd nodes) carry the same time as their kernels
-    and would count it twice."""
+    """Device busy time over the wall time, and the top device events;
+    returns the device events as (name, ms, count). Only events that ran
+    on the device count: the CPU ops that launched them (aten ops,
+    autograd nodes) carry the same time as their kernels and would count
+    it twice, and a ``record_function`` range's device-side span covers
+    kernels already counted."""
     from torch.autograd import DeviceType
 
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and e.key != "make_train_step.adamw"]
     busy_ms = sum(ms for _, ms, _ in kernels)
     log(f"{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.2f}% of wall)")
     for name, ms, n in sorted(kernels, key=lambda r: -r[1])[:10]:
         log(f"  {ms:10.3f} ms {100 * ms / busy_ms:6.2f}%  x{n:<6d} "
             f"{name[:90]}")
+    return kernels
 
 
 def timed_phase(name, fn, *args):
@@ -936,6 +1340,12 @@ KERNELS = (
      "deeplearning4j_tpu/ops/pallas_kernels.py:412"),
     ("paged_decode_attention", "paged_decode.cu",
      "deeplearning4j_tpu/ops/pallas_kernels.py:838"),
+    ("softmax_cross_entropy", "xent.cu",
+     "deeplearning4j_tpu/ops/pallas_kernels.py:957"),
+    ("softmax_cross_entropy_backward", "xent.cu",
+     "deeplearning4j_tpu/ops/pallas_kernels.py:988"),
+    ("fused_adamw", "adamw.cu",
+     "deeplearning4j_tpu/ops/pallas_updaters.py:79"),
 )
 
 
@@ -956,6 +1366,8 @@ def main() -> int:
     timed_phase("build", build)
     packed_rows, paged_rows = timed_phase("kernels", kernel_phase)
     train_rows = timed_phase("train kernels", train_kernel_phase)
+    update_rows = timed_phase("loss and update kernels",
+                              loss_update_kernel_phase)
     from deeplearning4j_tpu_torch.models import (
         TransformerConfig, init_params)
 
@@ -973,23 +1385,33 @@ def main() -> int:
     longctx = timed_phase("long-context train", long_context_phase)
     timed_phase("train parity", train_parity_phase)
     timed_phase("train profile", train_profile_phase)
+    fused = timed_phase("fused mlm train", fused_mlm_phase, mlm)
+    timed_phase("fused parity", fused_parity_phase)
+    timed_phase("fused profile", fused_profile_phase)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's launches on the path that carries it: the serving
     # engine (fp32-pool run) for the paged kernel, the MLM step for the
-    # packed kernels, the T=8192 step for the streamed ones
+    # packed kernels, the T=8192 step for the streamed ones, the composed
+    # MLM step for the cross-entropy and AdamW kernels
     launches = {"mha_attention_packed": ("mlm_train", mlm),
                 "mha_packed_backward": ("mlm_train", mlm),
                 "flash_forward": ("long_context_train", longctx),
                 "flash_bwd_dq": ("long_context_train", longctx),
-                "flash_bwd_dkv": ("long_context_train", longctx)}
-    rows = dict(train_rows, paged_decode_attention=paged_rows)
+                "flash_bwd_dkv": ("long_context_train", longctx),
+                "softmax_cross_entropy": ("fused_mlm_train", fused),
+                "softmax_cross_entropy_backward": ("fused_mlm_train", fused),
+                "fused_adamw": ("fused_mlm_train", fused)}
+    rows = dict(train_rows, paged_decode_attention=paged_rows, **update_rows)
     rows["mha_attention_packed"] = train_rows["mha_attention_packed"] \
         + packed_rows
     main_case = {"paged_decode_attention": "bf16 pool",
                  "flash_forward": "T8192 causal",
                  "flash_bwd_dq": "T8192 causal",
-                 "flash_bwd_dkv": "T8192 causal"}
+                 "flash_bwd_dkv": "T8192 causal",
+                 "softmax_cross_entropy": "N49152 V30522 bf16",
+                 "softmax_cross_entropy_backward": "N49152 V30522 bf16",
+                 "fused_adamw": "BERT-base fp32"}
     kernels = []
     for name, source, replaces in KERNELS:
         case = main_case.get(name, "B96 T512 non-causal")

@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from deeplearning4j_tpu_torch.models.random import as_key, fold_in, gumbel
 from deeplearning4j_tpu_torch.ops.attention_kernels import (
     flash_attention, flash_envelope_ok, mha_attention_packed,
     packed_kernel_shape_ok, paged_decode_attention)
+from deeplearning4j_tpu_torch.ops.updaters import tree_leaves as _leaves
 
 _log = logging.getLogger(__name__)
 _flash_fallback_warned: set = set()
@@ -305,16 +306,6 @@ def make_infer_last_logits(cfg: TransformerConfig):
     return last_logits
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a parameter tree in a fixed order (dict keys sorted,
-    lists in order), so params and optimizer moments pair up."""
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for x in tree for t in _leaves(x)]
-    return [tree]
-
-
 def grad_aliases(params):
     """``(tree, leaves)``: a copy of ``params`` whose tensors are detached
     aliases that require grad, and those aliases in :func:`_leaves`
@@ -369,7 +360,9 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-4,
         count = opt_state["count"] + 1
         bc1 = 1 - b1 ** count
         bc2 = 1 - b2 ** count
-        with torch.no_grad():
+        # the range names the eager AdamW tail in a torch.profiler trace
+        with torch.no_grad(), \
+                torch.profiler.record_function("make_train_step.adamw"):
             for p, g, mu, nu in zip(leaves, grads, opt_state["mu"],
                                     opt_state["nu"]):
                 mu.mul_(b1).add_(g * (1 - b1))

@@ -37,13 +37,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
-from torch._C import _functions as _autograd_functions
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops._launch import (
+    first_order_only, launch as _launch, route as _route,
+    stream_ptr as _stream_ptr)
 
 _NEG_INF = -1e30
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,45 +53,6 @@ _HEAD_DIMS = (16, 32, 64, 128)
 # dim only: every training path of the package runs at 64
 _BWD_HEAD_DIMS = (64,)
 _STATIC_SMEM_BYTES = 48 * 1024
-
-_bound = {}
-
-
-def _launch(source: str, entry: str, argtypes, *args):
-    """Call C entry point ``entry`` of kernel library ``source`` (built on
-    first use) and raise if the launch's cudaError_t is not 0. Every
-    pointer and the stream are declared ``c_void_p`` (64-bit), never the
-    ctypes default int."""
-    bound = _bound.get(entry)
-    if bound is None:
-        lib = _build.load(source)
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{source}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        bound = _bound[entry] = (fn, err)
-    fn, err = bound
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} "
-                           f"({err(rc).decode()})")
-
-
-def _stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _route(*tensors: torch.Tensor) -> str:
-    """'cpu' (plain version) or 'cuda' (kernel); anything else raises."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"operands span devices {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no attention kernel for device {dev}")
-    return dev.type
 
 
 def _check_kernel_operands(name: str, d: int, *tensors,
@@ -132,28 +93,7 @@ def higher_order_attention():
         _HIGHER_ORDER = prev
 
 
-def _first_order_only(backward):
-    """``torch.autograd.function.once_differentiable`` with an error that
-    names :func:`higher_order_attention`: the backward runs without
-    recording a graph, and when the caller asked for one
-    (``create_graph=True``) the gradients come back tied to a node that
-    raises if they are differentiated again."""
-    @functools.wraps(backward)
-    def wrapper(ctx, *grads):
-        with torch.no_grad():
-            out = backward(ctx, *grads)
-        if not torch.is_grad_enabled():
-            return out
-        live = [i for i, o in enumerate(out) if o is not None]
-        err = _autograd_functions.DelayedError(_FIRST_ORDER_MSG.encode(),
-                                               len(live))
-        tied = err(*[out[i].detach().requires_grad_() for i in live])
-        tied = tied if isinstance(tied, tuple) else (tied,)
-        out = list(out)
-        for i, t in zip(live, tied):
-            out[i] = t
-        return tuple(out)
-    return wrapper
+_first_order_only = first_order_only(_FIRST_ORDER_MSG)
 
 
 def _attention_reference(q, k, v, causal: bool, scale: Optional[float]):

@@ -313,3 +313,120 @@ def test_train_step_launches_the_packed_kernels(card, remat):
     assert bool(torch.isfinite(loss))
     assert ak.mha_attention_packed.launches - fwd == (4 if remat else 2)
     assert ak.mha_packed_backward.launches - bwd == 2
+
+
+# ------------------------------------------ fused cross-entropy and AdamW
+
+from deeplearning4j_tpu_torch.ops import updaters, xent_kernels  # noqa: E402
+
+
+def _xent_case(rng, n, v, dtype, device):
+    x = _tensor(rng, (n, v), torch.float32, device).mul_(3).to(dtype)
+    t = torch.as_tensor(rng.integers(0, v, n), device=device)
+    t[:4] = torch.tensor([-1, v, -9, v + 5])   # outside [0, V): add nothing
+    return x, t
+
+
+# 30522: BERT's vocab, whose bf16 rows start 4-byte but not 16-byte aligned;
+# 1000 and 333 (odd): other head/body/tail splits of a row
+@pytest.mark.parametrize("n,v", [(40, 30522), (16, 1000), (24, 333)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xent_matches_plain(card, n, v, dtype):
+    rng = np.random.default_rng(v)
+    x, t = _xent_case(rng, n, v, dtype, card)
+    g = torch.as_tensor(rng.random(n), dtype=torch.float32, device=card)
+    counts = (xent_kernels.softmax_cross_entropy.launches,
+              xent_kernels.softmax_cross_entropy_backward.launches)
+    loss, lse = xent_kernels.softmax_cross_entropy_forward(x, t)
+    grad = xent_kernels.softmax_cross_entropy_backward(x, t, lse, g)
+    rloss, rlse = xent_kernels.xent_forward_reference(x, t)
+    rgrad = xent_kernels.xent_backward_reference(x, t, rlse, g)
+    torch.cuda.synchronize()
+    assert (xent_kernels.softmax_cross_entropy.launches,
+            xent_kernels.softmax_cross_entropy_backward.launches) == \
+        tuple(c + 1 for c in counts)
+    assert loss.dtype == lse.dtype == torch.float32 and grad.dtype == dtype
+    # fp32 sums of the same V terms in another order
+    torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(loss, rloss, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(loss[:4], lse[:4], rtol=0, atol=0)
+    if dtype == torch.float32:
+        # exp's last ulp on both sides
+        torch.testing.assert_close(grad, rgrad, rtol=1e-5, atol=1e-8)
+    else:
+        # one bf16 ulp: the same fp32 value rounded on both sides
+        diff = (grad.float() - rgrad.float()).abs()
+        assert bool((diff <= 2 ** -7 * rgrad.float().abs() + 1e-8).all())
+
+
+def test_xent_autograd_and_double_backward(card):
+    rng = np.random.default_rng(13)
+    x, t = _xent_case(rng, 32, 512, torch.bfloat16, card)
+    x.requires_grad_()
+    before = xent_kernels.softmax_cross_entropy_backward.launches
+    (grad,) = torch.autograd.grad(
+        xent_kernels.softmax_cross_entropy(x, t).sum(), x, create_graph=True)
+    assert xent_kernels.softmax_cross_entropy_backward.launches == before + 1
+    _, rlse = xent_kernels.xent_forward_reference(x.detach(), t)
+    rgrad = xent_kernels.xent_backward_reference(
+        x.detach(), t, rlse, torch.ones(32, device=card))
+    diff = (grad.float() - rgrad.float()).abs()
+    assert bool((diff <= 2 ** -7 * rgrad.float().abs() + 1e-8).all())
+    with pytest.raises(RuntimeError, match="first-order"):
+        grad.float().sum().backward()
+
+
+def test_xent_refuses_unsupported_dtype(card):
+    x = torch.zeros(8, 16, dtype=torch.float16, device=card)
+    t = torch.zeros(8, dtype=torch.long, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        xent_kernels.softmax_cross_entropy_forward(x, t)
+
+
+def _adamw_tree(rng, dtype, device):
+    shapes = {"w": (1024, 128), "e": (3000, 128), "b": (7,), "odd": (5, 3)}
+    return {k: _tensor(rng, s, dtype, device) for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_adamw_matches_plain(card, dtype):
+    """Two applies over one launch each: p, m, v and count against the
+    plain version applied leaf by leaf to a copy."""
+    rng = np.random.default_rng(14)
+    params = _adamw_tree(rng, dtype, card)
+    ref_p = {k: p.clone() for k, p in params.items()}
+    opt = updaters.fused_adamw(3e-3, weight_decay=0.01)
+    state = opt.init(params)
+    ref_m = [torch.zeros_like(p) for p in updaters.tree_leaves(ref_p)]
+    ref_v = [torch.zeros_like(p) for p in updaters.tree_leaves(ref_p)]
+    before = updaters.fused_adamw.launches
+    for step in (1, 2):
+        grads = {k: _tensor(rng, p.shape, dtype, card)
+                 for k, p in params.items()}
+        opt.apply(params, state, grads)
+        bc1, bc2 = updaters.bias_corrections(step, 0.9, 0.999)
+        for i, (p, g) in enumerate(zip(updaters.tree_leaves(ref_p),
+                                       updaters.tree_leaves(grads))):
+            new = updaters.adamw_reference(p, g, ref_m[i], ref_v[i], bc1,
+                                           bc2, lr=3e-3, b1=0.9, b2=0.999,
+                                           eps=1e-8, wd=0.01)
+            for dst, src in zip((p, ref_m[i], ref_v[i]), new):
+                dst.copy_(src)
+    torch.cuda.synchronize()
+    assert updaters.fused_adamw.launches == before + 2
+    assert state["count"] == 2
+    got = updaters.tree_leaves(params) + state["mu"] + state["nu"]
+    want = updaters.tree_leaves(ref_p) + ref_m + ref_v
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype
+        # every operation rounded once in fp32 on both sides (the kernel
+        # contracts nothing into an FMA): equal up to an ulp
+        torch.testing.assert_close(a, b, rtol=2 ** -22 if dtype ==
+                                   torch.float32 else 2 ** -7, atol=1e-12)
+
+
+def test_fused_adamw_refuses_unsupported_dtype(card):
+    p = {"w": torch.zeros(16, dtype=torch.float16, device=card)}
+    opt = updaters.fused_adamw(1e-3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        opt.apply(p, opt.init(p), {"w": torch.zeros_like(p["w"])})
