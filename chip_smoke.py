@@ -7,7 +7,9 @@ seconds:
 1. probe — torch/CUDA/nvcc versions and the card's name and power limit;
 2. build — compile every kernel source in
    ``deeplearning4j_tpu_torch/ops/csrc`` (one nvcc per source, in
-   parallel);
+   parallel), print ptxas's registers and spills, and count the tensor-
+   core instructions (HGMMA, HMMA) of the attention backward library,
+   which must have some;
 3. kernels — the serving kernels (packed forward, paged decode) against
    their plain PyTorch versions on the card at the serving shapes, with
    the tolerance stated beside each check, timed beside the plain
@@ -17,6 +19,9 @@ seconds:
    backward at the MLM step's shape (B=96, T=512, H=12, D=64, bf16), a
    causal and a bf16-p case; the streamed forward, dq and dk/dv at T=2048
    (causal and not) and at the long-context shape (B=2, T=8192, causal);
+   each row's share of its bound and its time over the library call's
+   (for the backward rows PyTorch's sdpa backward alone, one
+   ``autograd.grad`` of a saved forward);
    loss and update kernels — the fused cross-entropy forward and backward
    at the MLM step's logits (49152 x 30522, bf16) and at edge cases
    (fp32, targets -1 and V, N not a multiple of 128), the fused AdamW over
@@ -45,7 +50,8 @@ seconds:
     and the einsum route give the same loss and gradients at T=512 (packed)
     and T=2048 (streamed);
 12. train profile — one MLM step under torch.profiler, with the device
-    time of make_train_step's eager AdamW tail;
+    time of make_train_step's eager AdamW tail; long-context profile —
+    one T=8192 step under torch.profiler;
 13. fused mlm train — bench.py's MLM step composed from the public entry
     points (``_forward_raw``, ``softmax_cross_entropy`` over the (B*T, V)
     logits, the weighted mean, ``fused_adamw(1e-4, weight_decay=0.01)
@@ -66,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -256,6 +263,19 @@ def build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # the bf16 backward passes run on the tensor cores: the wgmma (HGMMA)
+    # and mma (HMMA) instructions in the built attention_bwd library
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library("attention_bwd"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sum(1 for line in sass.splitlines()
+                      if f" {op}." in line or f" {op} " in line)
+              for op in ("HGMMA", "HMMA")}
+    log(f"attention_bwd SASS: {counts['HGMMA']} HGMMA, {counts['HMMA']} "
+        f"HMMA instructions")
+    check(counts["HGMMA"] > 0, "attention_bwd has no HGMMA instruction: "
+          "its bf16 passes do not reach the tensor cores")
 
 
 def packed_cases(torch):
@@ -391,26 +411,20 @@ def packed_train_cases(torch):
             ("B2 T128 causal p=bf16", 2, 128, True, torch.bfloat16)]
 
 
-def sdpa_backward_ms(q4, k4, v4, do4, causal):
+def sdpa_backward_ms(q4, k4, v4, do4, causal, it: int = 20,
+                     reps: int = 5):
     """The library yardstick of the backward rows: PyTorch's fused
-    attention backward, timed as the autograd backward of
-    ``scaled_dot_product_attention`` (forward + backward, minus the
-    forward alone); one call gives dq, dk and dv."""
+    attention backward alone, timed as ``torch.autograd.grad`` of one saved
+    ``scaled_dot_product_attention`` forward (``retain_graph``, so every
+    call runs the same backward); one call gives dq, dk and dv."""
     import torch
     import torch.nn.functional as F
 
     xs = [x.detach().clone().requires_grad_() for x in (q4, k4, v4)]
-
-    def both():
-        o = F.scaled_dot_product_attention(*xs, is_causal=causal)
-        torch.autograd.grad(o, xs, do4)
-
-    def fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(*xs, is_causal=causal)
-
-    return max(time_ms(both, 3, 3, graph=False)
-               - time_ms(fwd, 3, 3, graph=False), 0.0)
+    o = F.scaled_dot_product_attention(*xs, is_causal=causal)
+    return time_ms(lambda: torch.autograd.grad(o, xs, do4,
+                                               retain_graph=True),
+                   it, reps, graph=False)
 
 
 def flash_train_cases():
@@ -455,14 +469,20 @@ def train_kernel_phase():
     def add(name, label, judged_, ms, plain_ms, lib_ms, nbytes, flops):
         err, share, rule = judged_
         b_ms, b_by = bound(nbytes, flops)
+        # the kernel's share of its roofline bound, and its time over the
+        # library call's
+        roof = b_ms / ms
+        factor = None if lib_ms is None else ms / lib_ms
         log(f"{name} {label}: max_abs_err {err:.3e} ({share:.3f} of its "
             f"bound {rule}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms bound "
-            f"{b_ms:.5f} ms ({b_by})")
+            f"{b_ms:.5f} ms ({b_by}); {100 * roof:.2f}% of the bound, "
+            f"{'-' if factor is None else f'{factor:.2f}'}x the library")
         rows[name].append(dict(case=label, max_abs_err=err,
                                bound_share=share, tol=rule, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=b_ms, bound_by=b_by))
+                               bound_ms=b_ms, bound_by=b_by,
+                               roofline_share=roof, library_factor=factor))
 
     for label, B, T, causal, p_dtype in packed_train_cases(torch):
         q, k, v, do = (rand((B, T, H * D)) for _ in range(4))
@@ -502,9 +522,11 @@ def train_kernel_phase():
                 hs(q), hs(k), hs(v), is_causal=causal), it, reps,
                 graph=not big),
             4 * n_elt * 2 + B * H * T * 4, fwd_flops)
+        # the backward kernel and its library call take milliseconds:
+        # 20 calls a window, median of 5
         add("mha_packed_backward", label, bwd,
             time_ms(lambda: ak.mha_packed_backward(
-                q, k, v, do, rlse, H, causal, None, p_dtype), it, reps,
+                q, k, v, do, rlse, H, causal, None, p_dtype), 20, 5,
                 graph=not big),
             time_ms(lambda: ak.mha_packed_backward_reference(
                 q, k, v, do, rlse, H, causal, None, p_dtype), it, reps,
@@ -553,15 +575,16 @@ def train_kernel_phase():
                 graph=False),
             4 * n_elt * 2 + vec, 2 * prod)
         lib_bwd = sdpa_backward_ms(q4(q), q4(k), q4(v), q4(do), causal)
+        # the backward kernels: 20 calls a window, median of 5
         add("flash_bwd_dq", label, bwd_dq,
             time_ms(lambda: ak.flash_bwd_dq(q, k, v, do, rlse, delta,
-                                            causal), it, reps, graph=False),
+                                            causal), 20, 5, graph=False),
             time_ms(lambda: ak.flash_bwd_dq_reference(
                 q, k, v, do, rlse, delta, causal), it, reps, graph=False),
             lib_bwd, 5 * n_elt * 2 + 2 * vec, 3 * prod)
         add("flash_bwd_dkv", label, bwd_dkv,
             time_ms(lambda: ak.flash_bwd_dkv(q, k, v, do, rlse, delta,
-                                             causal), it, reps, graph=False),
+                                             causal), 20, 5, graph=False),
             time_ms(lambda: ak.flash_bwd_dkv_reference(
                 q, k, v, do, rlse, delta, causal), it, reps, graph=False),
             lib_bwd, 6 * n_elt * 2 + 2 * vec, 4 * prod)
@@ -902,21 +925,19 @@ def train_parity_phase():
         torch.cuda.empty_cache()
 
 
-def train_profile_phase():
-    """One MLM step (B=96, T=512, after a warm-up step) under
-    torch.profiler: the device's busy share and the top kernels."""
+def profile_train_step(cfg, B, T, label):
+    """One make_train_step step on ``cfg`` (after a warm-up step) under
+    torch.profiler: the device's busy share and the top kernels. Returns
+    the profile and its device events."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from deeplearning4j_tpu_torch.models import (
-        TransformerConfig, init_params, make_train_step)
+    from deeplearning4j_tpu_torch.models import init_params, make_train_step
 
-    cfg = TransformerConfig(remat=False, attention_impl="flash")
     params = init_params(cfg, seed=0, device=DEVICE)
     init_state, step = make_train_step(cfg)
     opt_state = init_state(params)
-    batch = train_batch(cfg, 96, 512)
+    batch = train_batch(cfg, B, T)
     params, opt_state, _ = step(params, opt_state, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -925,7 +946,21 @@ def train_profile_phase():
         params, opt_state, _ = step(params, opt_state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = report_profile(prof, wall_ms, "train profile")
+    kernels = report_profile(prof, wall_ms, label)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return prof, kernels
+
+
+def train_profile_phase():
+    """One MLM step (B=96, T=512) under torch.profiler, with the device
+    time of make_train_step's eager AdamW tail."""
+    from torch.autograd import DeviceType
+
+    from deeplearning4j_tpu_torch.models import TransformerConfig
+
+    cfg = TransformerConfig(remat=False, attention_impl="flash")
+    prof, kernels = profile_train_step(cfg, 96, 512, "train profile")
     # the eager AdamW tail: the device time of every kernel launched inside
     # make_train_step's "make_train_step.adamw" range
     tail = [e for e in prof.key_averages()
@@ -936,8 +971,15 @@ def train_profile_phase():
     busy = sum(ms for _, ms, _ in kernels)
     log(f"train profile: eager AdamW tail {tail_ms:.3f} ms of device time "
         f"({100 * tail_ms / busy:.2f}% of device time)")
-    del params, opt_state
-    torch.cuda.empty_cache()
+
+
+def long_context_profile_phase():
+    """One step of the causal LM at B=2, T=8192 under torch.profiler."""
+    from deeplearning4j_tpu_torch.models import TransformerConfig
+
+    cfg = TransformerConfig(causal=True, max_seq=8192, remat=False,
+                            attention_impl="flash")
+    profile_train_step(cfg, 2, 8192, "long-context profile")
 
 
 def make_fused_mlm_step(cfg, learning_rate=1e-4, weight_decay=0.01):
@@ -1312,9 +1354,12 @@ def report_profile(prof, wall_ms, label):
     busy_ms = sum(ms for _, ms, _ in kernels)
     log(f"{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.2f}% of wall)")
-    for name, ms, n in sorted(kernels, key=lambda r: -r[1])[:10]:
-        log(f"  {ms:10.3f} ms {100 * ms / busy_ms:6.2f}%  x{n:<6d} "
-            f"{name[:90]}")
+    ranked = sorted(kernels, key=lambda r: -r[1])
+    # the top ten, then the package's own kernels below them
+    for rank, (name, ms, n) in enumerate(ranked):
+        if rank < 10 or name.startswith(("dl4jt", "void dl4jt")):
+            log(f"  {ms:10.3f} ms {100 * ms / busy_ms:6.2f}%  x{n:<6d} "
+                f"{name[:90]}")
     return kernels
 
 
@@ -1385,6 +1430,7 @@ def main() -> int:
     longctx = timed_phase("long-context train", long_context_phase)
     timed_phase("train parity", train_parity_phase)
     timed_phase("train profile", train_profile_phase)
+    timed_phase("long-context profile", long_context_profile_phase)
     fused = timed_phase("fused mlm train", fused_mlm_phase, mlm)
     timed_phase("fused parity", fused_parity_phase)
     timed_phase("fused profile", fused_profile_phase)

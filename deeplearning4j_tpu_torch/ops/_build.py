@@ -51,7 +51,9 @@ def nvcc() -> str:
         "package's kernels")
 
 
-def _target(name: str) -> Path:
+def library(name: str) -> Path:
+    """Path of the shared library of kernel source ``name`` for the
+    current sources and flags (it exists once built)."""
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(sources()[name].read_bytes())
@@ -74,7 +76,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     procs = {}
     took = {n: 0.0 for n in names}
     for n in names:
-        out = _target(n)
+        out = library(n)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -101,7 +103,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 def build_log(name: str) -> str:
     """nvcc's output for the current build of ``name`` (ptxas register and
     shared-memory report), or '' when it was built elsewhere."""
-    log = _target(name).with_suffix(".log")
+    log = library(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -111,6 +113,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(library(name)))
             _libs[name] = lib
         return lib

@@ -13,27 +13,26 @@
 // in the input dtype (or pb * (dp - delta) rounded, for bf16 p);
 // dq = scale * ds k, dk = ds^T (scale q), dv = pb^T dO.
 //
-// What bounds it here: at the training shapes (B=96, T=512, H=12, D=64;
-// B=2, T=8192 causal) the five (T, T, D) products make the work ~1000
-// flop/byte or more, above the card's ~295 ridge: the bound is the
-// tensor-core rate, which these plain FMA loops cannot reach.
-//
-// Design: the TPU kernel holds a head's whole (T, T) block in VMEM and
+// The TPU kernel holds a head's whole (T, T) block in VMEM and
 // accumulates dk/dv and dq in one pass; an SM has 227 KB, and CTAs run in
 // parallel with nothing carried between them. So the work is split into
 // two deterministic passes without atomics:
-// 1. dq pass, one CTA per (16-query tile, head, batch): when delta is not
-//    given, a first sweep over the K/V tiles takes delta from p rebuilt in
-//    p's dtype (exactly the TPU's delta) and writes it for pass 2; a second
-//    sweep stages each tile's ds in shared memory and accumulates dq.
-// 2. dk/dv pass, one CTA per (16-key tile, head, batch): it sweeps the
-//    query tiles (causal CTAs start at their diagonal), stages p and ds in
-//    shared memory and accumulates dk and dv.
-// Threads and shared-memory layout follow the forward (attention_fwd.cuh):
-// 8 lanes per row; a lane takes every 8th key (or query) of a tile for the
-// D-long dot products and owns every 8th output dimension for the sums;
-// +1 pads keep the shared-memory reads free of bank conflicts.
-#include "dtype.cuh"
+// 1. dq pass, one CTA per query tile: when delta is not given, a first
+//    sweep over the K/V tiles takes delta from p rebuilt in p's dtype
+//    (exactly the TPU's delta) and writes it for pass 2; a second sweep
+//    accumulates dq from ds.
+// 2. dk/dv pass, one CTA per key tile: it sweeps the query tiles (causal
+//    CTAs start at their diagonal) and accumulates dk and dv.
+//
+// bf16 operands (every training path) take the tensor-core kernels of
+// attention_bwd_tc.cuh, whose note gives the bound and the design. fp32
+// operands (tests and the fp32 parity runs) take the FMA loops below:
+// fp32 products on tensor cores would need TF32, which the package turns
+// off. They tile 16 rows per CTA with 8 lanes per row; a lane takes every
+// 8th key (or query) of a tile for the D-long dot products and owns every
+// 8th output dimension for the sums; +1 pads keep the shared-memory reads
+// free of bank conflicts.
+#include "attention_bwd_tc.cuh"
 
 namespace dl4jt {
 namespace {
@@ -41,40 +40,6 @@ namespace {
 constexpr int kRows = 16;                  // queries (dq) or keys (dk/dv)
 constexpr int kLanes = 8;                  // threads per row
 constexpr int kThreads = kRows * kLanes;   // 128
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;
-  float* delta;   // (batch, heads, seq): written by pass 1 or given
-  void* dq;
-  void* dk;
-  void* dv;
-  int batch, seq, heads;
-  float scale;
-  int causal, p_bf16, compute_delta;
-};
-
-// p = exp(s - lse) in p's dtype: bf16 rounds s - lse and the exp
-__device__ __forceinline__ float prob(float s, float lse, int p_bf16) {
-  if (p_bf16) {
-    return round_to<__nv_bfloat16>(expf(round_to<__nv_bfloat16>(s - lse)));
-  }
-  return expf(s - lse);
-}
-
-// ds in the input dtype: (p (dp - delta)) rounded for fp32 p, and
-// pb * (dp - delta) in the input dtype for bf16 p
-template <typename Elt>
-__device__ __forceinline__ float dscore(float p, float dp, float delta,
-                                        int p_bf16) {
-  if (p_bf16) {
-    return round_to<Elt>(round_to<Elt>(p) * round_to<Elt>(dp - delta));
-  }
-  return round_to<Elt>(p * (dp - delta));
-}
 
 template <int D>
 __device__ __forceinline__ float dot_rows(const float* a, const float* b) {
@@ -351,8 +316,8 @@ int launch_passes(const BwdArgs& a, int passes, cudaStream_t stream) {
 }
 
 // Built for head_dim 64 only (BERT-base's 768 / 12, every training path
-// of the package): each further head dim is four more kernels to compile
-// on every build. The wrapper refuses other head dims before the launch.
+// of the package): each further head dim is more kernels to compile on
+// every build. The wrapper refuses other head dims before the launch.
 template <typename Elt>
 int dispatch_head_dim(const BwdArgs& a, int head_dim, int passes,
                       cudaStream_t stream) {
@@ -360,11 +325,47 @@ int dispatch_head_dim(const BwdArgs& a, int head_dim, int passes,
   return launch_passes<Elt, 64, 64, 32>(a, passes, stream);
 }
 
+// The bf16 passes on the tensor cores (attention_bwd_tc.cuh), one CTA
+// of 128 threads per 64-row tile and head, with ~50 KB of dynamic shared
+// memory each.
+int launch_tc(const BwdArgs& a, int passes, cudaStream_t stream) {
+  const long long blocks =
+      static_cast<long long>((a.seq + tc::kTile - 1) / tc::kTile) * a.batch *
+      a.heads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  cudaError_t err;
+  if (passes & kPassDq) {
+    err = cudaFuncSetAttribute(tc::attention_bwd_dq_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tc::kDqSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tc::attention_bwd_dq_tc_kernel<<<grid, tc::kThreads, tc::kDqSmem,
+                                     stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (passes & kPassDkv) {
+    err = cudaFuncSetAttribute(tc::attention_bwd_dkv_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tc::kDkvSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tc::attention_bwd_dkv_tc_kernel<<<grid, tc::kThreads, tc::kDkvSmem,
+                                      stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// fp32 takes the FMA loops, bf16 the tensor cores; head_dim 64 only for
+// both (the wrapper refuses others before the launch)
 int run(const BwdArgs& a, int head_dim, int dtype, int passes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return dispatch_head_dim<float>(a, head_dim, passes, s);
   if (dtype == kBF16) {
-    return dispatch_head_dim<__nv_bfloat16>(a, head_dim, passes, s);
+    if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tc(a, passes, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -228,6 +228,111 @@ def test_streamed_kernels_match_plain(card, dtype, t, causal):
             assert _within(a, b, 64, BWD_FLOOR)
 
 
+# ------------------------- bf16 backward on the tensor cores (rows 2, 4, 5)
+
+
+def _packed_bwd_bf16(card, seed, b, t, heads, causal, p_dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_tensor(rng, (b, t, heads * 64), torch.bfloat16, card)
+                   for _ in range(4))
+    _, lse = ak.mha_packed_forward_reference(q, k, v, heads, causal, None,
+                                             p_dtype)
+    return (q, k, v, do, lse), ak.mha_packed_backward(
+        q, k, v, do, lse, heads, causal, None, p_dtype)
+
+
+def _streamed_bwd_bf16(card, seed, bh, t, causal):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_tensor(rng, (bh, t, 64), torch.bfloat16, card)
+                   for _ in range(4))
+    o, lse = ak.flash_forward_reference(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).reshape(bh, 1, t)
+    dq = ak.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = ak.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return (q, k, v, do, lse, delta), (dq, dk, dv)
+
+
+# 8: one partial tile; 72: a full 64-row tile and a partial one; 1032:
+# sixteen full tiles and a partial one
+@pytest.mark.parametrize("t", [8, 72, 1032])
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_backward_bf16_tiles(card, t, causal):
+    ins, got = _packed_bwd_bf16(card, t, 2, t, 3, causal, torch.float32)
+    ref = ak.mha_packed_backward_reference(*ins, 3, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _within(a, b, 64, BWD_FLOOR)
+
+
+@pytest.mark.parametrize("t", [72, 1032])
+def test_packed_backward_bf16_p_tiles(card, t):
+    ins, got = _packed_bwd_bf16(card, t + 3, 2, t, 3, True, torch.bfloat16)
+    ref = ak.mha_packed_backward_reference(*ins, 3, True, None,
+                                           torch.bfloat16)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        # bf16 p: the JAX package's 5e-2 bound for that mode
+        assert _max_err(a, b) <= _bound(b, 5e-2)
+
+
+# 1001: not a multiple of 8 (the streamed passes take any T)
+@pytest.mark.parametrize("t", [8, 72, 1001, 1032])
+@pytest.mark.parametrize("causal", [True, False])
+def test_streamed_backward_bf16_tiles(card, t, causal):
+    ins, got = _streamed_bwd_bf16(card, t + 5, 3, t, causal)
+    rdq = ak.flash_bwd_dq_reference(*ins, causal)
+    rdk, rdv = ak.flash_bwd_dkv_reference(*ins, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got, (rdq, rdk, rdv)):
+        assert _within(a, b, 64, BWD_FLOOR)
+
+
+def test_streamed_backward_bf16_long_context(card):
+    """One head of the T=8192 causal training shape (rows 4-5)."""
+    ins, got = _streamed_bwd_bf16(card, 13, 1, 8192, True)
+    rdq = ak.flash_bwd_dq_reference(*ins, True)
+    rdk, rdv = ak.flash_bwd_dkv_reference(*ins, True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, (rdq, rdk, rdv)):
+        assert _within(a, b, 64, BWD_FLOOR)
+
+
+def test_backward_bf16_is_deterministic(card):
+    """Two passes without atomics: two calls on the same inputs agree bit
+    for bit."""
+    ins, first = _packed_bwd_bf16(card, 14, 2, 520, 3, False, torch.float32)
+    again = ak.mha_packed_backward(*ins, 3, False)
+    sins, sfirst = _streamed_bwd_bf16(card, 15, 2, 1032, True)
+    sagain = (ak.flash_bwd_dq(*sins, True),
+              *ak.flash_bwd_dkv(*sins, True))
+    torch.cuda.synchronize()
+    for a, b in zip(first + sfirst, again + sagain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("impl", ["packed", "streamed"])
+def test_backward_bf16_keys_past_seq_add_nothing(card, impl):
+    """Keys past the sequence are zero-filled in the tile and must give
+    p = 0 (zero keys would give s = 0 and p = exp(-lse) otherwise): under
+    the causal mask the first 72 queries of a T=128 case see only the
+    first 72 keys, so their dq equals the T=72 case's on the same prefix."""
+    n = 72
+    if impl == "packed":
+        ins, got = _packed_bwd_bf16(card, 16, 2, 128, 3, True, torch.float32)
+        q, k, v, do, _ = (x[:, :n].contiguous() for x in ins)
+        _, lse = ak.mha_packed_forward_reference(q, k, v, 3, True)
+        short = ak.mha_packed_backward(q, k, v, do, lse, 3, True)[0]
+        long_dq = got[0][:, :n]
+    else:
+        ins, got = _streamed_bwd_bf16(card, 17, 3, 128, True)
+        q, k, v, do = (x[:, :n].contiguous() for x in ins[:4])
+        lse, delta = (x[..., :n].contiguous() for x in ins[4:])
+        short = ak.flash_bwd_dq(q, k, v, do, lse, delta, True)
+        long_dq = got[0][:, :n]
+    torch.cuda.synchronize()
+    assert _within(long_dq, short, 64, BWD_FLOOR)
+
+
 @pytest.mark.parametrize("impl", ["packed", "flash"])
 def test_autograd_matches_plain_autograd(card, impl):
     rng = np.random.default_rng(9)
