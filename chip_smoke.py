@@ -8,8 +8,9 @@ seconds:
 2. build — compile every kernel source in
    ``deeplearning4j_tpu_torch/ops/csrc`` (one nvcc per source, in
    parallel), print ptxas's registers and spills, and count the tensor-
-   core instructions (HGMMA, HMMA) of the attention backward library,
-   which must have some;
+   core instructions (HGMMA, HMMA) of the attention forward libraries
+   (``mha_packed_fwd``, ``flash_fwd``) and of the backward
+   (``attention_bwd``): each must have HGMMA;
 3. kernels — the serving kernels (packed forward, paged decode) against
    their plain PyTorch versions on the card at the serving shapes, with
    the tolerance stated beside each check, timed beside the plain
@@ -22,6 +23,11 @@ seconds:
    each row's share of its bound and its time over the library call's
    (for the backward rows PyTorch's sdpa backward alone, one
    ``autograd.grad`` of a saved forward);
+   kernel chain — what training runs: the backward kernels fed the
+   forward kernel's lse, against the plain backward fed the same lse, at
+   B=2 T=128 causal (packed, fp32 and bf16 p) and T=2048 causal
+   (streamed); dq's first causal row is exactly 0 on both sides (packed)
+   or equal bit for bit (streamed, whose delta the caller sums);
    loss and update kernels — the fused cross-entropy forward and backward
    at the MLM step's logits (49152 x 30522, bf16) and at edge cases
    (fp32, targets -1 and V, N not a multiple of 128), the fused AdamW over
@@ -263,19 +269,20 @@ def build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    # the bf16 backward passes run on the tensor cores: the wgmma (HGMMA)
-    # and mma (HMMA) instructions in the built attention_bwd library
+    # the bf16 attention forward and backward run on the tensor cores: the
+    # wgmma (HGMMA) and mma (HMMA) instructions in each built library
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(_build.library("attention_bwd"))],
-                          capture_output=True, text=True, check=True).stdout
-    counts = {op: sum(1 for line in sass.splitlines()
-                      if f" {op}." in line or f" {op} " in line)
-              for op in ("HGMMA", "HMMA")}
-    log(f"attention_bwd SASS: {counts['HGMMA']} HGMMA, {counts['HMMA']} "
-        f"HMMA instructions")
-    check(counts["HGMMA"] > 0, "attention_bwd has no HGMMA instruction: "
-          "its bf16 passes do not reach the tensor cores")
+    for name in ("mha_packed_fwd", "flash_fwd", "attention_bwd"):
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: sum(1 for line in sass.splitlines()
+                          if f" {op}." in line or f" {op} " in line)
+                  for op in ("HGMMA", "HMMA")}
+        log(f"{name} SASS: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA "
+            f"instructions")
+        check(counts["HGMMA"] > 0, f"{name} has no HGMMA instruction: its "
+              "bf16 kernels do not reach the tensor cores")
 
 
 def packed_cases(torch):
@@ -511,15 +518,17 @@ def train_kernel_phase():
         fwd_flops = (2 if causal else 4) * B * H * T * T * D
         big = B * T >= 8192
         it, reps = (3, 3) if big else (20, 5)
+        # the forward kernel and its library call: 20 calls a window,
+        # median of 5; the plain version (milliseconds) 3 x 3 when big
         add("mha_attention_packed", label, fwd,
             time_ms(lambda: ak.mha_packed_forward(q, k, v, H, causal, None,
-                                                  p_dtype), it, reps,
+                                                  p_dtype), 20, 5,
                     graph=not big),
             time_ms(lambda: ak.mha_packed_forward_reference(
                 q, k, v, H, causal, None, p_dtype), it, reps,
                 graph=not big),
             time_ms(lambda: F.scaled_dot_product_attention(
-                hs(q), hs(k), hs(v), is_causal=causal), it, reps,
+                hs(q), hs(k), hs(v), is_causal=causal), 20, 5,
                 graph=not big),
             4 * n_elt * 2 + B * H * T * 4, fwd_flops)
         # the backward kernel and its library call take milliseconds:
@@ -565,13 +574,15 @@ def train_kernel_phase():
 
         def q4(x):
             return x.view(B, H, T, D)
+        # the forward kernel and its library call: 20 calls a window,
+        # median of 5
         add("flash_forward", label, fwd,
-            time_ms(lambda: ak.flash_forward(q, k, v, causal), it, reps,
+            time_ms(lambda: ak.flash_forward(q, k, v, causal), 20, 5,
                     graph=False),
             time_ms(lambda: ak.flash_forward_reference(q, k, v, causal), it,
                     reps, graph=False),
             time_ms(lambda: F.scaled_dot_product_attention(
-                q4(q), q4(k), q4(v), is_causal=causal), it, reps,
+                q4(q), q4(k), q4(v), is_causal=causal), 20, 5,
                 graph=False),
             4 * n_elt * 2 + vec, 2 * prod)
         lib_bwd = sdpa_backward_ms(q4(q), q4(k), q4(v), q4(do), causal)
@@ -591,6 +602,82 @@ def train_kernel_phase():
         del q, k, v, do, o, lse, ro, rlse, delta, dq, dk, dv, rdq, rdk, rdv
         torch.cuda.empty_cache()
     return rows
+
+
+def chain_cases(torch):
+    """(label, B, T, p_dtype, streamed) of the chain check: the packed
+    kernels at a causal T=128 with fp32 and bf16 p, the streamed ones at
+    T=2048 causal."""
+    return [("B2 T128 causal", 2, 128, torch.float32, False),
+            ("B2 T128 causal p=bf16", 2, 128, torch.bfloat16, False),
+            ("T2048 causal", 2, 2048, torch.float32, True)]
+
+
+def chain_phase():
+    """The chain that training runs: the backward kernels fed the forward
+    kernel's lse (the streamed ones also delta = rowsum(dO * o) of the
+    forward kernel's o, as ``_FlashAttention.backward`` takes it), against
+    the plain backward fed the same lse and delta, per element (``judge``).
+    The first query of a causal head sees one key: the forward kernel's lse
+    is exactly its score, so dq's first row is exactly 0 on both sides where
+    delta is taken inside the kernel from p (packed), and equal bit for bit
+    on both sides where the caller's fp32 rowsum gives it (streamed: its
+    order of summation is not the product's, so dp - delta may keep an
+    ulp)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+
+    H, D = 12, 64
+    rng = np.random.default_rng(3)
+
+    def rand(shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(DEVICE,
+                                                       torch.bfloat16)
+
+    for label, B, T, p_dtype, streamed in chain_cases(torch):
+        bf16_p = p_dtype == torch.bfloat16
+        if streamed:
+            BH = B * H
+            q, k, v, do = (rand((BH, T, D)) for _ in range(4))
+            o, lse = ak.flash_forward(q, k, v, True)
+            delta = (do.float() * o.float()).sum(-1).reshape(BH, 1, T)
+            got = (ak.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                   *ak.flash_bwd_dkv(q, k, v, do, lse, delta, True))
+            ref = (ak.flash_bwd_dq_reference(q, k, v, do, lse, delta, True),
+                   *ak.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               True))
+        else:
+            q, k, v, do = (rand((B, T, H * D)) for _ in range(4))
+            _, lse = ak.mha_packed_forward(q, k, v, H, True, None, p_dtype)
+            got = ak.mha_packed_backward(q, k, v, do, lse, H, True, None,
+                                         p_dtype)
+            ref = ak.mha_packed_backward_reference(q, k, v, do, lse, H, True,
+                                                   None, p_dtype)
+        torch.cuda.synchronize()
+        first = (got[0][:, 0], ref[0][:, 0])   # every head's first row
+        worst = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            err, share, rule = judge(a, b, D, bf16_p, BWD_FLOOR)
+            check(share <= 1.0, f"chain {label}: {name} max err {err} takes "
+                  f"{share} of its bound {rule}")
+            worst = max(worst, share)
+        row0 = [x.float().abs().max().item() for x in first]
+        check(torch.equal(*first), f"chain {label}: dq's first causal row "
+              f"differs between kernel and plain (max |.| {row0})")
+        if not streamed:
+            check(row0 == [0.0, 0.0], f"chain {label}: dq's first causal row "
+                  f"is not exactly 0 (max |.| kernel, plain: {row0})")
+        zero_heads = int((first[0].float().abs().amax(-1) == 0).sum().item()) \
+            if streamed else None
+        log(f"chain {label}: worst share of the bound {worst:.3f} ({rule}); "
+            f"dq's first causal row max |.| {row0[0]:.3e} kernel, "
+            f"{row0[1]:.3e} plain, equal bit for bit"
+            + (f"; exactly 0 in {zero_heads} of {first[0].shape[0]} heads"
+               if streamed else ""))
+        del q, k, v, do, lse, got, ref, first
+        torch.cuda.empty_cache()
 
 
 def chat_mix(vocab: int, n_requests: int = 32, max_len: int = 512):
@@ -1411,6 +1498,7 @@ def main() -> int:
     timed_phase("build", build)
     packed_rows, paged_rows = timed_phase("kernels", kernel_phase)
     train_rows = timed_phase("train kernels", train_kernel_phase)
+    timed_phase("kernel chain", chain_phase)
     update_rows = timed_phase("loss and update kernels",
                               loss_update_kernel_phase)
     from deeplearning4j_tpu_torch.models import (

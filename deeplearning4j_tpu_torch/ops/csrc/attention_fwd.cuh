@@ -4,22 +4,30 @@
 // projection layout, fp32 accumulation, optional bf16 probabilities. The
 // streamed (BH, T, D) layout is the packed one with one head.
 //
-// Design: the TPU kernels hold a whole head's (T, T) scores in VMEM (the
-// packed one) or stream 512-key blocks through it (the streamed one); an
-// SM has at most 227 KB, so this kernel streams K/V in tiles of BN keys
-// through shared memory with the online-softmax recurrence (running max
-// m, denominator l, accumulator acc) and never materializes the scores.
-// Grid (q-tile of kRows rows, head, batch); each query row is served by
-// kLanes threads: for the scores a lane takes every kLanes-th key of the
-// tile (full D-long dot products, row max and sum by warp shuffles), for
-// P.V a lane owns every kLanes-th output dimension and reads the row's
-// probabilities back from shared memory. Heads are addressed through the
-// packed row stride H*D at column h*D, so no head transpose is made.
-// Causal CTAs stop at the diagonal tile. Plain FMA loops: the tensor-core
-// (wgmma/TMA) version is later work.
+// bf16 operands at head_dim 64 (every main path: the MLM step, the T=8192
+// step, the serving prefill) take the tensor-core kernel of
+// attention_fwd_tc.cuh, whose note gives the bound and the design. The
+// template below serves the rest: fp32 operands (tests and the fp32 parity
+// runs; fp32 products on tensor cores would need TF32, which the package
+// turns off) and bf16 at head dims 16, 32 and 128, which no main path runs.
+//
+// The FMA template: the TPU kernels hold a whole head's (T, T) scores in
+// VMEM (the packed one) or stream 512-key blocks through it (the streamed
+// one); an SM has at most 227 KB, so this kernel streams K/V in tiles of
+// BN keys through shared memory with the online-softmax recurrence
+// (running max m, denominator l, accumulator acc) and never materializes
+// the scores. Grid (q-tile of kRows rows, head, batch); each query row is
+// served by kLanes threads: for the scores a lane takes every kLanes-th
+// key of the tile (full D-long dot products, row max and sum by warp
+// shuffles), for P.V a lane owns every kLanes-th output dimension and
+// reads the row's probabilities back from shared memory. Heads are
+// addressed through the packed row stride H*D at column h*D, so no head
+// transpose is made. Causal CTAs stop at the diagonal tile.
 #pragma once
 
-#include "dtype.cuh"
+#include <type_traits>
+
+#include "attention_fwd_tc.cuh"
 
 namespace dl4jt {
 
@@ -155,6 +163,8 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
 }
 
 // Launch the forward for one dtype; returns the launch's cudaError_t.
+// bf16 at head_dim 64 launches the tensor-core kernel, everything else the
+// FMA template.
 template <typename Elt>
 int launch_attention_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int batch, int seq, int heads,
@@ -176,8 +186,14 @@ int launch_attention_fwd(const void* q, const void* k, const void* v,
           qp, kp, vp, op, lp, seq, heads, scale, causal, p_bf16, clamp_l);
       break;
     case 64:
-      attention_fwd_kernel<Elt, 64, 64><<<grid, kFwdThreads, 0, stream>>>(
-          qp, kp, vp, op, lp, seq, heads, scale, causal, p_bf16, clamp_l);
+      if constexpr (std::is_same<Elt, __nv_bfloat16>::value) {
+        const tc::FwdArgs a{qp, kp, vp, op, lp, batch, seq, heads, scale,
+                            causal, clamp_l};
+        return tc::launch_attention_fwd_tc(a, p_bf16, stream);
+      } else {
+        attention_fwd_kernel<Elt, 64, 64><<<grid, kFwdThreads, 0, stream>>>(
+            qp, kp, vp, op, lp, seq, heads, scale, causal, p_bf16, clamp_l);
+      }
       break;
     case 128:   // 32-key tiles keep shared memory under the 48 KB static cap
       attention_fwd_kernel<Elt, 128, 32><<<grid, kFwdThreads, 0, stream>>>(

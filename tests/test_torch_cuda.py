@@ -228,6 +228,148 @@ def test_streamed_kernels_match_plain(card, dtype, t, causal):
             assert _within(a, b, 64, BWD_FLOOR)
 
 
+# ---------------------------- bf16 forward on the tensor cores (rows 1, 3)
+
+
+def _forward_bf16(card, seed, impl, t, causal, p_dtype=torch.float32):
+    """Inputs, kernel ``(o, lse)`` and plain ``(o, lse)`` of the bf16
+    head_dim-64 forward: packed (2, t, 3 x 64) or streamed (3, t, 64)."""
+    rng = np.random.default_rng(seed)
+    if impl == "packed":
+        q, k, v = (_tensor(rng, (2, t, 3 * 64), torch.bfloat16, card)
+                   for _ in range(3))
+        got = ak.mha_packed_forward(q, k, v, 3, causal, None, p_dtype)
+        ref = ak.mha_packed_forward_reference(q, k, v, 3, causal, None,
+                                              p_dtype)
+    else:
+        q, k, v = (_tensor(rng, (3, t, 64), torch.bfloat16, card)
+                   for _ in range(3))
+        got = ak.flash_forward(q, k, v, causal, t, t)
+        ref = ak.flash_forward_reference(q, k, v, causal)
+    return (q, k, v), got, ref
+
+
+# 8: one partial query and key tile; 72: a full 64-row tile and a partial
+# one; 1032: sixteen full tiles and a partial one, whose keys past the
+# sequence are zero-filled and masked
+@pytest.mark.parametrize("t", [8, 72, 1032])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("impl", ["packed", "streamed"])
+def test_forward_bf16_tiles(card, impl, t, causal):
+    counter = ak.mha_attention_packed if impl == "packed" \
+        else ak.flash_forward
+    before = counter.launches
+    _, (o, lse), (ro, rlse) = _forward_bf16(card, t + 20, impl, t, causal)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert _within(o, ro, 64, FWD_FLOOR)
+    # lse: fp32 sums of the same p in another order
+    assert _max_err(lse, rlse) <= 1e-3
+
+
+@pytest.mark.parametrize("t", [72, 1032])
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_forward_bf16_p_tiles(card, t, causal):
+    _, (o, lse), (ro, rlse) = _forward_bf16(card, t + 30, "packed", t,
+                                            causal, torch.bfloat16)
+    torch.cuda.synchronize()
+    # bf16 p, rounded under the running max there and the row max here:
+    # the JAX package's 5e-2 bound for that mode, on o and on lse
+    assert _max_err(o, ro) <= _bound(ro, 5e-2)
+    assert _max_err(lse, rlse) <= 5e-2
+
+
+def test_forward_bf16_is_deterministic(card):
+    """No atomics and a fixed order of sums: two calls on the same inputs
+    agree bit for bit."""
+    (q, k, v), first, _ = _forward_bf16(card, 40, "packed", 520, True)
+    again = ak.mha_packed_forward(q, k, v, 3, True)
+    (sq, sk, sv), sfirst, _ = _forward_bf16(card, 41, "streamed", 1032,
+                                            False)
+    sagain = ak.flash_forward(sq, sk, sv, False, 1032, 1032)
+    torch.cuda.synchronize()
+    for a, b in zip(first + sfirst, again + sagain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("impl", ["packed", "streamed"])
+def test_forward_first_causal_row_is_its_score(card, impl):
+    """The first query of a causal head sees one key: its lse is that one
+    score bit for bit, summed over D in sequence as the backward and the
+    plain version sum it (bf16 products are exact in fp32), and o is v's
+    first row."""
+    (q, k, v), (o, lse), _ = _forward_bf16(card, 42, impl, 200, True)
+    torch.cuda.synchronize()
+    if impl == "packed":
+        q0, k0, v0, o0 = (x[:, 0].unflatten(-1, (3, 64))
+                          for x in (q, k, v, o))
+        lse0 = lse[:, :, 0]
+    else:
+        q0, k0, v0, o0 = (x[:, 0] for x in (q, k, v, o))
+        lse0 = lse[:, 0, 0]
+    qs = (q0.float() * 0.125).to(torch.bfloat16).float()
+    score = torch.zeros(qs.shape[:-1], device=card)
+    for d in range(64):
+        score = score + qs[..., d] * k0[..., d].float()
+    assert torch.equal(lse0, score)
+    assert torch.equal(o0, v0)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_backward_on_kernel_lse_zeroes_first_causal_row(card, p_dtype):
+    """The chain training runs: the backward kernel fed the forward
+    kernel's lse gives the first causal row's dq exactly 0, as the plain
+    backward does on the same lse, and holds every gradient to the plain
+    one."""
+    rng = np.random.default_rng(43)
+    q, k, v, do = (_tensor(rng, (2, 128, 3 * 64), torch.bfloat16, card)
+                   for _ in range(4))
+    _, lse = ak.mha_packed_forward(q, k, v, 3, True, None, p_dtype)
+    got = ak.mha_packed_backward(q, k, v, do, lse, 3, True, None, p_dtype)
+    ref = ak.mha_packed_backward_reference(q, k, v, do, lse, 3, True, None,
+                                           p_dtype)
+    torch.cuda.synchronize()
+    zero = torch.zeros_like(got[0][:, 0])
+    assert torch.equal(got[0][:, 0], zero)
+    assert torch.equal(ref[0][:, 0], zero)
+    for a, b in zip(got, ref):
+        if p_dtype == torch.float32:
+            assert _within(a, b, 64, BWD_FLOOR)
+        else:
+            # bf16 p: the JAX package's 5e-2 bound for that mode
+            assert _max_err(a, b) <= _bound(b, 5e-2)
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 128])
+def test_packed_bf16_other_head_dims_match_plain(card, head_dim):
+    """bf16 at head dims other than 64 keeps the FMA template."""
+    rng = np.random.default_rng(44 + head_dim)
+    q, k, v = (_tensor(rng, (2, 72, 3 * head_dim), torch.bfloat16, card)
+               for _ in range(3))
+    o, lse = ak.mha_packed_forward(q, k, v, 3, True)
+    ro, rlse = ak.mha_packed_forward_reference(q, k, v, 3, True)
+    torch.cuda.synchronize()
+    assert _within(o, ro, head_dim, FWD_FLOOR)
+    assert _max_err(lse, rlse) <= 1e-3
+
+
+def test_forward_libraries_run_on_tensor_cores(card):
+    """The built forward libraries hold wgmma (HGMMA) instructions."""
+    import os
+    import subprocess
+
+    from deeplearning4j_tpu_torch.ops import _build
+
+    names = ("mha_packed_fwd", "flash_fwd")
+    _build.build(names)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    for name in names:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        assert sum(" HGMMA" in line for line in sass.splitlines()) > 0, name
+
+
 # ------------------------- bf16 backward on the tensor cores (rows 2, 4, 5)
 
 

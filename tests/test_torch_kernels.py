@@ -409,3 +409,53 @@ class TestStreamed:
                 ak.flash_bwd_dkv.launches) == counts
         with pytest.raises(ValueError, match="delta"):
             ak.flash_bwd_dq(q, k, v, do, lse, delta[:, :, :8], True)
+
+
+# ---------------------------------------------------------------------------
+# The causal first row: the invariant the CUDA forward reproduces
+# ---------------------------------------------------------------------------
+class TestCausalFirstRow:
+    """The first query of a causal head sees one key, so its softmax is
+    exactly 1: lse is that (0, 0) score bit for bit, and the backward fed
+    that lse gives the row's dq exactly 0 (p = exp(0) = 1 and delta = dp
+    there). Both packages hold it; the CUDA forward keeps it on the card by
+    summing that one score in sequence (tests/test_torch_cuda.py)."""
+
+    HEADS, T, D = 2, 24, 32
+
+    def _inputs(self, seed):
+        q, k, v = _packed_inputs(seed, 2, self.T, self.HEADS * self.D)
+        do = np.random.default_rng(seed + 1).standard_normal(
+            q.shape).astype(np.float32)
+        return q, k, v, do
+
+    @pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+    def test_port_plain_version(self, p_dtype):
+        q, k, v, do = _t(*self._inputs(60))
+        tp = getattr(torch, p_dtype)
+        _, lse = ak.mha_packed_forward(q, k, v, self.HEADS, True, None, tp)
+        # its own scores: the plain version's fp32 q k^T, q scaled first
+        s = ak._scores(q * self.D ** -0.5, k, self.HEADS, True)
+        assert torch.equal(lse[..., 0], s[..., 0, 0])
+        dq, _, _ = ak.mha_packed_backward(q, k, v, do, lse, self.HEADS, True,
+                                          None, tp)
+        assert torch.equal(dq[:, 0], torch.zeros_like(dq[:, 0]))
+
+    @pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+    def test_jax_pallas_kernels(self, p_dtype):
+        q, k, v, do = self._inputs(61)
+        _, lse = _jax_packed(q, k, v, self.HEADS, True,
+                             getattr(jnp, p_dtype))
+        # its own scores: the kernel's fp32 dot of each head's qs and k
+        qs = jnp.asarray(q, jnp.float32) * self.D ** -0.5
+        for b in range(q.shape[0]):
+            for h in range(self.HEADS):
+                sl = slice(h * self.D, (h + 1) * self.D)
+                s = jax.lax.dot_general(
+                    qs[b, :, sl], jnp.asarray(k[b, :, sl], jnp.float32),
+                    (((1,), (1,)), ((), ())),
+                    preferred_element_type=jnp.float32)
+                assert lse[b, h, 0] == np.asarray(s)[0, 0]
+        _, (dq, _, _) = _jax_packed_vjp(q, k, v, do, self.HEADS, True,
+                                        getattr(jnp, p_dtype))
+        assert np.array_equal(dq[:, 0], np.zeros_like(dq[:, 0]))
