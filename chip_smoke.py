@@ -14,8 +14,12 @@ seconds:
 3. kernels — the serving kernels (packed forward, paged decode) against
    their plain PyTorch versions on the card at the serving shapes, with
    the tolerance stated beside each check, timed beside the plain
-   version, the one-call PyTorch yardstick where there is one, and the
-   roofline bound;
+   version, the one-call PyTorch yardstick where there is one (for paged
+   decode, sdpa on K/V already gathered, the gather not timed), and the
+   roofline bound; paged decode is also called twice for the same bits,
+   and run off the serving shape: a block-64 pool at head dim 128, and
+   fp32 and int8 pools with pos on the split edges, past the table, at -1
+   and in a dead slot;
 4. train kernels — the same for the training kernels: packed forward and
    backward at the MLM step's shape (B=96, T=512, H=12, D=64, bf16), a
    causal and a bf16-p case; the streamed forward, dq and dk/dv at T=2048
@@ -28,10 +32,14 @@ seconds:
    B=2 T=128 causal (packed, fp32 and bf16 p) and T=2048 causal
    (streamed); dq's first causal row is exactly 0 on both sides (packed)
    or equal bit for bit (streamed, whose delta the caller sums);
+   head dims — the packed and streamed kernels, forward and backward, at
+   head dims 8, 48 and 96 (padded to the built widths), fp32 and bf16,
+   causal and not;
    loss and update kernels — the fused cross-entropy forward and backward
    at the MLM step's logits (49152 x 30522, bf16) and at edge cases
    (fp32, targets -1 and V, N not a multiple of 128), the fused AdamW over
-   BERT-base's fp32 tree (2 applies) and over a bf16 tree;
+   BERT-base's fp32 tree (2 applies) and over a bf16 tree, its whole call
+   split into the kernel alone (profiler) and the host's work;
 5. engine — the BERT-base-width causal LM (12 layers, hidden 768, vocab
    30522, bf16, seeded random weights) served by ``GenerationEngine`` with
    the fused paged decode route, with a bf16 and an int8 KV pool, on the
@@ -42,7 +50,8 @@ seconds:
 7. fp32 — a 2-layer fp32 engine gives token-equal greedy streams on both
    routes;
 8. profile — torch.profiler over a short engine run: the device's busy
-   share of the wall time and the kernels that take the most device time;
+   share of the wall time, the kernels that take the most device time,
+   and the paged decode kernels' (split and merge) share;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -379,20 +388,31 @@ def kernel_phase():
         pos = torch.as_tensor(pos_np, device="cuda")
         o = ak.paged_decode_attention(q, kp, vp, tables, pos, block_size=B,
                                       k_scale=ks, v_scale=vs)
+        again = ak.paged_decode_attention(q, kp, vp, tables, pos,
+                                          block_size=B, k_scale=ks,
+                                          v_scale=vs)
         ro = ak.paged_decode_attention_reference(
             q, kp, vp, tables, pos, block_size=B, k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(o.float()).all()),
               f"paged {kv}: non-finite output")
+        # the splits merge in split-index order: the same bits every call
+        check(torch.equal(o, again), f"paged {kv}: two calls differ")
         err = (o.float() - ro.float()).abs().max().item()
         # fp32 softmax on both sides (online here, whole-row there); the
         # bf16 output rounding can differ by 1 ulp: 2^-7 of the largest |o|
         tol = 2 ** -7 * max(ro.float().abs().max().item(), 1.0)
         check(err <= tol, f"paged {kv}: max |o - plain| {err} > {tol}")
+        # and per element: one bf16 ulp of the element, 2^-7 |plain|, plus
+        # 2^-12 of its head row's rms for fp32 sums in another order
+        _, share, rule = judge(o, ro, D, False, PAGED_FLOOR)
+        check(share <= 1.0, f"paged {kv}: an element takes {share} of its "
+              f"bound {rule}")
         ms = time_ms(lambda: ak.paged_decode_attention(
             q, kp, vp, tables, pos, block_size=B, k_scale=ks, v_scale=vs))
         plain_ms = time_ms(lambda: ak.paged_decode_attention_reference(
             q, kp, vp, tables, pos, block_size=B, k_scale=ks, v_scale=vs))
+        lib_ms = paged_sdpa_ms(q, kp, vp, tables, pos, B, ks, vs)
         n_pos = int((pos_np.astype(np.int64) + 1).sum())
         item = kp.element_size()
         nbytes = 2 * n_pos * H * D * item + 2 * S * H * D * 2 \
@@ -400,13 +420,121 @@ def kernel_phase():
             + tables_np.nbytes + pos_np.nbytes
         flops = 4 * n_pos * H * D
         b_ms, b_by = bound(nbytes, flops)
-        log(f"paged {kv}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.5f} ms "
-            f"({b_by}) positions {n_pos}")
+        log(f"paged {kv}: max_abs_err {err:.3e} (tol {tol:.3e}; "
+            f"{share:.3f} of the per-element bound {rule}), two calls "
+            f"bit-equal; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"{PAGED_LIBRARY} {lib_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}) "
+            f"positions {n_pos} splits {ak.paged_decode_plan(nbmax, B)}")
         paged_rows.append(dict(case=f"{kv} pool", max_abs_err=err, tol=tol,
-                               ms=ms, plain_ms=plain_ms, library_ms=None,
-                               bound_ms=b_ms, bound_by=b_by))
+                               bound_share=share, ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=b_ms,
+                               bound_by=b_by))
+    paged_rows += paged_edge_cases(rng)
     return packed_rows, paged_rows
+
+
+# the library yardstick of row 6 (timed only, never called by the port)
+PAGED_LIBRARY = "sdpa on pre-gathered K/V, gather not timed"
+# per-element floor of the paged check, in units of the head row's rms
+PAGED_FLOOR = 2 ** -12
+
+
+def paged_sdpa_ms(q, kp, vp, tables, pos, B, ks, vs):
+    """``F.scaled_dot_product_attention`` on K/V already gathered into
+    (S, H, L, D) in q's dtype (int8 pools dequantized first) with a boolean
+    mask for pos: the one-call library form of paged decode, the gather
+    left out of the time."""
+    import torch
+    import torch.nn.functional as F
+
+    S, H, D = q.shape
+    nbmax = tables.shape[1]
+    L = nbmax * B
+    tl = tables.long()
+
+    def gathered(pool, scale):
+        g = pool[tl].float()
+        if scale is not None:
+            g = g * scale[tl][..., None]
+        return g.reshape(S, L, H, D).transpose(1, 2).to(q.dtype).contiguous()
+    k4, v4 = gathered(kp, ks), gathered(vp, vs)
+    mask = (torch.arange(L, device=q.device)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask))
+
+
+def paged_edge_cases(rng):
+    """Row 6 off the serving shape, each against its plain version per
+    element and called twice for the same bits: a block-64 pool at head dim
+    128 (over the previous kernel's 48 KB stage), fp32 and int8 pools with
+    pos on the split edges, past the table, -1 and a dead slot."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import quantize_kv
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+
+    rows = []
+    for label, B, nbmax, D, pool, q_dtype in (
+            ("block 64 D128 bf16 pool", 64, 8, 128, "bf16", torch.bfloat16),
+            ("split edges fp32 pool", 16, 32, 64, "fp32", torch.float32),
+            ("split edges int8 pool", 16, 32, 64, "int8", torch.bfloat16)):
+        H = 12
+        per, _ = ak.paged_decode_plan(nbmax, B)
+        span, L = per * B, nbmax * B
+        pos_np = np.array([0, span - 1, span, 2 * span, L - 1, L + 5, -1, 0],
+                          np.int32)
+        S, NB = len(pos_np), nbmax * len(pos_np) + 1
+        perm = rng.permutation(np.arange(1, NB)).astype(np.int32)
+        tables_np = np.zeros((S, nbmax), np.int32)
+        for s in range(S - 1):                    # the last slot is dead
+            tables_np[s] = perm[s * nbmax:(s + 1) * nbmax]
+        q = torch.as_tensor(rng.standard_normal((S, H, D)),
+                            dtype=torch.float32).to("cuda", q_dtype)
+        kf, vf = (torch.as_tensor(rng.standard_normal((NB, B, H, D)),
+                                  dtype=torch.float32, device="cuda")
+                  for _ in range(2))
+        ks = vs = None
+        if pool == "int8":
+            (kp, ks), (vp, vs) = quantize_kv(kf), quantize_kv(vf)
+        elif pool == "bf16":
+            kp, vp = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        else:
+            kp, vp = kf, vf
+        tables = torch.as_tensor(tables_np, device="cuda")
+        pos = torch.as_tensor(pos_np, device="cuda")
+
+        def call():
+            return ak.paged_decode_attention(q, kp, vp, tables, pos,
+                                             block_size=B, k_scale=ks,
+                                             v_scale=vs)
+        o, again = call(), call()
+        ro = ak.paged_decode_attention_reference(
+            q, kp, vp, tables, pos, block_size=B, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        check(torch.equal(o, again), f"paged {label}: two calls differ")
+        # pos < 0 gives zeros, as the JAX package's Pallas kernel does (its
+        # gather reference, like the plain version, softmaxes a row of
+        # masked scores instead): held apart from the plain comparison
+        check(bool((o[6] == 0).all()), f"paged {label}: pos -1 is not 0")
+        live = [s for s in range(S) if s != 6]
+        o, ro = o[live], ro[live]
+        err = max_err(o, ro)
+        if q_dtype == torch.float32:
+            # fp32 both sides, summation order aside
+            share = err / rel_bound(ro, 1e-5)
+            rule = "1e-5 max|ref|"
+        else:
+            _, share, rule = judge(o, ro, D, False, PAGED_FLOOR)
+        check(share <= 1.0, f"paged {label}: max err {err} takes {share} of "
+              f"its bound {rule}")
+        log(f"paged {label}: max_abs_err {err:.3e} ({share:.3f} of its "
+            f"bound {rule}), two calls bit-equal, splits "
+            f"{ak.paged_decode_plan(nbmax, B)}")
+        rows.append(dict(case=label, max_abs_err=err, bound_share=share,
+                         tol=rule))
+    return rows
 
 
 def packed_train_cases(torch):
@@ -680,6 +808,75 @@ def chain_phase():
         torch.cuda.empty_cache()
 
 
+def head_dim_phase():
+    """Head dims off BERT-base's 64, which the kernels run padded to the
+    next built width: the packed forward and backward (B=2, T=128, 4
+    heads) and the streamed forward, dq and dk/dv (BH=4, T=256) at D = 8,
+    48 and 96, fp32 and bf16, causal and not, against the plain versions:
+    fp32 to 1e-5 (forward) or 1e-4 (backward) of the largest |plain|, bf16
+    per element (``judge``)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+
+    rng = np.random.default_rng(4)
+    worst = {}
+    for d in (8, 48, 96):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                def rand(shape):
+                    return torch.as_tensor(
+                        rng.standard_normal(shape),
+                        dtype=torch.float32).to(DEVICE, dtype)
+                q, k, v, do = (rand((2, 128, 4 * d)) for _ in range(4))
+                o, lse = ak.mha_packed_forward(q, k, v, 4, causal)
+                ro, rlse = ak.mha_packed_forward_reference(q, k, v, 4,
+                                                           causal)
+                got = ak.mha_packed_backward(q, k, v, do, rlse, 4, causal)
+                ref = ak.mha_packed_backward_reference(q, k, v, do, rlse, 4,
+                                                       causal)
+                pairs = [("packed o", o, ro, FWD_FLOOR)] + [
+                    (f"packed d{n}", a, b, BWD_FLOOR)
+                    for n, a, b in zip("qkv", got, ref)]
+                lse_errs = [max_err(lse, rlse)]
+                qs, ks_, vs_, dos = (rand((4, 256, d)) for _ in range(4))
+                o, lse = ak.flash_forward(qs, ks_, vs_, causal)
+                ro, rlse = ak.flash_forward_reference(qs, ks_, vs_, causal)
+                delta = (dos.float() * ro.float()).sum(-1).reshape(4, 1, 256)
+                got = (ak.flash_bwd_dq(qs, ks_, vs_, dos, rlse, delta,
+                                       causal),
+                       *ak.flash_bwd_dkv(qs, ks_, vs_, dos, rlse, delta,
+                                         causal))
+                ref = (ak.flash_bwd_dq_reference(qs, ks_, vs_, dos, rlse,
+                                                 delta, causal),
+                       *ak.flash_bwd_dkv_reference(qs, ks_, vs_, dos, rlse,
+                                                   delta, causal))
+                pairs += [("streamed o", o, ro, FWD_FLOOR)] + [
+                    (f"streamed d{n}", a, b, BWD_FLOOR)
+                    for n, a, b in zip("qkv", got, ref)]
+                lse_errs.append(max_err(lse, rlse))
+                torch.cuda.synchronize()
+                label = (f"D{d} {str(dtype).split('.')[-1]} "
+                         f"{'causal' if causal else 'non-causal'}")
+                share = 0.0
+                for name, a, b, floor in pairs:
+                    if dtype == torch.float32:
+                        rel = 1e-5 if floor == FWD_FLOOR else 1e-4
+                        sh = max_err(a, b) / rel_bound(b, rel)
+                        rule = f"{rel:g} max|ref|"
+                    else:
+                        _, sh, rule = judge(a, b, d, False, floor)
+                    check(sh <= 1.0, f"head dims {label}: {name} takes {sh} "
+                          f"of its bound {rule}")
+                    share = max(share, sh)
+                lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
+                check(max(lse_errs) <= lse_tol, f"head dims {label}: lse "
+                      f"err {max(lse_errs)} > {lse_tol}")
+                worst[label] = share
+    log("head dims: worst share of the bound per case: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+
+
 def chat_mix(vocab: int, n_requests: int = 32, max_len: int = 512):
     """The seeded chat-shaped mix of the JAX package's decode benchmark:
     prompt lengths drawn from [4, max_len // 4), token ids uniform."""
@@ -855,7 +1052,13 @@ def profile_phase(cfg, params, prompts, device="cuda"):
                 h.result(timeout=600)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall_ms, "profile")
+    kernels = report_profile(prof, wall_ms, "profile")
+    busy = sum(ms for _, ms, _ in kernels)
+    for part in ("paged_decode_split_kernel", "paged_decode_combine_kernel"):
+        ms = sum(m for name, m, _ in kernels if part in name)
+        n = sum(c for name, _, c in kernels if part in name)
+        log(f"profile: {part} {ms:.3f} ms x{n} "
+            f"({100 * ms / busy:.2f}% of device time)")
 
 
 def train_batch(cfg, B, T, seed=0):
@@ -1404,6 +1607,7 @@ def loss_update_kernel_phase():
         lib = torch.optim.AdamW(lib_p, lr=hyper["lr"],
                                 weight_decay=hyper["wd"], fused=True)
         numel = sum(p.numel() for p in leaves)
+        kernel_ms, host_ms = adamw_split_ms(opt, params, state, gs)
         add("fused_adamw", label, judged, f"{rel:.3g}|ref|",
             time_ms(lambda: opt.apply(params, state, gs), 3, 3, graph=False),
             time_ms(lambda: [updaters.adamw_reference(
@@ -1416,11 +1620,41 @@ def loss_update_kernel_phase():
                 for p, g, m, v in zip(leaves, gs, state["mu"],
                                       state["nu"])),
             15 * numel)
+        rows["fused_adamw"][-1].update(kernel_ms=kernel_ms, host_ms=host_ms)
         log(f"fused_adamw {label}: {len(leaves)} leaves, {numel} params, "
-            f"one launch per apply")
+            f"one launch per apply; the kernel alone {kernel_ms:.4f} ms "
+            f"(profiler), host work {host_ms:.4f} ms a call")
         del params, leaves, steps, ref_p, ref_m, ref_v, state, lib, lib_p
         torch.cuda.empty_cache()
     return rows
+
+
+def adamw_split_ms(opt, params, state, gs, calls: int = 5):
+    """What one ``fused_adamw`` apply is made of: the kernel's device time
+    (torch.profiler, mean over ``calls`` applies) and the host's time to
+    enqueue one apply (host clock over ``calls`` applies issued back to
+    back, no sync inside; the kernels queue behind each other)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    opt.apply(params, state, gs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            opt.apply(params, state, gs)
+        torch.cuda.synchronize()
+    kernel = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "adamw_kernel" in e.key]
+    check(bool(kernel), "adamw: the profiler saw no adamw_kernel")
+    kernel_ms = sum(e.self_device_time_total for e in kernel) / 1e3 / calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        opt.apply(params, state, gs)
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return kernel_ms, host_ms
 
 
 def report_profile(prof, wall_ms, label):
@@ -1499,6 +1733,7 @@ def main() -> int:
     packed_rows, paged_rows = timed_phase("kernels", kernel_phase)
     train_rows = timed_phase("train kernels", train_kernel_phase)
     timed_phase("kernel chain", chain_phase)
+    timed_phase("head dims", head_dim_phase)
     update_rows = timed_phase("loss and update kernels",
                               loss_update_kernel_phase)
     from deeplearning4j_tpu_torch.models import (
@@ -1564,6 +1799,11 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": case,
             "cases": rows[name]})
+        if name == "paged_decode_attention":
+            kernels[-1]["library"] = PAGED_LIBRARY
+        if name == "fused_adamw":
+            kernels[-1].update(kernel_ms=main["kernel_ms"],
+                               host_ms=main["host_ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

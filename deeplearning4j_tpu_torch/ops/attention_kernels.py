@@ -17,6 +17,9 @@
   shared KV block pool (counterpart: ``paged_decode_attention``), the
   decode attention of the ``"fused"`` route.
 
+The kernels take every head dim from 1 to 128 (:func:`kernel_head_dim_ok`),
+forward and backward, fp32 and bf16; bf16 at 64 runs on the tensor cores.
+
 A wrapper takes the plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises. Each wrapper counts its kernel
 launches in a plain integer attribute so a run can show that its main
@@ -25,7 +28,9 @@ packed forward), ``mha_packed_backward.launches``,
 ``flash_forward.launches``, ``flash_bwd_dq.launches``,
 ``flash_bwd_dkv.launches`` and ``paged_decode_attention.launches``. One
 count of ``mha_packed_backward`` is one C call that makes two CUDA
-launches (the dq pass, then the dk/dv pass).
+launches (the dq pass, then the dk/dv pass); one of
+``paged_decode_attention`` is the split pass and, where the table spans
+more than one split, the merge.
 
 Autograd: :func:`mha_attention_packed`, :func:`mha_attention` and
 :func:`flash_attention` are ``torch.autograd.Function``\\ s whose
@@ -48,18 +53,25 @@ from deeplearning4j_tpu_torch.ops._launch import (
 _NEG_INF = -1e30
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (16, 32, 64, 128)
-# the backward kernels (attention_bwd.cu) are built for BERT-base's head
-# dim only: every training path of the package runs at 64
-_BWD_HEAD_DIMS = (64,)
-_STATIC_SMEM_BYTES = 48 * 1024
+# the widest head the kernels take: their FMA templates are built for
+# padded widths 16, 32, 64 and 128 and stage a tile of keys at that width in
+# shared memory (a shared-memory limit, not a semantic one)
+MAX_KERNEL_HEAD_DIM = 128
+
+
+def kernel_head_dim_ok(d: int) -> bool:
+    """True for the head dims the attention kernels run, forward and
+    backward, fp32 and bf16: every ``1 <= d <= 128``. The JAX package's
+    packed route asserts only that the packed width divides by the heads,
+    so this takes every head dim it takes up to the limit."""
+    return 1 <= d <= MAX_KERNEL_HEAD_DIM
 
 
 def _check_kernel_operands(name: str, d: int, *tensors,
-                           head_dims=_HEAD_DIMS):
-    if d not in head_dims:
-        raise ValueError(f"{name} kernel is built for head_dim in "
-                         f"{head_dims}, got {d}")
+                           limit: int = MAX_KERNEL_HEAD_DIM):
+    if not 1 <= d <= limit:
+        raise ValueError(f"{name} kernel takes head_dim from 1 to {limit}, "
+                         f"got {d}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous operands")
 
@@ -301,8 +313,7 @@ def mha_packed_backward(q, k, v, do, lse, heads: int, causal: bool = False,
     if _route(q, k, v, do, lse) == "cpu":
         return mha_packed_backward_reference(q, k, v, do, lse, heads, causal,
                                              sc, p_dtype)
-    _check_kernel_operands("mha_packed_bwd", d, q, k, v, do, lse,
-                           head_dims=_BWD_HEAD_DIMS)
+    _check_kernel_operands("mha_packed_bwd", d, q, k, v, do, lse)
     p = ctypes.c_void_p
     i = ctypes.c_int
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -523,8 +534,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
     if _route(q, k, v, do, lse, delta) == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, sc)
-    _check_kernel_operands("flash_bwd_dq", d, q, k, v, do, lse, delta,
-                           head_dims=_BWD_HEAD_DIMS)
+    _check_kernel_operands("flash_bwd_dq", d, q, k, v, do, lse, delta)
     p = ctypes.c_void_p
     i = ctypes.c_int
     dq = torch.empty_like(q)
@@ -551,8 +561,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
     if _route(q, k, v, do, lse, delta) == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, sc)
-    _check_kernel_operands("flash_bwd_dkv", d, q, k, v, do, lse, delta,
-                           head_dims=_BWD_HEAD_DIMS)
+    _check_kernel_operands("flash_bwd_dkv", d, q, k, v, do, lse, delta)
     p = ctypes.c_void_p
     i = ctypes.c_int
     dk, dv = torch.empty_like(q), torch.empty_like(q)
@@ -642,9 +651,28 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, pos, *,
     return torch.einsum("shl,slhd->shd", p, gv).to(q.dtype)
 
 
-def _paged_smem_bytes(block_size: int, head_dim: int) -> int:
-    return 4 * (head_dim + block_size * (head_dim + 1)
-                + block_size * head_dim + block_size)
+# positions one CTA of the paged kernel takes (whole blocks, at least one)
+PAGED_SPLIT_POSITIONS = 64
+# the paged kernel's widest head (its widest instance holds a 1024-dim row
+# in registers across a warp)
+PAGED_MAX_HEAD_DIM = 1024
+# the kernel stages a split's block-table entries in shared memory
+_PAGED_MAX_SPLIT_BLOCKS = 64
+
+
+def paged_decode_plan(nbmax: int, block_size: int) -> Tuple[int, int]:
+    """``(blocks_per_split, n_splits)`` of the paged kernel: the table's
+    ``nbmax * block_size`` positions cut into splits of whole blocks,
+    :data:`PAGED_SPLIT_POSITIONS` positions each (one block where a block
+    is longer). It reads only the table's width and the block size, never
+    ``pos``, so a call needs no host sync and replays in a CUDA graph; a
+    split past a slot's ``pos`` exits on the card. One split skips the
+    merge launch."""
+    if nbmax < 0 or block_size < 1:
+        raise ValueError(f"nbmax {nbmax} and block_size {block_size}")
+    per = max(1, min(PAGED_SPLIT_POSITIONS // block_size,
+                     _PAGED_MAX_SPLIT_BLOCKS))
+    return per, max(1, -(-nbmax // per))
 
 
 def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
@@ -657,7 +685,11 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     ``k_scale``/``v_scale`` ((NB, B, H) fp32) the pools are int8 and
     dequantize in the same pass. Returns (S, H, D) in q's dtype. Dead
     slots' rows name scratch block 0 and give a finite row. CPU tensors
-    take :func:`paged_decode_attention_reference`."""
+    take :func:`paged_decode_attention_reference`. On the card the
+    positions split as :func:`paged_decode_plan` says (D up to 1024, any
+    block size); one call is one count of ``launches``, whatever the
+    CUDA launches inside (the split pass, then a merge where there is
+    more than one split)."""
     S, H, D = q.shape
     NB, B = k_pool.shape[:2]
     if B != block_size:
@@ -690,23 +722,28 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
             k_scale=k_scale, v_scale=v_scale)
     if tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("tables and pos must be int32")
-    if _paged_smem_bytes(B, D) > _STATIC_SMEM_BYTES:
-        raise ValueError(f"block_size={B}, head_dim={D} exceed the kernel's "
-                         f"48 KB shared-memory stage")
     operands = [q, k_pool, v_pool, tables, pos] + (
         [k_scale, v_scale] if quantized else [])
-    if not all(t.is_contiguous() for t in operands):
-        raise ValueError("paged_decode needs contiguous operands")
+    _check_kernel_operands("paged_decode", D, *operands,
+                           limit=PAGED_MAX_HEAD_DIM)
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    nbmax = tables.shape[1]
+    per, n_splits = paged_decode_plan(nbmax, B)
+    # the splits' (m, l, acc[D]) partials, fp32
+    ws = None if n_splits == 1 else torch.empty(
+        S * H * n_splits * (D + 2), dtype=torch.float32, device=q.device)
     p = ctypes.c_void_p
     i = ctypes.c_int
-    o = torch.empty_like(q)
     _launch("paged_decode", "paged_decode",
-            [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, p],
+            [p] * 9 + [i] * 8 + [ctypes.c_float, i, i, p],
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             tables.data_ptr(), pos.data_ptr(), o.data_ptr(),
-            S, H, D, NB, B, tables.shape[1], float(sc),
+            None if ws is None else ws.data_ptr(),
+            S, H, D, NB, B, nbmax, per, n_splits, float(sc),
             _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], _stream_ptr(q.device))
     paged_decode_attention.launches += 1
     return o

@@ -15,14 +15,18 @@
 //
 // Design: the TPU runs one pallas_call per leaf of at least 65536 elements
 // that divides into 128 lanes, and jnp for the other leaves. A CUDA kernel
-// has no lane constraint, so one launch covers every leaf: a device table
-// holds each leaf's p, m, v pointers, size, dtype codes and first chunk
-// (built once per leaf set by the wrapper, as p, m and v are updated in
-// place and keep their addresses), a second array the step's gradient
-// pointers. Each CTA takes one chunk of `chunk` elements (the wrapper's
-// choice, a multiple of 4), finds its leaf by binary search over the first
-// chunks, and sweeps the chunk with 16-byte vector loads where all four
-// operands are fp32 and 16-byte aligned, scalar loads otherwise. Every
+// has no lane constraint, so one launch covers up to kMaxLeaves leaves
+// (larger trees take one launch per kMaxLeaves): the leaves' p, g, m, v
+// pointers, sizes, dtype codes and first chunks travel in the kernel's
+// parameter struct (__grid_constant__, read from the constant bank; CUDA
+// 12.1+ takes up to 32 KB of parameters), filled by the C entry point
+// from a host table, so a step needs no device table, no pinned buffer and
+// no host-to-device copy. Each CTA takes one chunk of `chunk` elements
+// (the wrapper's choice, a multiple of 4), finds its leaf by binary search
+// over the first chunks in that struct, and sweeps the chunk four elements
+// at a time (one 16-byte fp32 or 8-byte bf16 load per operand, each
+// operand by its own dtype; two such groups in flight per thread before
+// any store), scalar loads for a misaligned leaf and the tail. Every
 // operation is written with an explicitly rounded intrinsic (__fmul_rn,
 // __fadd_rn, __fdiv_rn, __fsqrt_rn), so nvcc contracts nothing into an FMA
 // and each step rounds as PyTorch's elementwise operations round it in the
@@ -33,35 +37,80 @@ namespace dl4jt {
 namespace {
 
 constexpr int kThreads = 256;
+// leaves per launch: 64 bytes each, 16 KB of kernel parameters
+constexpr int kMaxLeaves = 256;
 
-// One leaf. Every field is 64-bit so the wrapper fills the table as an
-// int64 tensor of 9 columns.
+// One leaf: device pointers, size, first chunk (of this launch) and the
+// dtype codes of p, g, m and v (0 fp32, 1 bf16).
 struct AdamwLeaf {
-  long long p, m, v;          // device pointers
+  void* p;
+  const void* g;
+  void* m;
+  void* v;
   long long numel;
-  long long chunk0;           // the leaf's first chunk
-  long long p_dtype, g_dtype, m_dtype, v_dtype;
+  long long chunk0;
+  int p_dtype, g_dtype, m_dtype, v_dtype;
 };
 
 struct AdamwArgs {
   float lr, b1, b2, one_minus_b1, one_minus_b2, eps, wd, bc1, bc2;
 };
 
-__device__ __forceinline__ float load(long long ptr, long long dtype,
+struct AdamwParams {
+  AdamwArgs a;
+  long long chunk;
+  int n_leaves;
+  AdamwLeaf leaves[kMaxLeaves];
+};
+
+__device__ __forceinline__ float load(const void* ptr, int dtype,
                                       long long i) {
   if (dtype == kBF16) {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(ptr)[i]);
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(ptr)[i]);
   }
-  return reinterpret_cast<const float*>(ptr)[i];
+  return static_cast<const float*>(ptr)[i];
 }
 
-__device__ __forceinline__ void store(long long ptr, long long dtype,
-                                      long long i, float x) {
+__device__ __forceinline__ void store(void* ptr, int dtype, long long i,
+                                      float x) {
   if (dtype == kBF16) {
-    reinterpret_cast<__nv_bfloat16*>(ptr)[i] = __float2bfloat16_rn(x);
+    static_cast<__nv_bfloat16*>(ptr)[i] = __float2bfloat16_rn(x);
   } else {
-    reinterpret_cast<float*>(ptr)[i] = x;
+    static_cast<float*>(ptr)[i] = x;
   }
+}
+
+// elements 4 i4 .. 4 i4 + 3: one 16-byte (fp32) or 8-byte (bf16) access
+__device__ __forceinline__ float4 load4(const void* __restrict__ ptr,
+                                        int dtype, long long i4) {
+  if (dtype == kBF16) {
+    const uint2 r = static_cast<const uint2*>(ptr)[i4];
+    return make_float4(__uint_as_float(r.x << 16),
+                       __uint_as_float(r.x & 0xffff0000u),
+                       __uint_as_float(r.y << 16),
+                       __uint_as_float(r.y & 0xffff0000u));
+  }
+  return static_cast<const float4*>(ptr)[i4];
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(
+              __bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+__device__ __forceinline__ void store4(void* __restrict__ ptr, int dtype,
+                                       long long i4, const float4& x) {
+  if (dtype == kBF16) {
+    static_cast<uint2*>(ptr)[i4] =
+        make_uint2(bf16_pair(x.x, x.y), bf16_pair(x.z, x.w));
+  } else {
+    static_cast<float4*>(ptr)[i4] = x;
+  }
+}
+
+__device__ __forceinline__ bool aligned4(const void* ptr, int dtype) {
+  return (reinterpret_cast<uintptr_t>(ptr) & (dtype == kBF16 ? 7 : 15)) == 0;
 }
 
 // One element, in the plain version's order of operations.
@@ -76,51 +125,75 @@ __device__ __forceinline__ void update(const AdamwArgs& a, float& p, float g,
   p = __fsub_rn(p, __fmul_rn(a.lr, __fadd_rn(u, __fmul_rn(a.wd, p))));
 }
 
+__device__ __forceinline__ void update4(const AdamwArgs& a, float4& p,
+                                        const float4& g, float4& m,
+                                        float4& v) {
+  update(a, p.x, g.x, m.x, v.x);
+  update(a, p.y, g.y, m.y, v.y);
+  update(a, p.z, g.z, m.z, v.z);
+  update(a, p.w, g.w, m.w, v.w);
+}
+
+// elements [start, end) of one leaf, 4 at a time, two groups of 4 per
+// thread loaded before either is stored
+__device__ __forceinline__ void sweep4(
+    const AdamwArgs& a, void* __restrict__ p, const void* __restrict__ g,
+    void* __restrict__ m, void* __restrict__ v, int pd, int gd, int md,
+    int vd, long long start4, long long n4) {
+  for (long long j = threadIdx.x; j < n4; j += 2 * kThreads) {
+    const long long i0 = start4 + j;
+    const long long i1 = i0 + kThreads;
+    const bool two = j + kThreads < n4;
+    float4 p0 = load4(p, pd, i0), m0 = load4(m, md, i0),
+           v0 = load4(v, vd, i0);
+    const float4 g0 = load4(g, gd, i0);
+    float4 p1 = p0, m1 = m0, v1 = v0, g1 = g0;
+    if (two) {
+      p1 = load4(p, pd, i1);
+      m1 = load4(m, md, i1);
+      v1 = load4(v, vd, i1);
+      g1 = load4(g, gd, i1);
+    }
+    update4(a, p0, g0, m0, v0);
+    store4(p, pd, i0, p0);
+    store4(m, md, i0, m0);
+    store4(v, vd, i0, v0);
+    if (two) {
+      update4(a, p1, g1, m1, v1);
+      store4(p, pd, i1, p1);
+      store4(m, md, i1, m1);
+      store4(v, vd, i1, v1);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-    adamw_kernel(const AdamwLeaf* __restrict__ leaves,
-                 const long long* __restrict__ grads, int n_leaves,
-                 long long chunk, AdamwArgs a) {
+    adamw_kernel(const __grid_constant__ AdamwParams P) {
   const long long c = blockIdx.x;
-  // the last leaf whose first chunk is <= c (empty leaves share their
-  // successor's first chunk and are skipped)
-  int lo = 0, hi = n_leaves - 1;
+  // the last leaf whose first chunk is <= c (the struct holds no empty
+  // leaf, so first chunks rise strictly)
+  int lo = 0, hi = P.n_leaves - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) / 2;
-    if (leaves[mid].chunk0 <= c) lo = mid; else hi = mid - 1;
+    if (P.leaves[mid].chunk0 <= c) lo = mid; else hi = mid - 1;
   }
-  const AdamwLeaf L = leaves[lo];
-  const long long g = grads[lo];
-  const long long start = (c - L.chunk0) * chunk;
-  const long long end = min(start + chunk, L.numel);
+  const AdamwLeaf& L = P.leaves[lo];
+  const long long start = (c - L.chunk0) * P.chunk;
+  const long long end = min(start + P.chunk, L.numel);
   long long i = start + threadIdx.x;
-
-  const bool all_f32 = L.p_dtype == kF32 && L.g_dtype == kF32 &&
-                       L.m_dtype == kF32 && L.v_dtype == kF32;
-  if (all_f32 && ((L.p | L.m | L.v | g) & 15) == 0) {
-    // start is a multiple of chunk, so every float4 below is aligned
+  if (aligned4(L.p, L.p_dtype) && aligned4(L.g, L.g_dtype) &&
+      aligned4(L.m, L.m_dtype) && aligned4(L.v, L.v_dtype)) {
+    // start is a multiple of chunk, so every 4-group below is aligned
     const long long n4 = (end - start) / 4;
-    float4* p4 = reinterpret_cast<float4*>(L.p) + start / 4;
-    float4* m4 = reinterpret_cast<float4*>(L.m) + start / 4;
-    float4* v4 = reinterpret_cast<float4*>(L.v) + start / 4;
-    const float4* g4 = reinterpret_cast<const float4*>(g) + start / 4;
-    for (long long j = threadIdx.x; j < n4; j += kThreads) {
-      float4 p = p4[j], m = m4[j], v = v4[j];
-      const float4 gg = g4[j];
-      update(a, p.x, gg.x, m.x, v.x);
-      update(a, p.y, gg.y, m.y, v.y);
-      update(a, p.z, gg.z, m.z, v.z);
-      update(a, p.w, gg.w, m.w, v.w);
-      p4[j] = p;
-      m4[j] = m;
-      v4[j] = v;
-    }
+    sweep4(P.a, L.p, L.g, L.m, L.v, L.p_dtype, L.g_dtype, L.m_dtype,
+           L.v_dtype, start / 4, n4);
     i = start + 4 * n4 + threadIdx.x;
   }
   for (; i < end; i += kThreads) {
     float p = load(L.p, L.p_dtype, i);
     float m = load(L.m, L.m_dtype, i);
     float v = load(L.v, L.v_dtype, i);
-    update(a, p, load(g, L.g_dtype, i), m, v);
+    update(P.a, p, load(L.g, L.g_dtype, i), m, v);
     store(L.p, L.p_dtype, i, p);
     store(L.m, L.m_dtype, i, m);
     store(L.v, L.v_dtype, i, v);
@@ -132,27 +205,57 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// leaves: (n_leaves, 9) int64 on the device, one AdamwLeaf per row (p, m, v,
-// numel, chunk0, then the dtype codes of p, g, m and v: 0 fp32, 1 bf16);
-// grads: (n_leaves,) int64 device pointers of the gradients, each shaped
-// like its leaf and contiguous; chunk: elements per CTA, a multiple of 4;
-// total_chunks: the sum of ceil(numel / chunk) over the leaves. bc1 and bc2
-// are the bias corrections of this step. Returns a cudaError_t.
-int adamw(const void* leaves, const void* grads, int n_leaves,
-          long long chunk, long long total_chunks, float lr, float b1,
-          float b2, float one_minus_b1, float one_minus_b2, float eps,
-          float wd, float bc1, float bc2, void* stream) {
-  if (n_leaves <= 0 || chunk <= 0 || chunk % 4 || total_chunks <= 0 ||
-      total_chunks > 0x7fffffffLL) {
+// table: (n_leaves, 6) int64 in HOST memory, one row per leaf: the device
+// pointers of p, g, m and v (each contiguous, g shaped like p), numel, and
+// the dtype codes of p, g, m, v packed one per byte (p lowest; 0 fp32,
+// 1 bf16). chunk: elements per CTA, a multiple of 4. bc1 and bc2 are the
+// bias corrections of this step. The leaves go in launches of up to
+// kMaxLeaves non-empty leaves, each its own parameter struct. Returns a
+// cudaError_t.
+int adamw(const long long* table, int n_leaves, long long chunk, float lr,
+          float b1, float b2, float one_minus_b1, float one_minus_b2,
+          float eps, float wd, float bc1, float bc2, void* stream) {
+  if (n_leaves < 0 || chunk <= 0 || chunk % 4 || table == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dl4jt::AdamwArgs a{lr, b1, b2, one_minus_b1, one_minus_b2,
-                           eps, wd, bc1, bc2};
-  dl4jt::adamw_kernel<<<static_cast<unsigned>(total_chunks), dl4jt::kThreads,
-                        0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const dl4jt::AdamwLeaf*>(leaves),
-      static_cast<const long long*>(grads), n_leaves, chunk, a);
-  return static_cast<int>(cudaGetLastError());
+  using dl4jt::AdamwLeaf;
+  // 16 KB: not on the caller's stack; one per calling thread
+  static thread_local dl4jt::AdamwParams P;
+  P.a = dl4jt::AdamwArgs{lr, b1, b2, one_minus_b1, one_minus_b2,
+                         eps, wd, bc1, bc2};
+  P.chunk = chunk;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int k = 0;
+  while (k < n_leaves) {
+    int n = 0;
+    long long chunks = 0;
+    for (; k < n_leaves && n < dl4jt::kMaxLeaves; ++k) {
+      const long long* row = table + 6LL * k;
+      const long long numel = row[4];
+      if (numel <= 0) continue;
+      const long long codes = row[5];
+      AdamwLeaf& L = P.leaves[n++];
+      L.p = reinterpret_cast<void*>(row[0]);
+      L.g = reinterpret_cast<const void*>(row[1]);
+      L.m = reinterpret_cast<void*>(row[2]);
+      L.v = reinterpret_cast<void*>(row[3]);
+      L.numel = numel;
+      L.chunk0 = chunks;
+      L.p_dtype = static_cast<int>(codes & 0xff);
+      L.g_dtype = static_cast<int>((codes >> 8) & 0xff);
+      L.m_dtype = static_cast<int>((codes >> 16) & 0xff);
+      L.v_dtype = static_cast<int>((codes >> 24) & 0xff);
+      chunks += (numel + chunk - 1) / chunk;
+    }
+    if (n == 0) break;
+    if (chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    P.n_leaves = n;
+    dl4jt::adamw_kernel<<<static_cast<unsigned>(chunks), dl4jt::kThreads, 0,
+                          st>>>(P);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 const char* adamw_error_string(int code) {

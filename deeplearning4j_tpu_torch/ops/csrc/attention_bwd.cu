@@ -24,14 +24,19 @@
 // 2. dk/dv pass, one CTA per key tile: it sweeps the query tiles (causal
 //    CTAs start at their diagonal) and accumulates dk and dv.
 //
-// bf16 operands (every training path) take the tensor-core kernels of
-// attention_bwd_tc.cuh, whose note gives the bound and the design. fp32
-// operands (tests and the fp32 parity runs) take the FMA loops below:
-// fp32 products on tensor cores would need TF32, which the package turns
-// off. They tile 16 rows per CTA with 8 lanes per row; a lane takes every
-// 8th key (or query) of a tile for the D-long dot products and owns every
-// 8th output dimension for the sums; +1 pads keep the shared-memory reads
-// free of bank conflicts.
+// bf16 operands at head_dim 64 (every training path) take the tensor-core
+// kernels of attention_bwd_tc.cuh, whose note gives the bound and the
+// design. fp32 operands (tests and the fp32 parity runs; fp32 products on
+// tensor cores would need TF32, which the package turns off) and bf16 at
+// every other head dim take the FMA loops below. They tile 16 rows per CTA
+// with 8 lanes per row; a lane takes every 8th key (or query) of a tile for
+// the D-long dot products and owns every 8th output dimension for the sums;
+// +1 pads keep the shared-memory reads free of bank conflicts.
+//
+// Head dims: any 1 <= D <= 128 runs, as in the forward (attention_fwd.cuh):
+// the FMA templates are built for the padded width DP in {16, 32, 64, 128},
+// the least one >= D, take D at run time, load dims D..DP-1 as zeros and
+// write only the first D dims of dq, dk and dv.
 #include "attention_bwd_tc.cuh"
 
 namespace dl4jt {
@@ -49,9 +54,10 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b) {
   return acc;
 }
 
+// D: the padded width of the instance; head_dim <= D the real one
 template <typename Elt, int D, int BN>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(BwdArgs a) {
+attention_bwd_dq_kernel(BwdArgs a, int head_dim) {
   constexpr int kKeysPerLane = BN / kLanes;
   constexpr int kDimsPerLane = D / kLanes;
   __shared__ float q_s[kRows][D + 1];
@@ -74,9 +80,9 @@ attention_bwd_dq_kernel(BwdArgs a) {
   const int b = blockIdx.z;
   const int row = q0 + r;
   const bool row_ok = row < seq;
-  const long long stride = static_cast<long long>(a.heads) * D;
-  const long long base =
-      static_cast<long long>(b) * seq * stride + static_cast<long long>(h) * D;
+  const long long stride = static_cast<long long>(a.heads) * head_dim;
+  const long long base = static_cast<long long>(b) * seq * stride +
+                         static_cast<long long>(h) * head_dim;
   const long long vi =
       (static_cast<long long>(b) * a.heads + h) * seq + row;
 
@@ -87,7 +93,7 @@ attention_bwd_dq_kernel(BwdArgs a) {
     const int d = idx % D;
     const int qrow = q0 + rr;
     float qv = 0.f, dv = 0.f;
-    if (qrow < seq) {
+    if (qrow < seq && d < head_dim) {
       qv = round_to<Elt>(to_f(q[base + qrow * stride + d]) * a.scale);
       dv = to_f(dout[base + qrow * stride + d]);
     }
@@ -105,7 +111,7 @@ attention_bwd_dq_kernel(BwdArgs a) {
       const int d = idx % D;
       const int key = k0 + kk;
       float kv = 0.f, vv = 0.f;
-      if (key < seq) {
+      if (key < seq && d < head_dim) {
         kv = to_f(k[base + key * stride + d]);
         vv = to_f(v[base + key * stride + d]);
       }
@@ -175,15 +181,17 @@ attention_bwd_dq_kernel(BwdArgs a) {
     Elt* dq = static_cast<Elt*>(a.dq);
 #pragma unroll
     for (int e = 0; e < kDimsPerLane; ++e) {
-      dq[base + row * stride + lane + e * kLanes] =
-          from_f<Elt>(acc[e] * a.scale);
+      const int d = lane + e * kLanes;
+      if (d < head_dim) {
+        dq[base + row * stride + d] = from_f<Elt>(acc[e] * a.scale);
+      }
     }
   }
 }
 
 template <typename Elt, int D, int BM>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(BwdArgs a) {
+attention_bwd_dkv_kernel(BwdArgs a, int head_dim) {
   constexpr int kQueriesPerLane = BM / kLanes;
   constexpr int kDimsPerLane = D / kLanes;
   __shared__ float k_s[kRows][D + 1];
@@ -209,9 +217,9 @@ attention_bwd_dkv_kernel(BwdArgs a) {
   const int b = blockIdx.z;
   const int key = k0 + r;
   const bool key_ok = key < seq;
-  const long long stride = static_cast<long long>(a.heads) * D;
-  const long long base =
-      static_cast<long long>(b) * seq * stride + static_cast<long long>(h) * D;
+  const long long stride = static_cast<long long>(a.heads) * head_dim;
+  const long long base = static_cast<long long>(b) * seq * stride +
+                         static_cast<long long>(h) * head_dim;
   const long long vbase = (static_cast<long long>(b) * a.heads + h) * seq;
 
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
@@ -219,7 +227,7 @@ attention_bwd_dkv_kernel(BwdArgs a) {
     const int d = idx % D;
     const int krow = k0 + rr;
     float kv = 0.f, vv = 0.f;
-    if (krow < seq) {
+    if (krow < seq && d < head_dim) {
       kv = to_f(k[base + krow * stride + d]);
       vv = to_f(v[base + krow * stride + d]);
     }
@@ -240,7 +248,7 @@ attention_bwd_dkv_kernel(BwdArgs a) {
       const int d = idx % D;
       const int qi = qt0 + ii;
       float qv = 0.f, dv = 0.f;
-      if (qi < seq) {
+      if (qi < seq && d < head_dim) {
         qv = round_to<Elt>(to_f(q[base + qi * stride + d]) * a.scale);
         dv = to_f(dout[base + qi * stride + d]);
       }
@@ -286,7 +294,9 @@ attention_bwd_dkv_kernel(BwdArgs a) {
     Elt* dv = static_cast<Elt*>(a.dv);
 #pragma unroll
     for (int e = 0; e < kDimsPerLane; ++e) {
-      const long long off = base + key * stride + lane + e * kLanes;
+      const int d = lane + e * kLanes;
+      if (d >= head_dim) continue;
+      const long long off = base + key * stride + d;
       // dk = ds^T (scale q): q was staged pre-scaled, no extra factor
       dk[off] = from_f<Elt>(dk_acc[e]);
       dv[off] = from_f<Elt>(dv_acc[e]);
@@ -300,29 +310,43 @@ constexpr int kPassDkv = 2;
 // BN keys per dq tile, BM queries per dk/dv tile: each pass's static
 // shared memory stays under 48 KB
 template <typename Elt, int D, int BN, int BM>
-int launch_passes(const BwdArgs& a, int passes, cudaStream_t stream) {
+int launch_passes(const BwdArgs& a, int head_dim, int passes,
+                  cudaStream_t stream) {
   const dim3 grid((a.seq + kRows - 1) / kRows, a.heads, a.batch);
   if (passes & kPassDq) {
-    attention_bwd_dq_kernel<Elt, D, BN><<<grid, kThreads, 0, stream>>>(a);
+    attention_bwd_dq_kernel<Elt, D, BN><<<grid, kThreads, 0, stream>>>(
+        a, head_dim);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (passes & kPassDkv) {
-    attention_bwd_dkv_kernel<Elt, D, BM><<<grid, kThreads, 0, stream>>>(a);
+    attention_bwd_dkv_kernel<Elt, D, BM><<<grid, kThreads, 0, stream>>>(
+        a, head_dim);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-// Built for head_dim 64 only (BERT-base's 768 / 12, every training path
-// of the package): each further head dim is more kernels to compile on
-// every build. The wrapper refuses other head dims before the launch.
+// The FMA passes at the least built width >= head_dim (1..128; the
+// wrapper refuses wider heads before the launch). At width 128 the tiles
+// shrink to 16 keys and 16 queries to stay under the static cap.
 template <typename Elt>
 int dispatch_head_dim(const BwdArgs& a, int head_dim, int passes,
                       cudaStream_t stream) {
-  if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_passes<Elt, 64, 64, 32>(a, passes, stream);
+  if (head_dim < 1 || head_dim > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (head_dim <= 16) {
+    return launch_passes<Elt, 16, 64, 32>(a, head_dim, passes, stream);
+  }
+  if (head_dim <= 32) {
+    return launch_passes<Elt, 32, 64, 32>(a, head_dim, passes, stream);
+  }
+  if (head_dim <= 64) {
+    return launch_passes<Elt, 64, 64, 32>(a, head_dim, passes, stream);
+  }
+  return launch_passes<Elt, 128, 16, 16>(a, head_dim, passes, stream);
 }
 
 // The bf16 passes on the tensor cores (attention_bwd_tc.cuh), one CTA
@@ -358,14 +382,14 @@ int launch_tc(const BwdArgs& a, int passes, cudaStream_t stream) {
   return 0;
 }
 
-// fp32 takes the FMA loops, bf16 the tensor cores; head_dim 64 only for
-// both (the wrapper refuses others before the launch)
+// bf16 at head_dim 64 takes the tensor cores; fp32, and bf16 at any other
+// head dim up to 128, the FMA loops
 int run(const BwdArgs& a, int head_dim, int dtype, int passes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return dispatch_head_dim<float>(a, head_dim, passes, s);
   if (dtype == kBF16) {
-    if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_tc(a, passes, s);
+    if (head_dim == 64) return launch_tc(a, passes, s);
+    return dispatch_head_dim<__nv_bfloat16>(a, head_dim, passes, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

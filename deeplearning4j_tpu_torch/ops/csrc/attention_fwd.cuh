@@ -9,7 +9,13 @@
 // attention_fwd_tc.cuh, whose note gives the bound and the design. The
 // template below serves the rest: fp32 operands (tests and the fp32 parity
 // runs; fp32 products on tensor cores would need TF32, which the package
-// turns off) and bf16 at head dims 16, 32 and 128, which no main path runs.
+// turns off) and bf16 at every other head dim, which no main path runs.
+//
+// Head dims: any 1 <= D <= 128 runs. D is a run-time argument; the
+// template is built for the padded width DP in {16, 32, 64, 128}, the
+// least one >= D. Dims D..DP-1 load as zeros (they add nothing to q.k and
+// give no output dims), only the first D dims of o are written, and the
+// caller's scale is 1/sqrt(D) of the real D.
 //
 // The FMA template: the TPU kernels hold a whole head's (T, T) scores in
 // VMEM (the packed one) or stream 512-key blocks through it (the streamed
@@ -40,7 +46,10 @@ __global__ void __launch_bounds__(kFwdThreads)
 attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
                      const Elt* __restrict__ v, Elt* __restrict__ o,
                      float* __restrict__ lse, int seq, int heads,
-                     float scale, int causal, int p_bf16, int clamp_l) {
+                     int head_dim, float scale, int causal, int p_bf16,
+                     int clamp_l) {
+  // D: the padded width this instance is built for; head_dim <= D the
+  // real one (dims past it are zeros)
   constexpr int kRows = kFwdRows;
   constexpr int kLanes = kFwdLanes;
   constexpr int kThreads = kFwdThreads;
@@ -60,17 +69,18 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
   const int b = blockIdx.z;
   const int row = q0 + r;
   const bool row_ok = row < seq;
-  const long long stride = static_cast<long long>(heads) * D;
-  const long long base =
-      static_cast<long long>(b) * seq * stride + static_cast<long long>(h) * D;
+  const long long stride = static_cast<long long>(heads) * head_dim;
+  const long long base = static_cast<long long>(b) * seq * stride +
+                         static_cast<long long>(h) * head_dim;
 
   // scale folded into q and rounded back to the input dtype, as the
   // reference does before its q.k^T dot
   float qr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = row_ok ? round_to<Elt>(to_f(q[base + row * stride + d]) * scale)
-                   : 0.f;
+    qr[d] = row_ok && d < head_dim
+                ? round_to<Elt>(to_f(q[base + row * stride + d]) * scale)
+                : 0.f;
   }
   float acc[kDimsPerLane];
 #pragma unroll
@@ -88,7 +98,7 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
       const int d = idx % D;
       const int key = k0 + kk;
       float kv = 0.f, vv = 0.f;
-      if (key < seq) {
+      if (key < seq && d < head_dim) {
         kv = to_f(k[base + key * stride + d]);
         vv = to_f(v[base + key * stride + d]);
       }
@@ -154,7 +164,8 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
   if (row_ok) {
 #pragma unroll
     for (int e = 0; e < kDimsPerLane; ++e) {
-      o[base + row * stride + lane + e * kLanes] = from_f<Elt>(acc[e] / l);
+      const int d = lane + e * kLanes;
+      if (d < head_dim) o[base + row * stride + d] = from_f<Elt>(acc[e] / l);
     }
     if (lane == 0) {
       lse[(static_cast<long long>(b) * heads + h) * seq + row] = m + logf(l);
@@ -164,7 +175,7 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
 
 // Launch the forward for one dtype; returns the launch's cudaError_t.
 // bf16 at head_dim 64 launches the tensor-core kernel, everything else the
-// FMA template.
+// FMA template at the least built width >= head_dim (1..128).
 template <typename Elt>
 int launch_attention_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int batch, int seq, int heads,
@@ -176,31 +187,32 @@ int launch_attention_fwd(const void* q, const void* k, const void* v,
   const Elt* vp = static_cast<const Elt*>(v);
   Elt* op = static_cast<Elt*>(o);
   float* lp = static_cast<float*>(lse);
-  switch (head_dim) {
-    case 16:
-      attention_fwd_kernel<Elt, 16, 64><<<grid, kFwdThreads, 0, stream>>>(
-          qp, kp, vp, op, lp, seq, heads, scale, causal, p_bf16, clamp_l);
-      break;
-    case 32:
-      attention_fwd_kernel<Elt, 32, 64><<<grid, kFwdThreads, 0, stream>>>(
-          qp, kp, vp, op, lp, seq, heads, scale, causal, p_bf16, clamp_l);
-      break;
-    case 64:
-      if constexpr (std::is_same<Elt, __nv_bfloat16>::value) {
-        const tc::FwdArgs a{qp, kp, vp, op, lp, batch, seq, heads, scale,
-                            causal, clamp_l};
-        return tc::launch_attention_fwd_tc(a, p_bf16, stream);
-      } else {
-        attention_fwd_kernel<Elt, 64, 64><<<grid, kFwdThreads, 0, stream>>>(
-            qp, kp, vp, op, lp, seq, heads, scale, causal, p_bf16, clamp_l);
-      }
-      break;
-    case 128:   // 32-key tiles keep shared memory under the 48 KB static cap
-      attention_fwd_kernel<Elt, 128, 32><<<grid, kFwdThreads, 0, stream>>>(
-          qp, kp, vp, op, lp, seq, heads, scale, causal, p_bf16, clamp_l);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim < 1 || head_dim > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (std::is_same<Elt, __nv_bfloat16>::value) {
+    if (head_dim == 64) {
+      const tc::FwdArgs a{qp, kp, vp, op, lp, batch, seq, heads, scale,
+                          causal, clamp_l};
+      return tc::launch_attention_fwd_tc(a, p_bf16, stream);
+    }
+  }
+  if (head_dim <= 16) {
+    attention_fwd_kernel<Elt, 16, 64><<<grid, kFwdThreads, 0, stream>>>(
+        qp, kp, vp, op, lp, seq, heads, head_dim, scale, causal, p_bf16,
+        clamp_l);
+  } else if (head_dim <= 32) {
+    attention_fwd_kernel<Elt, 32, 64><<<grid, kFwdThreads, 0, stream>>>(
+        qp, kp, vp, op, lp, seq, heads, head_dim, scale, causal, p_bf16,
+        clamp_l);
+  } else if (head_dim <= 64) {
+    attention_fwd_kernel<Elt, 64, 64><<<grid, kFwdThreads, 0, stream>>>(
+        qp, kp, vp, op, lp, seq, heads, head_dim, scale, causal, p_bf16,
+        clamp_l);
+  } else {   // 32-key tiles keep shared memory under the 48 KB static cap
+    attention_fwd_kernel<Elt, 128, 32><<<grid, kFwdThreads, 0, stream>>>(
+        qp, kp, vp, op, lp, seq, heads, head_dim, scale, causal, p_bf16,
+        clamp_l);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,14 +8,17 @@ that ``make_train_step``'s ``init_state`` builds (``{"count", "mu",
 "nu"}``, moments in :func:`tree_leaves` order); ``apply`` takes the
 gradients and updates params and moments in place, at ``optax.adamw``'s
 semantics, with no intermediate updates tree. On the card one call is ONE
-launch over every leaf; on the CPU each leaf takes :func:`adamw_reference`.
-The launch count is ``fused_adamw.launches``.
+launch over up to 256 leaves (one more for each further 256); on the CPU
+each leaf takes :func:`adamw_reference`. The launch count is
+``fused_adamw.launches``, one per call.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, NamedTuple
+import operator
+from typing import Any, List, NamedTuple
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.ops._launch import launch, route, stream_ptr
@@ -29,11 +32,20 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     """The tensors of a parameter tree in a fixed order (dict keys sorted,
     lists in order), so params and optimizer moments pair up — the order
     of ``jax.tree_util.tree_leaves`` on the same tree."""
+    out: List[torch.Tensor] = []
+    _flatten(tree, out)
+    return out
+
+
+def _flatten(tree, out: List[torch.Tensor]) -> None:
     if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for x in tree for t in tree_leaves(x)]
-    return [tree]
+        for k in sorted(tree):
+            _flatten(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _flatten(x, out)
+    else:
+        out.append(tree)
 
 
 def adamw_reference(p, g, m, v, bc1: float, bc2: float, *, lr: float,
@@ -76,6 +88,91 @@ def bias_corrections(count: int, b1: float, b2: float):
             float(one - torch.tensor(b2, dtype=torch.float32) ** t))
 
 
+_data_ptr = torch.Tensor.data_ptr
+_SHAPE_DTYPE = operator.attrgetter("shape", "dtype")
+
+
+class _LeafTable:
+    """The host table the adamw kernel's C entry point reads: one int64 row
+    per leaf of p, g, m, v addresses, numel and the four dtype codes packed
+    one per byte (p lowest).
+
+    The p, m and v columns are validated and written once per leaf set:
+    :meth:`rows` rebuilds them only when a leaf is replaced or re-allocated
+    (another tensor, or another address), so a step on the same tree skips
+    the per-leaf checks of p, m and v. Gradients are new tensors every
+    step: each call compares their shapes, dtypes and devices with the last
+    call's (checking them against p where those changed) and writes their
+    addresses into the g column. The table logic reads no device memory,
+    so it runs on CPU tensors too."""
+
+    def __init__(self):
+        self.keep = ()       # every p, m and v of the table, in order
+        self.ptrs = None     # their addresses
+        self.gsig = None     # the shapes and dtypes, then devices, of g
+        self.table = None    # (n, 6) int64
+        self.codes = None    # the p, m, v dtype codes of each row
+        self.device = None
+
+    def rows(self, ps, gs, ms, vs) -> np.ndarray:
+        pmv = (*ps, *ms, *vs)
+        if not (len(pmv) == len(self.keep)
+                and all(map(operator.is_, pmv, self.keep))
+                and list(map(_data_ptr, pmv)) == self.ptrs):
+            self._build(ps, ms, vs)
+            self.keep, self.ptrs, self.gsig = pmv, list(map(_data_ptr, pmv)), \
+                None
+        if len(gs) != len(ps):
+            raise ValueError(f"params, grads and moments hold {len(ps)}, "
+                             f"{len(gs)}, {len(ms)}, {len(vs)} leaves")
+        gs = list(map(torch.Tensor.contiguous, gs))
+        gsig = (list(map(_SHAPE_DTYPE, gs)),
+                list(map(torch.Tensor.get_device, gs)))
+        if gsig != self.gsig:
+            _check_leaves(ps, gs, ms, vs)
+            if any(g.device != self.device for g in gs):
+                raise ValueError(f"gradients must lie on the params' device "
+                                 f"{self.device}")
+            _check_dtypes(gs)
+            self.table[:, 5] = self.codes | np.array(
+                [_CODES[g.dtype] << 8 for g in gs], dtype=np.int64)
+            self.gsig = gsig
+        self.table[:, 1] = list(map(_data_ptr, gs))
+        return self.table
+
+    def _build(self, ps, ms, vs):
+        if not len(ps) == len(ms) == len(vs):
+            raise ValueError(f"params and moments hold {len(ps)}, {len(ms)}, "
+                             f"{len(vs)} leaves")
+        for k, (p, m, v) in enumerate(zip(ps, ms, vs)):
+            if not p.shape == m.shape == v.shape:
+                raise ValueError(f"leaf {k}: shapes differ: p "
+                                 f"{tuple(p.shape)}, m {tuple(m.shape)}, "
+                                 f"v {tuple(v.shape)}")
+        pmv = (*ps, *ms, *vs)
+        route(*pmv)   # one device
+        _check_dtypes(pmv)
+        if not all(x.is_contiguous() for x in pmv):
+            raise ValueError("fused_adamw updates params and moments in "
+                             "place: they must be contiguous")
+        self.device = ps[0].device
+        self.table = np.zeros((len(ps), 6), dtype=np.int64)
+        self.table[:, 0] = [p.data_ptr() for p in ps]
+        self.table[:, 2] = [m.data_ptr() for m in ms]
+        self.table[:, 3] = [v.data_ptr() for v in vs]
+        self.table[:, 4] = [p.numel() for p in ps]
+        self.codes = np.array(
+            [_CODES[p.dtype] | _CODES[m.dtype] << 16 | _CODES[v.dtype] << 24
+             for p, m, v in zip(ps, ms, vs)], dtype=np.int64)
+
+
+def _check_dtypes(tensors) -> None:
+    for x in tensors:
+        if x.dtype not in _CODES:
+            raise TypeError(f"the adamw kernel takes float32 or bfloat16 "
+                            f"operands, got {x.dtype}")
+
+
 def _check_leaves(ps, gs, ms, vs) -> None:
     if not len(ps) == len(gs) == len(ms) == len(vs):
         raise ValueError(f"params, grads and moments hold {len(ps)}, "
@@ -101,9 +198,11 @@ def fused_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     ``torch.autograd.grad`` returns for the leaves of ``grad_aliases``).
     It updates the params and the moments IN PLACE — as the JAX kernel
     aliases them — and returns them with the state, whose count it
-    increments. On the card it is one kernel launch for every leaf."""
+    increments. On the card it is one kernel launch for up to 256 leaves
+    (the leaf table travels in the kernel's parameters), with the table's
+    checks of p, m and v made once per tree (``_LeafTable``)."""
     hyper = dict(lr=learning_rate, b1=b1, b2=b2, eps=eps, wd=weight_decay)
-    table: Dict[str, Any] = {}   # the device leaf table of the last leaf set
+    table = _LeafTable()   # the kernel's leaf table of the last leaf set
 
     def init(params):
         leaves = tree_leaves(params)
@@ -111,53 +210,27 @@ def fused_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                 "mu": [torch.zeros_like(p) for p in leaves],
                 "nu": [torch.zeros_like(p) for p in leaves]}
 
-    def leaf_table(ps, gs, ms, vs):
-        """(device table, chunks): one row per leaf of p, m, v pointers,
-        size, first chunk and the four dtype codes — built again only when
-        a pointer, size or dtype changes."""
-        key = tuple((p.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
-                     p.dtype, g.dtype, m.dtype, v.dtype)
-                    for p, g, m, v in zip(ps, gs, ms, vs))
-        if table.get("key") != key:
-            rows, chunk0 = [], 0
-            for p, g, m, v in zip(ps, gs, ms, vs):
-                rows.append([p.data_ptr(), m.data_ptr(), v.data_ptr(),
-                             p.numel(), chunk0] +
-                            [_CODES[x.dtype] for x in (p, g, m, v)])
-                chunk0 += -(-p.numel() // _CHUNK)
-            table.update(key=key, chunks=chunk0, rows=torch.tensor(
-                rows, dtype=torch.int64).to(ps[0].device))
-        return table["rows"], table["chunks"]
-
     def launch_kernel(ps, gs, ms, vs, bc1, bc2):
-        for x in (*ps, *gs, *ms, *vs):
-            if x.dtype not in _CODES:
-                raise TypeError(f"the adamw kernel takes float32 or bfloat16 "
-                                f"operands, got {x.dtype}")
-        if not all(x.is_contiguous() for x in (*ps, *ms, *vs)):
-            raise ValueError("fused_adamw updates params and moments in "
-                             "place: they must be contiguous")
-        gs = [g.contiguous() for g in gs]
-        rows, chunks = leaf_table(ps, gs, ms, vs)
-        gptr = torch.tensor([g.data_ptr() for g in gs], dtype=torch.int64)
-        gptr = gptr.pin_memory().to(ps[0].device, non_blocking=True)
+        rows = table.rows(ps, gs, ms, vs)
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
             ctypes.c_longlong
-        launch("adamw", "adamw", [p, p, i, ll, ll] + [f] * 9 + [p],
-               rows.data_ptr(), gptr.data_ptr(), len(ps), _CHUNK, chunks,
-               learning_rate, b1, b2, 1 - b1, 1 - b2, eps, weight_decay, bc1,
-               bc2, stream_ptr(ps[0].device))
+        launch("adamw", "adamw", [p, i, ll] + [f] * 9 + [p],
+               rows.ctypes.data, len(ps), _CHUNK, learning_rate, b1, b2,
+               1 - b1, 1 - b2, eps, weight_decay, bc1, bc2,
+               stream_ptr(ps[0].device))
         fused_adamw.launches += 1
 
     def apply(params, opt_state, grads):
         ps, gs = tree_leaves(params), tree_leaves(grads)
         ms, vs = opt_state["mu"], opt_state["nu"]
-        _check_leaves(ps, gs, ms, vs)
         count = opt_state["count"] + 1
         bc1, bc2 = bias_corrections(count, b1, b2)
-        if ps and route(*ps, *gs, *ms, *vs) == "cuda":
+        if ps and ps[0].is_cuda:
             launch_kernel(ps, gs, ms, vs, bc1, bc2)
         else:
+            _check_leaves(ps, gs, ms, vs)
+            if ps:
+                route(*ps, *gs, *ms, *vs)   # one device, the CPU
             with torch.no_grad():
                 for p, g, m, v in zip(ps, gs, ms, vs):
                     new = adamw_reference(p, g, m, v, bc1, bc2, **hyper)

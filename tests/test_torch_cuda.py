@@ -93,23 +93,77 @@ def test_packed_bf16_matches_plain(card, p_dtype):
 
 
 def test_packed_refuses_unbuilt_head_dim(card):
-    q = torch.zeros(1, 8, 2 * 48, device=card)
+    """Head dims past 128 (the kernels' shared-memory limit) refuse."""
+    q = torch.zeros(1, 8, 2 * 136, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         ak.mha_packed_forward(q, q, q, 2)
 
 
 def test_backward_kernels_refuse_unbuilt_head_dim(card):
-    """The backward kernels are built for head_dim 64 only."""
-    q = torch.zeros(1, 8, 2 * 32, device=card)
+    """The backward kernels refuse head dims past 128, as the forward."""
+    q = torch.zeros(1, 8, 2 * 136, device=card)
     lse = torch.zeros(1, 2, 8, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         ak.mha_packed_backward(q, q, q, q, lse, 2)
-    q3, vec = torch.zeros(2, 8, 32, device=card), torch.zeros(2, 1, 8,
-                                                               device=card)
+    q3, vec = torch.zeros(2, 8, 136, device=card), torch.zeros(2, 1, 8,
+                                                                device=card)
     with pytest.raises(ValueError, match="head_dim"):
         ak.flash_bwd_dq(q3, q3, q3, q3, vec, vec)
     with pytest.raises(ValueError, match="head_dim"):
         ak.flash_bwd_dkv(q3, q3, q3, q3, vec, vec)
+
+
+def _check_head_dim(got, ref, d, dtype, floor, fp32_tol):
+    """fp32: end to end, sums reassociated (``fp32_tol``); bf16: the
+    per-element rule (``_within``) at the row of one head's d values."""
+    for a, b in zip(got, ref):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=fp32_tol, atol=fp32_tol)
+        else:
+            assert _within(a, b, d, floor)
+
+
+# Head dims off the built widths run padded to the next one (16, 32, 64,
+# 128): 8 and 48 and 96 pad, 16 is exact; bf16 at these takes the FMA
+# templates, forward and backward
+@pytest.mark.parametrize("head_dim", [8, 16, 48, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_head_dims_match_plain(card, head_dim, dtype, causal):
+    rng = np.random.default_rng(100 + head_dim)
+    heads, t = 3, 72
+    q, k, v, do = (_tensor(rng, (2, t, heads * head_dim), dtype, card)
+                   for _ in range(4))
+    o, lse = ak.mha_packed_forward(q, k, v, heads, causal)
+    ro, rlse = ak.mha_packed_forward_reference(q, k, v, heads, causal)
+    got = ak.mha_packed_backward(q, k, v, do, rlse, heads, causal)
+    ref = ak.mha_packed_backward_reference(q, k, v, do, rlse, heads, causal)
+    torch.cuda.synchronize()
+    _check_head_dim([o], [ro], head_dim, dtype, FWD_FLOOR, 1e-5)
+    assert _max_err(lse, rlse) <= (1e-5 if dtype == torch.float32 else 1e-3)
+    _check_head_dim(got, ref, head_dim, dtype, BWD_FLOOR, 1e-4)
+
+
+@pytest.mark.parametrize("head_dim", [8, 16, 48, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_streamed_head_dims_match_plain(card, head_dim, dtype, causal):
+    rng = np.random.default_rng(200 + head_dim)
+    bh, t = 3, 72
+    q, k, v, do = (_tensor(rng, (bh, t, head_dim), dtype, card)
+                   for _ in range(4))
+    o, lse = ak.flash_forward(q, k, v, causal, t, t)
+    ro, rlse = ak.flash_forward_reference(q, k, v, causal)
+    delta = (do.float() * ro.float()).sum(-1).reshape(bh, 1, t)
+    dq = ak.flash_bwd_dq(q, k, v, do, rlse, delta, causal)
+    dk, dv = ak.flash_bwd_dkv(q, k, v, do, rlse, delta, causal)
+    rdq = ak.flash_bwd_dq_reference(q, k, v, do, rlse, delta, causal)
+    rdk, rdv = ak.flash_bwd_dkv_reference(q, k, v, do, rlse, delta, causal)
+    torch.cuda.synchronize()
+    _check_head_dim([o], [ro], head_dim, dtype, FWD_FLOOR, 1e-5)
+    assert _max_err(lse, rlse) <= (1e-5 if dtype == torch.float32 else 1e-3)
+    _check_head_dim([dq, dk, dv], [rdq, rdk, rdv], head_dim, dtype,
+                    BWD_FLOOR, 1e-4)
 
 
 def _paged_case(rng, block, q_dtype, device):
@@ -677,3 +731,179 @@ def test_fused_adamw_refuses_unsupported_dtype(card):
     opt = updaters.fused_adamw(1e-3)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         opt.apply(p, opt.init(p), {"w": torch.zeros_like(p["w"])})
+
+
+# ------------------------------------------- paged decode, split (row 6)
+
+
+def _split_case(rng, block, nbmax, d, q_dtype, pool, device):
+    """Slots whose pos sit on the split edges of ``paged_decode_plan``,
+    past the table, at -1, and a dead slot; each live slot's blocks are
+    distinct ids of a 2-head pool."""
+    heads = 2
+    per, _ = ak.paged_decode_plan(nbmax, block)
+    span = per * block                          # positions of one split
+    length = nbmax * block
+    pos = [0, span - 1, span, min(2 * span, length - 1), length - 1,
+           length + 5, -1, 0]                   # last: dead slot
+    S, NB = len(pos), nbmax * len(pos) + 1
+    perm = rng.permutation(np.arange(1, NB)).astype(np.int32)
+    tables = np.zeros((S, nbmax), np.int32)
+    for s, p in enumerate(pos[:-1]):
+        tables[s] = perm[s * nbmax:(s + 1) * nbmax]
+    q = _tensor(rng, (S, heads, d), q_dtype, device)
+    kf = _tensor(rng, (NB, block, heads, d), torch.float32, device)
+    vf = _tensor(rng, (NB, block, heads, d), torch.float32, device)
+    scales = {}
+    if pool == "int8":
+        kp, ks = quantize_kv(kf)
+        vp, vs = quantize_kv(vf)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kf.to(getattr(torch, pool)), vf.to(getattr(torch, pool))
+    return (q, kp, vp, torch.as_tensor(tables, device=device),
+            torch.as_tensor(np.array(pos, np.int32), device=device)), scales
+
+
+# (block, nbmax, head_dim): one split (no merge launch); 8 splits of 4
+# blocks at the serving shape; 16-block splits; block 64 at head_dim 128
+# (over the old kernel's 48 KB stage); padded head dims 48 and 8; heads
+# wider than 128 (several 16-byte slices a lane; 200 leaves int8 rows off
+# the 16-byte vector), up to the widest, 1024, in blocks of one position
+SPLIT_CASES = [(16, 4, 64), (16, 32, 64), (4, 40, 32), (64, 8, 128),
+               (8, 16, 48), (16, 8, 8), (16, 8, 256), (4, 40, 200),
+               (1, 70, 1024)]
+
+
+@pytest.mark.parametrize("block,nbmax,head_dim", SPLIT_CASES)
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+def test_paged_splits_match_plain(card, block, nbmax, head_dim, pool):
+    rng = np.random.default_rng(block * 1000 + nbmax + head_dim)
+    q_dtype = torch.bfloat16 if pool == "bfloat16" else torch.float32
+    args, scales = _split_case(rng, block, nbmax, head_dim, q_dtype, pool,
+                               card)
+    before = ak.paged_decode_attention.launches
+    out = ak.paged_decode_attention(*args, block_size=block, **scales)
+    again = ak.paged_decode_attention(*args, block_size=block, **scales)
+    ref = ak.paged_decode_attention_reference(*args, block_size=block,
+                                              **scales)
+    torch.cuda.synchronize()
+    # one count a call, whatever the launches inside
+    assert ak.paged_decode_attention.launches == before + 2
+    assert bool(torch.isfinite(out.float()).all())
+    # the splits merge in split-index order: the same bits every call
+    assert torch.equal(out, again)
+    # pos < 0 attends nothing and gives zeros, as the JAX package's Pallas
+    # kernel does (its gather reference, like the plain version here,
+    # softmaxes a row of masked scores instead): held apart from the rest
+    assert bool((out[6] == 0).all())
+    live = [s for s in range(out.shape[0]) if s != 6]
+    out, ref = out[live], ref[live]
+    if q_dtype == torch.float32:
+        # fp32 on both sides; only the softmax's summation order differs
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        # bf16 output: one rounding apart at most, 2^-7 of the largest |o|
+        assert _max_err(out, ref) <= 2 ** -7 * max(
+            ref.float().abs().max().item(), 1.0)
+
+
+def test_paged_refuses_heads_past_its_widest(card):
+    q = torch.zeros(2, 1, 1032, device=card)
+    pool = torch.zeros(3, 4, 1, 1032, device=card)
+    tables = torch.zeros(2, 1, dtype=torch.int32, device=card)
+    pos = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="head_dim from 1 to 1024"):
+        ak.paged_decode_attention(q, pool, pool, tables, pos, block_size=4)
+
+
+def test_paged_replays_in_a_cuda_graph(card):
+    """The split plan reads no positions from the card, so a call captures
+    into a CUDA graph; replays follow pos as it changes in place."""
+    rng = np.random.default_rng(5)
+    args, scales = _split_case(rng, 16, 32, 64, torch.bfloat16, "bfloat16",
+                               card)
+    q, kp, vp, tables, pos = args
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ak.paged_decode_attention(*args, block_size=16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ak.paged_decode_attention(*args, block_size=16)
+    for moved in (False, True):
+        if moved:
+            pos.add_(37).clamp_(max=511)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ak.paged_decode_attention(*args,
+                                                          block_size=16))
+
+
+# ---------------------------------------------- fused AdamW (row 9)
+
+
+def _adamw_check(params, moments, steps, rng, card):
+    """Apply ``steps`` times with gradients freshly allocated every step
+    (new addresses), against the plain version leaf by leaf."""
+    opt = updaters.fused_adamw(3e-3, weight_decay=0.01)
+    state = opt.init(params)
+    if moments is not None:
+        state["mu"], state["nu"] = moments
+    leaves = updaters.tree_leaves(params)
+    ref_p = [p.clone() for p in leaves]
+    ref_m = [m.clone() for m in state["mu"]]
+    ref_v = [v.clone() for v in state["nu"]]
+    kept = []
+    for step in range(1, steps + 1):
+        grads = [_tensor(rng, p.shape, p.dtype, card) for p in leaves]
+        kept.append(grads)              # the next step's land elsewhere
+        opt.apply(params, state, grads)
+        bc1, bc2 = updaters.bias_corrections(step, 0.9, 0.999)
+        for i, g in enumerate(grads):
+            new = updaters.adamw_reference(ref_p[i], g, ref_m[i], ref_v[i],
+                                           bc1, bc2, lr=3e-3, b1=0.9,
+                                           b2=0.999, eps=1e-8, wd=0.01)
+            for dst, src in zip((ref_p[i], ref_m[i], ref_v[i]), new):
+                dst.copy_(src)
+    torch.cuda.synchronize()
+    got = leaves + state["mu"] + state["nu"]
+    for a, b in zip(got, ref_p + ref_m + ref_v):
+        assert a.dtype == b.dtype
+        # every operation rounded once in fp32 on both sides (the kernel
+        # contracts nothing into an FMA): equal up to an ulp of its dtype
+        rel = 2 ** -22 if a.dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(a, b, rtol=rel, atol=1e-12)
+
+
+def test_fused_adamw_new_grad_addresses_every_step(card):
+    rng = np.random.default_rng(21)
+    params = _adamw_tree(rng, torch.float32, card)
+    _adamw_check(params, None, 3, rng, card)
+
+
+def test_fused_adamw_mixed_dtypes_vector_path(card):
+    """bf16 params with fp32 moments: each operand loads four elements at
+    a time by its own dtype; (5, 3) leaves a scalar tail."""
+    rng = np.random.default_rng(22)
+    params = _adamw_tree(rng, torch.bfloat16, card)
+    leaves = updaters.tree_leaves(params)
+    moments = ([torch.zeros_like(p, dtype=torch.float32) for p in leaves],
+               [torch.zeros_like(p, dtype=torch.float32) for p in leaves])
+    _adamw_check(params, moments, 2, rng, card)
+
+
+def test_fused_adamw_tree_wider_than_one_launch(card):
+    """300 leaves (more than the 256 one parameter struct holds), an empty
+    leaf and a leaf one element off its 16-byte alignment."""
+    rng = np.random.default_rng(23)
+    base = torch.zeros(1001, device=card)
+    params = {f"l{i:03d}": _tensor(rng, (int(rng.integers(1, 3000)),),
+                                   torch.float32, card) for i in range(298)}
+    params["empty"] = torch.zeros(0, device=card)
+    params["offset"] = base[1:]
+    params["offset"].copy_(_tensor(rng, (1000,), torch.float32, card))
+    before = updaters.fused_adamw.launches
+    _adamw_check(params, None, 2, rng, card)
+    assert updaters.fused_adamw.launches == before + 2
