@@ -33,8 +33,9 @@ seconds:
    (streamed); dq's first causal row is exactly 0 on both sides (packed)
    or equal bit for bit (streamed, whose delta the caller sums);
    head dims — the packed and streamed kernels, forward and backward, at
-   head dims 8, 48 and 96 (padded to the built widths), fp32 and bf16,
-   causal and not;
+   head dims 8, 48, 96, 160 and 256 (padded to the built widths; 160 and
+   256 on the 256-wide instances, in opted-in dynamic shared memory),
+   fp32 and bf16, causal and not; head dim 257 must refuse;
    loss and update kernels — the fused cross-entropy forward and backward
    at the MLM step's logits (49152 x 30522, bf16) and at edge cases
    (fp32, targets -1 and V, N not a multiple of 128), the fused AdamW over
@@ -52,6 +53,19 @@ seconds:
 8. profile — torch.profiler over a short engine run: the device's busy
    share of the wall time, the kernels that take the most device time,
    and the paged decode kernels' (split and merge) share;
+   kv lifecycle fp32 — the paged engine's block lifecycle on a 2-layer
+   fp32 copy, fused and gather routes: shared prefixes of 250 tokens
+   (copy-on-write) and 256 (block-aligned), on-demand allocation with
+   preemption, the same pool swapping to host, the automatic prefix
+   cache; every stream token-equal to its reference, the counters exact;
+   shared prefix — the JAX package's shared-prefix scenario at full width
+   (bf16, 48 streams on one 256-token prefix, 8-token suffixes, 32 new
+   tokens, fused): one prefix prefill, no stream prefill, 48 hits;
+   occupancy — its occupancy leg (int8 pool of 256 blocks, 48 requests of
+   a 64-token system prompt and short suffixes, 192 new tokens):
+   ``reserve`` and ``on_demand`` with a 64-block prefix cache (preemptions
+   and cache hits required), then ``on_demand`` swapping to host against
+   an unpressured run (streams resumed by swap-in token-equal);
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -812,16 +826,21 @@ def head_dim_phase():
     """Head dims off BERT-base's 64, which the kernels run padded to the
     next built width: the packed forward and backward (B=2, T=128, 4
     heads) and the streamed forward, dq and dk/dv (BH=4, T=256) at D = 8,
-    48 and 96, fp32 and bf16, causal and not, against the plain versions:
-    fp32 to 1e-5 (forward) or 1e-4 (backward) of the largest |plain|, bf16
-    per element (``judge``)."""
+    48, 96, 160 and 256 (the last two on the 256-wide instances, their
+    tiles in opted-in dynamic shared memory), fp32 and bf16, causal and
+    not, against the plain versions: fp32 to 1e-5 (forward) or 1e-4
+    (backward) of the largest |plain|, bf16 per element (``judge``). Each
+    call must launch its kernel; D = 257 must refuse, naming the shared
+    memory it would need."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import attention_kernels as ak
 
     rng = np.random.default_rng(4)
     worst = {}
-    for d in (8, 48, 96):
+    calls = (ak.mha_attention_packed, ak.mha_packed_backward,
+             ak.flash_forward, ak.flash_bwd_dq, ak.flash_bwd_dkv)
+    for d in (8, 48, 96, 160, 256):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 def rand(shape):
@@ -829,6 +848,7 @@ def head_dim_phase():
                         rng.standard_normal(shape),
                         dtype=torch.float32).to(DEVICE, dtype)
                 q, k, v, do = (rand((2, 128, 4 * d)) for _ in range(4))
+                before = [c.launches for c in calls]
                 o, lse = ak.mha_packed_forward(q, k, v, 4, causal)
                 ro, rlse = ak.mha_packed_forward_reference(q, k, v, 4,
                                                            causal)
@@ -858,6 +878,9 @@ def head_dim_phase():
                 torch.cuda.synchronize()
                 label = (f"D{d} {str(dtype).split('.')[-1]} "
                          f"{'causal' if causal else 'non-causal'}")
+                check([c.launches - n for c, n in zip(calls, before)]
+                      == [1] * len(calls),
+                      f"head dims {label}: a kernel did not launch once")
                 share = 0.0
                 for name, a, b, floor in pairs:
                     if dtype == torch.float32:
@@ -875,6 +898,16 @@ def head_dim_phase():
                 worst[label] = share
     log("head dims: worst share of the bound per case: "
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+    q = torch.zeros(1, 8, 2 * 257, device=DEVICE)
+    try:
+        ak.mha_packed_forward(q, q, q, 2)
+    except ValueError as e:
+        need = f"{ak.backward_smem_bytes(257)} bytes"
+        check(need in str(e), f"head dim 257 refused without naming {need}: "
+              f"{e}")
+        log(f"head dims: D = 257 refuses: {e}")
+    else:
+        raise AssertionError("head dim 257 ran: the kernels take 1..256")
 
 
 def chat_mix(vocab: int, n_requests: int = 32, max_len: int = 512):
@@ -1059,6 +1092,319 @@ def profile_phase(cfg, params, prompts, device="cuda"):
         n = sum(c for name, _, c in kernels if part in name)
         log(f"profile: {part} {ms:.3f} ms x{n} "
             f"({100 * ms / busy:.2f}% of device time)")
+
+
+PREFIX_COUNTERS = ("prefix_prefills_total", "prefills_total",
+                   "prefix_hits_total", "kv_cow_copies_total")
+
+
+def kv_lifecycle_phase(cfg, device="cuda"):
+    """The paged engine's block lifecycle on a 2-layer fp32 copy of ``cfg``
+    (BERT-base widths, as ``fp32_phase`` builds it), on the fused and the
+    gather route. Every stream below must be token-equal to its reference:
+
+    - shared prefix: prefixes of 250 tokens (its tail block copied on
+      write) and 256 (block-aligned), 8 streams of 8-token suffixes each
+      against plain submits of prefix + suffix: one prefix prefill, no
+      stream prefill, 8 hits, 8 (250) or 0 (256) copy-on-write copies;
+    - on-demand allocation: 4 streams (2 greedy, 2 sampled) of 40-token
+      prompts and 64 new tokens in a pool of 16 usable blocks (their worst
+      case is 28): at least one preemption, streams equal to their solo
+      runs on an unpressured pool;
+    - the same pool with ``swap_threshold_blocks=0``: at least one block
+      swapped out and back, streams equal to the solo runs;
+    - the prefix cache: 6 prompts sharing a 64-token system prompt hit it
+      with no opt-in, streams equal to a cache-less engine's.
+
+    Prints the paged kernel's launches per route."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import init_params
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+
+    cfg = dataclasses.replace(cfg, layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device=device)
+    V = cfg.vocab_size
+
+    def engine(route, **kw):
+        kw = {**dict(slots=8, max_len=cfg.max_seq, queue_capacity=64), **kw}
+        return GenerationEngine(params, cfg, paged_attention=route,
+                                device=device, **kw)
+
+    def serve(eng, reqs):
+        hs = [eng.submit(p, **kw) for p, kw in reqs]
+        return [h.result(timeout=600) for h in hs], hs
+
+    rng = np.random.default_rng(11)
+    prefixes = {n: rng.integers(0, V, n).astype(np.int32) for n in (250, 256)}
+    suffixes = [rng.integers(0, V, 8).astype(np.int32) for _ in range(8)]
+    tight = [(rng.integers(0, V, 40).astype(np.int32),
+              dict(max_new_tokens=64, eos_id=None, seed=i,
+                   **({} if i % 2 == 0 else dict(temperature=1.0,
+                                                 top_k=40))))
+             for i in range(4)]
+    sysp = rng.integers(0, V, 64).astype(np.int32)
+    chat = [(np.concatenate([sysp, rng.integers(0, V, 8)]).astype(np.int32),
+             dict(max_new_tokens=16, eos_id=None)) for _ in range(6)]
+    summary = {}
+    for route in ("fused", "gather"):
+        ak.paged_decode_attention.launches = 0
+        for plen, want_cow in ((250, 8), (256, 0)):
+            pre = prefixes[plen]
+            with engine(route) as eng:
+                plain, _ = serve(eng, [(np.concatenate([pre, sfx]),
+                                        dict(max_new_tokens=16))
+                                       for sfx in suffixes])
+                base = {k: getattr(eng.metrics, k).value
+                        for k in PREFIX_COUNTERS}
+                pid = eng.register_prefix(pre)
+                got, _ = serve(eng, [(sfx, dict(prefix_id=pid,
+                                                max_new_tokens=16))
+                                     for sfx in suffixes])
+                d = {k: int(getattr(eng.metrics, k).value - v)
+                     for k, v in base.items()}
+                check(eng.release_prefix(pid), "prefix was not registered")
+            check(got == plain, f"kv lifecycle {route}: prefix {plen} "
+                  "streams differ from prefix + suffix submits")
+            want = {"prefix_prefills_total": 1, "prefills_total": 0,
+                    "prefix_hits_total": 8, "kv_cow_copies_total": want_cow}
+            check(d == want, f"kv lifecycle {route}: prefix {plen} counts "
+                  f"{d}, expected {want}")
+            summary[f"{route} prefix {plen}"] = d
+        with engine(route) as eng:
+            solo = [eng.generate(p, timeout=600, **kw) for p, kw in tight]
+        for label, extra in (("on_demand", {}),
+                             ("swap", dict(swap_threshold_blocks=0))):
+            with engine(route, slots=4, num_blocks=17,
+                        allocate="on_demand", **extra) as eng:
+                got, hs = serve(eng, tight)
+                m = eng.metrics
+                stats = dict(preemptions=int(m.preemptions_total.value),
+                             swapped_blocks=int(m.kv_swapped_blocks.value),
+                             swap_bytes_out=int(m.kv_swap_bytes_out.value),
+                             swap_bytes_in=int(m.kv_swap_bytes_in.value),
+                             prefills=int(m.prefills_total.value))
+            check(got == solo, f"kv lifecycle {route} {label}: streams "
+                  "differ from their solo runs")
+            check(stats["preemptions"] >= 1,
+                  f"kv lifecycle {route} {label}: no preemption")
+            if label == "swap":
+                check(stats["swapped_blocks"] >= 1
+                      and stats["swap_bytes_in"] == stats["swap_bytes_out"],
+                      f"kv lifecycle {route} swap: {stats}")
+            summary[f"{route} {label}"] = stats
+        with engine(route) as eng:
+            want = [eng.generate(p, timeout=600, **kw) for p, kw in chat]
+        with engine(route, prefix_cache_blocks=32) as eng:
+            got = [eng.generate(chat[0][0], timeout=600, **chat[0][1])]
+            more, _ = serve(eng, chat[1:])
+            got += more
+            hits = int(eng.metrics.prefix_cache_hits_total.value)
+        check(got == want, f"kv lifecycle {route}: prefix-cache streams "
+              "differ from a cache-less engine's")
+        check(hits >= 1, f"kv lifecycle {route}: no prefix-cache hit")
+        summary[f"{route} prefix cache hits"] = hits
+        summary[f"{route} paged launches"] = \
+            ak.paged_decode_attention.launches
+        check(route != "fused" or ak.paged_decode_attention.launches > 0,
+              "kv lifecycle fused: the paged kernel never launched")
+    log("kv lifecycle fp32: every stream token-equal on both routes; "
+        + json.dumps(summary))
+
+
+def shared_prefix_phase(cfg, params, device="cuda"):
+    """The JAX package's shared-prefix scenario at its TPU settings
+    (``bench.py`` ``shared_prefix_scenario``): 16 slots, max_len 512, 48
+    streams of 8-token suffixes on one 256-token prefix, 32 new tokens
+    each, fused route, bf16. One prefix prefill, no stream prefill, 48
+    hits; TTFT on the ``on_token`` clock and from the histogram."""
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, ServingMetrics)
+
+    n_streams, prefix_len, suffix_len, max_new = 48, 256, 8, 32
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len).astype(np.int32)
+    with GenerationEngine(params, cfg, slots=16, max_len=512,
+                          paged_attention="fused",
+                          queue_capacity=n_streams + 16,
+                          device=device) as eng:
+        eng.warmup()
+        eng.metrics = ServingMetrics()   # the engine is idle here
+        ak.paged_decode_attention.launches = 0
+        ak.mha_attention_packed.launches = 0
+        t0 = time.perf_counter()
+        pid = eng.register_prefix(prefix)
+        first, handles = {}, []
+        for i in range(n_streams):
+            t_sub = time.perf_counter()
+            first[i] = None
+
+            def on_tok(_tok, i=i, t_sub=t_sub):
+                if first[i] is None:
+                    first[i] = (time.perf_counter() - t_sub) * 1e3
+            handles.append(eng.submit(
+                rng.integers(0, cfg.vocab_size, suffix_len).astype(np.int32),
+                prefix_id=pid, max_new_tokens=max_new, on_token=on_tok))
+        outs = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        m = eng.metrics
+        stats = dict(
+            streams=n_streams, prefix_tokens=prefix_len,
+            suffix_tokens=suffix_len, max_new_tokens=max_new,
+            prefix_prefills=int(m.prefix_prefills_total.value),
+            stream_prefills=int(m.prefills_total.value),
+            prefix_hits=int(m.prefix_hits_total.value),
+            cow_copies=int(m.kv_cow_copies_total.value),
+            ttft_ms_p50=float(np.median(list(first.values()))),
+            ttft_ms_p50_histogram=m.ttft_ms.quantile(0.5),
+            end_to_end_tokens_per_sec=n_streams * max_new / wall,
+            decode_steps=int(m.decode_steps_total.value),
+            paged_launches=ak.paged_decode_attention.launches,
+            packed_launches=ak.mha_attention_packed.launches)
+    check(all(len(o) == max_new for o in outs)
+          and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "shared prefix: a stream is short or holds an out-of-range id")
+    check((stats["prefix_prefills"], stats["stream_prefills"],
+           stats["prefix_hits"]) == (1, 0, n_streams),
+          f"shared prefix: {stats}")
+    check(stats["paged_launches"] == cfg.layers * stats["decode_steps"],
+          "shared prefix: paged kernel launches != layers x decode steps")
+    log(f"shared prefix ({CARD}): " + json.dumps(stats))
+    return stats
+
+
+def occupancy_phase(cfg, params, device="cuda"):
+    """The JAX package's occupancy leg at its TPU settings (``bench.py``
+    ``occupancy_leg``): 16 slots, max_len 512, 16-token blocks, an int8
+    pool of 15 x 17 + 1 = 256 blocks (the worst case seats 15 streams),
+    48 requests of a 64-token system prompt and 2..15-token suffixes, 192
+    new tokens each, fused route, bf16. Cells ``reserve`` and
+    ``on_demand`` (with a 64-block prefix cache): the on-demand cell must
+    preempt and hit the cache. Then ``on_demand`` with
+    ``swap_threshold_blocks=0``, ``swap_capacity_blocks=64`` and no cache,
+    against ``reserve`` on an unpressured pool (513 blocks: no stream
+    waits for blocks or is preempted): every stream never preempted or
+    resumed only by swap-in must be token-equal to its unpressured run,
+    and at least one must have swapped in."""
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, ServingMetrics, kv_bytes_per_token)
+
+    slots, max_len, block, n_requests = 16, 512, 16, 48
+    sys_len, sfx_hi, max_new, cache_blocks = 64, 16, 192, 64
+    num_blocks = (slots - 1) * (-(-(sys_len + sfx_hi + max_new) // block)) \
+        + 1
+    itemsize = 2 if "bfloat16" in str(cfg.dtype) else 4
+    contig_stream_bytes = max_len * kv_bytes_per_token(
+        cfg.layers, cfg.heads, cfg.head_dim, "float32", itemsize)
+
+    def mix():
+        rng = np.random.default_rng(0)   # the same mix in every run
+        sysp = rng.integers(0, cfg.vocab_size, sys_len)
+        return [np.concatenate([sysp, rng.integers(
+            0, cfg.vocab_size, int(rng.integers(2, sfx_hi)))]).astype(
+                np.int32) for _ in range(n_requests)]
+
+    def cell(allocate, prefix_cache_blocks=0, **kw):
+        with GenerationEngine(params, cfg, slots=slots, max_len=max_len,
+                              block_size=block,
+                              num_blocks=kw.pop("num_blocks", num_blocks),
+                              kv_dtype="int8", allocate=allocate,
+                              prefix_cache_blocks=prefix_cache_blocks,
+                              paged_attention="fused",
+                              queue_capacity=n_requests + slots,
+                              device=device, **kw) as eng:
+            eng.warmup()
+            eng.metrics = ServingMetrics()
+            eng.metrics.kv_blocks_total.set(eng._allocator.capacity)
+            ak.paged_decode_attention.launches = 0
+            t0 = time.perf_counter()
+            handles = [eng.submit(p, max_new_tokens=max_new, eos_id=None)
+                       for p in mix()]
+            occ, blk, slack, socc, cblk, steady = [], [], [], [], [], []
+            while True:
+                sample = (eng.metrics.kv_block_occupancy.value,
+                          eng.metrics.kv_blocks_in_use.value,
+                          eng.metrics.kv_reservation_slack.value,
+                          eng.metrics.slot_occupancy.value,
+                          eng.metrics.prefix_cache_blocks.value)
+                for xs, v in zip((occ, blk, slack, socc, cblk), sample):
+                    xs.append(v)
+                if eng.queue_depth > 0 and sample[3] > 0:
+                    steady.append(sample)   # every seat contested
+                if handles[-1].future.done():
+                    break
+                # every wake takes the GIL from the scheduler thread, whose
+                # eager decode loop is host-bound: sample at 50 ms
+                time.sleep(0.05)
+            if len(steady) >= 3:
+                occ, blk, slack, socc, cblk = (list(x) for x in zip(*steady))
+            outs = [h.result(timeout=900) for h in handles]
+            wall_s = time.perf_counter() - t0
+            m = eng.metrics
+            greqs = [h._req.x for h in handles]
+        blocks_in_use = float(np.median(blk))
+        resident = float(np.median(socc)) * slots
+        tokens_out = m.generated_tokens_total.value
+        stream_blocks = max(0.0, blocks_in_use - float(np.median(cblk)))
+        stream_bytes = stream_blocks * eng.kv_block_bytes / resident \
+            if stream_blocks > 0 and resident > 0 else None
+        stats = {
+            "allocate": allocate,
+            "prefix_cache_blocks": prefix_cache_blocks,
+            "steady_state_pool_occupancy": float(np.median(occ)),
+            "steady_state_blocks_in_use": blocks_in_use,
+            "kv_reservation_slack_blocks": float(np.median(slack)),
+            "preemptions": int(m.preemptions_total.value),
+            "preemptions_per_1k_tokens":
+                1e3 * m.preemptions_total.value / tokens_out
+                if tokens_out else None,
+            "prefix_cache_hits": int(m.prefix_cache_hits_total.value),
+            "prefix_cache_hit_rate":
+                m.prefix_cache_hits_total.value / n_requests,
+            "decode_tokens_per_sec": m.decode_tokens_per_sec(),
+            "end_to_end_tokens_per_sec": n_requests * max_new / wall_s,
+            "kv_hbm_bytes_per_resident_stream": stream_bytes,
+            "resident_streams_at_contiguous_budget":
+                int(slots * contig_stream_bytes // stream_bytes)
+                if stream_bytes else None,
+            "swapped_blocks": int(m.kv_swapped_blocks.value),
+            "swap_bytes_out": int(m.kv_swap_bytes_out.value),
+            "swap_bytes_in": int(m.kv_swap_bytes_in.value),
+            "paged_launches": ak.paged_decode_attention.launches,
+        }
+        check(all(len(o) == max_new for o in outs),
+              f"occupancy {allocate}: a stream returned fewer tokens")
+        return stats, outs, greqs
+
+    reserve, _, _ = cell("reserve")
+    log(f"occupancy reserve ({CARD}): " + json.dumps(reserve))
+    on_demand, _, _ = cell("on_demand", cache_blocks)
+    log(f"occupancy on_demand ({CARD}): " + json.dumps(on_demand))
+    check(on_demand["preemptions"] >= 1,
+          "occupancy on_demand: no preemption in a pool below the worst case")
+    check(on_demand["prefix_cache_hits"] >= 1,
+          "occupancy on_demand: no prefix-cache hit on a shared system prompt")
+    swap, swap_outs, greqs = cell("on_demand", swap_threshold_blocks=0,
+                                  swap_capacity_blocks=64)
+    _, free_outs, _ = cell("reserve", num_blocks=slots * max_len // block + 1)
+    by_swap = [i for i, g in enumerate(greqs)
+               if g.preemptions and g.swap_ins == g.preemptions]
+    never = [i for i, g in enumerate(greqs) if not g.preemptions]
+    recompute = [i for i, g in enumerate(greqs)
+                 if g.swap_ins < g.preemptions]
+    differ = [i for i in by_swap + never if swap_outs[i] != free_outs[i]]
+    swap.update(resumed_by_swap_only=len(by_swap),
+                resumed_by_recompute=len(recompute),
+                never_preempted=len(never),
+                swap_ins=sum(g.swap_ins for g in greqs))
+    log(f"occupancy on_demand + swap ({CARD}): " + json.dumps(swap))
+    check(swap["swap_ins"] >= 1, "occupancy swap: no stream swapped in")
+    check(not differ, f"occupancy swap: streams {differ} (never preempted "
+          "or resumed by swap-in only) differ from the unpressured run")
+    return {"reserve": reserve, "on_demand": on_demand, "swap": swap}
 
 
 def train_batch(cfg, B, T, seed=0):
@@ -1747,6 +2093,9 @@ def main() -> int:
     timed_phase("routes", route_phase, cfg, params, prompts)
     timed_phase("fp32", fp32_phase, cfg, prompts)
     timed_phase("profile", profile_phase, cfg, params, prompts)
+    timed_phase("kv lifecycle fp32", kv_lifecycle_phase, cfg)
+    timed_phase("shared prefix", shared_prefix_phase, cfg, params)
+    timed_phase("occupancy", occupancy_phase, cfg, params)
     del params
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)

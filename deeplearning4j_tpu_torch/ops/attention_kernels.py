@@ -17,7 +17,7 @@
   shared KV block pool (counterpart: ``paged_decode_attention``), the
   decode attention of the ``"fused"`` route.
 
-The kernels take every head dim from 1 to 128 (:func:`kernel_head_dim_ok`),
+The kernels take every head dim from 1 to 256 (:func:`kernel_head_dim_ok`),
 forward and backward, fp32 and bf16; bf16 at 64 runs on the tensor cores.
 
 A wrapper takes the plain version only for tensors on the CPU; a CUDA
@@ -54,14 +54,30 @@ _NEG_INF = -1e30
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # the widest head the kernels take: their FMA templates are built for
-# padded widths 16, 32, 64 and 128 and stage a tile of keys at that width in
+# padded widths 16, 32, 64, 128 and 256 and stage tiles at that width in
 # shared memory (a shared-memory limit, not a semantic one)
-MAX_KERNEL_HEAD_DIM = 128
+MAX_KERNEL_HEAD_DIM = 256
+# shared memory one block may take on the H100 (227 KB)
+MAX_BLOCK_SMEM_BYTES = 232448
+
+
+def backward_smem_bytes(d: int) -> int:
+    """Shared memory of the dk/dv pass (the kernels' largest) at head dim
+    ``d`` padded to the next power of two, with the widest instance's
+    tiles (16 keys, 64 queries, fp32 staging, +1 pads): the layout of
+    ``DkvSmem`` in ``csrc/attention_bwd.cu``. 173312 bytes at 256; 337152
+    at 512, past :data:`MAX_BLOCK_SMEM_BYTES`."""
+    width = 16
+    while width < d:
+        width *= 2
+    rows, queries = 16, 64
+    return 4 * (2 * rows * (width + 1) + 2 * queries * (width + 1)
+                + 2 * rows * (queries + 1) + 2 * queries)
 
 
 def kernel_head_dim_ok(d: int) -> bool:
     """True for the head dims the attention kernels run, forward and
-    backward, fp32 and bf16: every ``1 <= d <= 128``. The JAX package's
+    backward, fp32 and bf16: every ``1 <= d <= 256``. The JAX package's
     packed route asserts only that the packed width divides by the heads,
     so this takes every head dim it takes up to the limit."""
     return 1 <= d <= MAX_KERNEL_HEAD_DIM
@@ -70,8 +86,14 @@ def kernel_head_dim_ok(d: int) -> bool:
 def _check_kernel_operands(name: str, d: int, *tensors,
                            limit: int = MAX_KERNEL_HEAD_DIM):
     if not 1 <= d <= limit:
+        need = ""
+        if d > limit and limit == MAX_KERNEL_HEAD_DIM:
+            need = (f": a {d}-wide head would need "
+                    f"{backward_smem_bytes(d)} bytes of shared memory in "
+                    f"the dk/dv pass, over the {MAX_BLOCK_SMEM_BYTES} a "
+                    "block may take")
         raise ValueError(f"{name} kernel takes head_dim from 1 to {limit}, "
-                         f"got {d}")
+                         f"got {d}{need}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous operands")
 

@@ -33,10 +33,15 @@
 // the D-long dot products and owns every 8th output dimension for the sums;
 // +1 pads keep the shared-memory reads free of bank conflicts.
 //
-// Head dims: any 1 <= D <= 128 runs, as in the forward (attention_fwd.cuh):
-// the FMA templates are built for the padded width DP in {16, 32, 64, 128},
-// the least one >= D, take D at run time, load dims D..DP-1 as zeros and
-// write only the first D dims of dq, dk and dv.
+// Head dims: any 1 <= D <= 256 runs, as in the forward (attention_fwd.cuh):
+// the FMA templates are built for the padded width DP in {16, 32, 64, 128,
+// 256}, the least one >= D, take D at run time, load dims D..DP-1 as zeros
+// and write only the first D dims of dq, dk and dv. Their tiles live in
+// dynamic shared memory sized from DP and the tile (`DqSmem`, `DkvSmem`):
+// at DP = 256 the dq pass takes 100 KB and the dk/dv pass, with 64-query
+// tiles, 169 KB (1 CTA an SM), both opted in past the 48 KB default. A
+// 512-wide head would need 329 KB in the dk/dv pass at those tiles, over
+// the H100's 227 KB a block, so wider heads refuse.
 #include "attention_bwd_tc.cuh"
 
 namespace dl4jt {
@@ -46,13 +51,42 @@ constexpr int kRows = 16;                  // queries (dq) or keys (dk/dv)
 constexpr int kLanes = 8;                  // threads per row
 constexpr int kThreads = kRows * kLanes;   // 128
 
+// full unroll up to D = 128; by 16 at 256 (the same sum in the same
+// order), which keeps the 256-wide instances' code and build time in bounds
 template <int D>
 __device__ __forceinline__ float dot_rows(const float* a, const float* b) {
+  constexpr int kUnroll = D > 128 ? 16 : D;
   float acc = 0.f;
-#pragma unroll
+#pragma unroll (kUnroll)
   for (int d = 0; d < D; ++d) acc = fmaf(a[d], b[d], acc);
   return acc;
 }
+
+// Shared-memory layouts, in floats, of the dq pass (BN-key tiles) and the
+// dk/dv pass (BM-query tiles) at padded width D; +1 pads keep the reads
+// free of bank conflicts
+template <int D, int BN>
+struct DqSmem {
+  static constexpr int kQ = 0;                          // q_s[kRows][D + 1]
+  static constexpr int kDo = kQ + kRows * (D + 1);      // do_s[kRows][D + 1]
+  static constexpr int kK = kDo + kRows * (D + 1);      // k_s[BN][D + 1]
+  static constexpr int kV = kK + BN * (D + 1);          // v_s[BN][D + 1]
+  static constexpr int kDs = kV + BN * (D + 1);         // ds_s[kRows][BN + 1]
+  static constexpr int kBytes = (kDs + kRows * (BN + 1)) * 4;
+};
+
+template <int D, int BM>
+struct DkvSmem {
+  static constexpr int kK = 0;                          // k_s[kRows][D + 1]
+  static constexpr int kV = kK + kRows * (D + 1);       // v_s[kRows][D + 1]
+  static constexpr int kQ = kV + kRows * (D + 1);       // q_s[BM][D + 1]
+  static constexpr int kDo = kQ + BM * (D + 1);         // do_s[BM][D + 1]
+  static constexpr int kP = kDo + BM * (D + 1);         // p_s[kRows][BM + 1]
+  static constexpr int kDs = kP + kRows * (BM + 1);     // ds_s[kRows][BM + 1]
+  static constexpr int kLse = kDs + kRows * (BM + 1);   // lse_s[BM]
+  static constexpr int kDelta = kLse + BM;              // delta_s[BM]
+  static constexpr int kBytes = (kDelta + BM) * 4;
+};
 
 // D: the padded width of the instance; head_dim <= D the real one
 template <typename Elt, int D, int BN>
@@ -60,11 +94,15 @@ __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(BwdArgs a, int head_dim) {
   constexpr int kKeysPerLane = BN / kLanes;
   constexpr int kDimsPerLane = D / kLanes;
-  __shared__ float q_s[kRows][D + 1];
-  __shared__ float do_s[kRows][D + 1];
-  __shared__ float k_s[BN][D + 1];
-  __shared__ float v_s[BN][D + 1];
-  __shared__ float ds_s[kRows][BN + 1];
+  using Smem = DqSmem<D, BN>;
+  extern __shared__ __align__(16) float fma_smem[];
+  float(*q_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kQ);
+  float(*do_s)[D + 1] =
+      reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kDo);
+  float(*k_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kK);
+  float(*v_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kV);
+  float(*ds_s)[BN + 1] =
+      reinterpret_cast<float(*)[BN + 1]>(fma_smem + Smem::kDs);
 
   const Elt* q = static_cast<const Elt*>(a.q);
   const Elt* k = static_cast<const Elt*>(a.k);
@@ -194,14 +232,18 @@ __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(BwdArgs a, int head_dim) {
   constexpr int kQueriesPerLane = BM / kLanes;
   constexpr int kDimsPerLane = D / kLanes;
-  __shared__ float k_s[kRows][D + 1];
-  __shared__ float v_s[kRows][D + 1];
-  __shared__ float q_s[BM][D + 1];
-  __shared__ float do_s[BM][D + 1];
-  __shared__ float p_s[kRows][BM + 1];
-  __shared__ float ds_s[kRows][BM + 1];
-  __shared__ float lse_s[BM];
-  __shared__ float delta_s[BM];
+  using Smem = DkvSmem<D, BM>;
+  extern __shared__ __align__(16) float fma_smem[];
+  float(*k_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kK);
+  float(*v_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kV);
+  float(*q_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kQ);
+  float(*do_s)[D + 1] =
+      reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kDo);
+  float(*p_s)[BM + 1] = reinterpret_cast<float(*)[BM + 1]>(fma_smem + Smem::kP);
+  float(*ds_s)[BM + 1] =
+      reinterpret_cast<float(*)[BM + 1]>(fma_smem + Smem::kDs);
+  float* lse_s = fma_smem + Smem::kLse;
+  float* delta_s = fma_smem + Smem::kDelta;
 
   const Elt* q = static_cast<const Elt*>(a.q);
   const Elt* k = static_cast<const Elt*>(a.k);
@@ -307,34 +349,43 @@ attention_bwd_dkv_kernel(BwdArgs a, int head_dim) {
 constexpr int kPassDq = 1;
 constexpr int kPassDkv = 2;
 
-// BN keys per dq tile, BM queries per dk/dv tile: each pass's static
-// shared memory stays under 48 KB
+// BN keys per dq tile, BM queries per dk/dv tile; each pass opts into its
+// dynamic shared memory where that passes the 48 KB default
 template <typename Elt, int D, int BN, int BM>
 int launch_passes(const BwdArgs& a, int head_dim, int passes,
                   cudaStream_t stream) {
   const dim3 grid((a.seq + kRows - 1) / kRows, a.heads, a.batch);
+  cudaError_t err;
   if (passes & kPassDq) {
-    attention_bwd_dq_kernel<Elt, D, BN><<<grid, kThreads, 0, stream>>>(
+    constexpr int kBytes = DqSmem<D, BN>::kBytes;
+    err = reserve_smem<attention_bwd_dq_kernel<Elt, D, BN>>(kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_bwd_dq_kernel<Elt, D, BN><<<grid, kThreads, kBytes, stream>>>(
         a, head_dim);
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (passes & kPassDkv) {
-    attention_bwd_dkv_kernel<Elt, D, BM><<<grid, kThreads, 0, stream>>>(
-        a, head_dim);
-    const cudaError_t err = cudaGetLastError();
+    constexpr int kBytes = DkvSmem<D, BM>::kBytes;
+    err = reserve_smem<attention_bwd_dkv_kernel<Elt, D, BM>>(kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_bwd_dkv_kernel<Elt, D, BM>
+        <<<grid, kThreads, kBytes, stream>>>(a, head_dim);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-// The FMA passes at the least built width >= head_dim (1..128; the
-// wrapper refuses wider heads before the launch). At width 128 the tiles
-// shrink to 16 keys and 16 queries to stay under the static cap.
+// The FMA passes at the least built width >= head_dim (1..256; the
+// wrapper refuses wider heads before the launch). Up to width 128 the
+// tiles keep each pass under the 48 KB default (at 128 they shrink to 16
+// keys and 16 queries); the 256-wide passes take 32-key and 64-query
+// tiles from opted-in shared memory.
 template <typename Elt>
 int dispatch_head_dim(const BwdArgs& a, int head_dim, int passes,
                       cudaStream_t stream) {
-  if (head_dim < 1 || head_dim > 128) {
+  if (head_dim < 1 || head_dim > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (head_dim <= 16) {
@@ -346,7 +397,10 @@ int dispatch_head_dim(const BwdArgs& a, int head_dim, int passes,
   if (head_dim <= 64) {
     return launch_passes<Elt, 64, 64, 32>(a, head_dim, passes, stream);
   }
-  return launch_passes<Elt, 128, 16, 16>(a, head_dim, passes, stream);
+  if (head_dim <= 128) {
+    return launch_passes<Elt, 128, 16, 16>(a, head_dim, passes, stream);
+  }
+  return launch_passes<Elt, 256, 32, 64>(a, head_dim, passes, stream);
 }
 
 // The bf16 passes on the tensor cores (attention_bwd_tc.cuh), one CTA
@@ -383,7 +437,7 @@ int launch_tc(const BwdArgs& a, int passes, cudaStream_t stream) {
 }
 
 // bf16 at head_dim 64 takes the tensor cores; fp32, and bf16 at any other
-// head dim up to 128, the FMA loops
+// head dim up to 256, the FMA loops
 int run(const BwdArgs& a, int head_dim, int dtype, int passes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return dispatch_head_dim<float>(a, head_dim, passes, s);

@@ -11,11 +11,14 @@
 // runs; fp32 products on tensor cores would need TF32, which the package
 // turns off) and bf16 at every other head dim, which no main path runs.
 //
-// Head dims: any 1 <= D <= 128 runs. D is a run-time argument; the
-// template is built for the padded width DP in {16, 32, 64, 128}, the
-// least one >= D. Dims D..DP-1 load as zeros (they add nothing to q.k and
-// give no output dims), only the first D dims of o are written, and the
-// caller's scale is 1/sqrt(D) of the real D.
+// Head dims: any 1 <= D <= 256 runs. D is a run-time argument; the
+// template is built for the padded width DP in {16, 32, 64, 128, 256},
+// the least one >= D. Dims D..DP-1 load as zeros (they add nothing to q.k
+// and give no output dims), only the first D dims of o are written, and
+// the caller's scale is 1/sqrt(D) of the real D. The tiles live in
+// dynamic shared memory sized from DP (`FwdSmem`): at DP = 256 they take
+// 84 KB, past the 48 KB a block gets without opting in, and the query
+// rows move from registers (DP floats a thread) to shared memory too.
 //
 // The FMA template: the TPU kernels hold a whole head's (T, T) scores in
 // VMEM (the packed one) or stream 512-key blocks through it (the streamed
@@ -41,6 +44,23 @@ constexpr int kFwdRows = 16;                     // query rows per CTA
 constexpr int kFwdLanes = 8;                     // threads per query row
 constexpr int kFwdThreads = kFwdRows * kFwdLanes;   // 128
 
+// Shared-memory layout of one forward CTA at padded width D and BN-key
+// tiles, in floats: k_s[BN][D + 1], v_s[BN][D], p_s[kFwdRows][BN + 1],
+// and, for D > 128, the scaled query rows q_s[kFwdRows][D + 1]. The +1
+// pads: lanes of a row read different keys at the same d (k_s), the 4
+// rows of a warp read the same key of different rows (p_s) and the same
+// d of different rows (q_s).
+template <int D, int BN>
+struct FwdSmem {
+  static constexpr bool kQShared = D > 128;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + BN * (D + 1);
+  static constexpr int kP = kV + BN * D;
+  static constexpr int kQ = kP + kFwdRows * (BN + 1);
+  static constexpr int kFloats = kQ + (kQShared ? kFwdRows * (D + 1) : 0);
+  static constexpr int kBytes = kFloats * 4;
+};
+
 template <typename Elt, int D, int BN>
 __global__ void __launch_bounds__(kFwdThreads)
 attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
@@ -55,11 +75,17 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
   constexpr int kThreads = kFwdThreads;
   constexpr int kKeysPerLane = BN / kLanes;
   constexpr int kDimsPerLane = D / kLanes;
-  // +1 pads: lanes of a row read different keys at the same d (k_s) and
-  // the 4 rows of a warp read the same key of different rows (p_s)
-  __shared__ float k_s[BN][D + 1];
-  __shared__ float v_s[BN][D];
-  __shared__ float p_s[kRows][BN + 1];
+  // the D-long dot products unroll fully up to D = 128; the 256-wide
+  // instance by 16 (the same sums in the same order), which keeps its code
+  // and build time in bounds
+  constexpr int kUnroll = D > 128 ? 16 : D;
+  using Smem = FwdSmem<D, BN>;
+  extern __shared__ __align__(16) float fma_smem[];
+  float(*k_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kK);
+  float(*v_s)[D] = reinterpret_cast<float(*)[D]>(fma_smem + Smem::kV);
+  float(*p_s)[BN + 1] =
+      reinterpret_cast<float(*)[BN + 1]>(fma_smem + Smem::kP);
+  float(*q_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fma_smem + Smem::kQ);
 
   const int tid = threadIdx.x;
   const int r = tid / kLanes;
@@ -74,13 +100,26 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
                          static_cast<long long>(h) * head_dim;
 
   // scale folded into q and rounded back to the input dtype, as the
-  // reference does before its q.k^T dot
-  float qr[D];
+  // reference does before its q.k^T dot; in registers up to D = 128, in
+  // shared memory (visible after the first tile's barriers) above
+  float qr[Smem::kQShared ? 1 : D];
+  if constexpr (Smem::kQShared) {
+    for (int idx = tid; idx < kRows * D; idx += kThreads) {
+      const int rr = idx / D;
+      const int d = idx % D;
+      const int qrow = q0 + rr;
+      q_s[rr][d] =
+          qrow < seq && d < head_dim
+              ? round_to<Elt>(to_f(q[base + qrow * stride + d]) * scale)
+              : 0.f;
+    }
+  } else {
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = row_ok && d < head_dim
-                ? round_to<Elt>(to_f(q[base + row * stride + d]) * scale)
-                : 0.f;
+    for (int d = 0; d < D; ++d) {
+      qr[d] = row_ok && d < head_dim
+                  ? round_to<Elt>(to_f(q[base + row * stride + d]) * scale)
+                  : 0.f;
+    }
   }
   float acc[kDimsPerLane];
 #pragma unroll
@@ -114,8 +153,13 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
       const int kk = lane + i * kLanes;
       const int key = k0 + kk;
       float dot = 0.f;
+      if constexpr (Smem::kQShared) {
+#pragma unroll (kUnroll)
+        for (int d = 0; d < D; ++d) dot = fmaf(q_s[r][d], k_s[kk][d], dot);
+      } else {
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], k_s[kk][d], dot);
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], k_s[kk][d], dot);
+      }
       const bool ok = key < seq && (!causal || key <= row);
       s[i] = ok ? dot : kNegInf;
       tile_max = fmaxf(tile_max, s[i]);
@@ -173,9 +217,25 @@ attention_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
   }
 }
 
+// One FMA instance: opt it into its shared memory, then launch.
+template <typename Elt, int D, int BN>
+int launch_fwd_fma(const dim3& grid, const Elt* q, const Elt* k,
+                   const Elt* v, Elt* o, float* lse, int seq, int heads,
+                   int head_dim, float scale, int causal, int p_bf16,
+                   int clamp_l, cudaStream_t stream) {
+  constexpr int kBytes = FwdSmem<D, BN>::kBytes;
+  const cudaError_t err =
+      reserve_smem<attention_fwd_kernel<Elt, D, BN>>(kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_fwd_kernel<Elt, D, BN><<<grid, kFwdThreads, kBytes, stream>>>(
+      q, k, v, o, lse, seq, heads, head_dim, scale, causal, p_bf16,
+      clamp_l);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launch the forward for one dtype; returns the launch's cudaError_t.
 // bf16 at head_dim 64 launches the tensor-core kernel, everything else the
-// FMA template at the least built width >= head_dim (1..128).
+// FMA template at the least built width >= head_dim (1..256).
 template <typename Elt>
 int launch_attention_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int batch, int seq, int heads,
@@ -187,7 +247,7 @@ int launch_attention_fwd(const void* q, const void* k, const void* v,
   const Elt* vp = static_cast<const Elt*>(v);
   Elt* op = static_cast<Elt*>(o);
   float* lp = static_cast<float*>(lse);
-  if (head_dim < 1 || head_dim > 128) {
+  if (head_dim < 1 || head_dim > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if constexpr (std::is_same<Elt, __nv_bfloat16>::value) {
@@ -197,24 +257,16 @@ int launch_attention_fwd(const void* q, const void* k, const void* v,
       return tc::launch_attention_fwd_tc(a, p_bf16, stream);
     }
   }
-  if (head_dim <= 16) {
-    attention_fwd_kernel<Elt, 16, 64><<<grid, kFwdThreads, 0, stream>>>(
-        qp, kp, vp, op, lp, seq, heads, head_dim, scale, causal, p_bf16,
-        clamp_l);
-  } else if (head_dim <= 32) {
-    attention_fwd_kernel<Elt, 32, 64><<<grid, kFwdThreads, 0, stream>>>(
-        qp, kp, vp, op, lp, seq, heads, head_dim, scale, causal, p_bf16,
-        clamp_l);
-  } else if (head_dim <= 64) {
-    attention_fwd_kernel<Elt, 64, 64><<<grid, kFwdThreads, 0, stream>>>(
-        qp, kp, vp, op, lp, seq, heads, head_dim, scale, causal, p_bf16,
-        clamp_l);
-  } else {   // 32-key tiles keep shared memory under the 48 KB static cap
-    attention_fwd_kernel<Elt, 128, 32><<<grid, kFwdThreads, 0, stream>>>(
-        qp, kp, vp, op, lp, seq, heads, head_dim, scale, causal, p_bf16,
-        clamp_l);
-  }
-  return static_cast<int>(cudaGetLastError());
+#define DL4JT_FWD(DP, BN)                                                 \
+  return launch_fwd_fma<Elt, DP, BN>(grid, qp, kp, vp, op, lp, seq, heads, \
+                                     head_dim, scale, causal, p_bf16,     \
+                                     clamp_l, stream)
+  if (head_dim <= 16) DL4JT_FWD(16, 64);
+  if (head_dim <= 32) DL4JT_FWD(32, 64);
+  if (head_dim <= 64) DL4JT_FWD(64, 64);
+  if (head_dim <= 128) DL4JT_FWD(128, 32);   // under the 48 KB default
+  DL4JT_FWD(256, 32);                          // 84 KB, opted in
+#undef DL4JT_FWD
 }
 
 }  // namespace dl4jt

@@ -1,10 +1,13 @@
 // Element-type helpers shared by the attention kernels: every kernel
-// computes in fp32 and converts at load and store.
+// computes in fp32 and converts at load and store. Also the opt-in to
+// dynamic shared memory above the 48 KB default (`reserve_smem`).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace dl4jt {
 
@@ -37,5 +40,37 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
+
+// Shared memory a block may take without opting in, and at most (the
+// H100's 227 KB per block)
+constexpr int kDefaultSmemBytes = 48 * 1024;
+constexpr int kMaxSmemBytes = 232448;
+
+// Let `Kernel` launch with `bytes` of dynamic shared memory: above the
+// 48 KB default the runtime needs cudaFuncSetAttribute first, once per
+// kernel instance and device (a bit per device; a repeated call is
+// harmless). Returns the runtime's error. The unnamed namespace keeps the
+// flag inside each library: the forward's libraries (mha_packed_fwd,
+// flash_fwd) each hold their own copy of the same kernel, and a flag
+// shared through one process-wide symbol would let the second library
+// launch without its opt-in.
+namespace {
+template <auto Kernel>
+cudaError_t reserve_smem(int bytes) {
+  static std::atomic<unsigned> done{0};
+  if (bytes <= kDefaultSmemBytes) return cudaSuccess;
+  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit != 0u && (done.load() & bit) != 0u) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+}  // namespace
 
 }  // namespace dl4jt

@@ -17,10 +17,12 @@ from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from deeplearning4j_tpu_torch.serving.qos import DEFAULT_TENANT
+
 
 class RejectedError(RuntimeError):
-    """Request refused. ``reason`` is machine-readable: 'queue_full' |
-    'deadline' | 'shutdown' | 'kv_blocks_exhausted'."""
+    """Request refused. ``reason`` is machine-readable, one of
+    :data:`~deeplearning4j_tpu_torch.serving.metrics.REJECTION_REASONS`."""
 
     def __init__(self, msg: str, reason: str):
         super().__init__(msg)
@@ -59,15 +61,46 @@ class KVBlocksExhaustedError(RejectedError):
         self.capacity = capacity
 
 
+class HostDrainingError(RejectedError):
+    """The engine is draining (reason 'host_draining'): admission is
+    closed ahead of a graceful leave — resident streams finish, queued
+    work drains, nothing new is accepted."""
+
+    def __init__(self, msg: str):
+        super().__init__(msg, "host_draining")
+
+
+class PreemptedError(RejectedError):
+    """A resident generation stream was evicted to reclaim KV blocks
+    (reason 'preempted') and could NOT be resumed: admission closed
+    before its requeue landed, or its resume footprint can no longer ever
+    fit the pool (shared-prefix pins grew under it after its blocks were
+    freed). Ordinarily preemption is invisible to the caller — the victim
+    requeues and resumes token-equal to an unpreempted run — so this
+    terminal surfaces only when the resume is impossible; the cure is to
+    resubmit the whole request. Carries ``tokens_generated`` before the
+    eviction."""
+
+    def __init__(self, msg: str, tokens_generated: Optional[int] = None):
+        super().__init__(msg, "preempted")
+        self.tokens_generated = tokens_generated
+
+
 @dataclass
 class Request:
-    """One submitted request (``rows`` units of queue budget)."""
+    """One submitted request (``rows`` units of queue budget). ``tenant``
+    and ``priority`` name who sent it and its class
+    (:data:`~deeplearning4j_tpu_torch.serving.qos.PRIORITIES`): without a
+    QoS policy the queue stays FIFO and only preemption reads the
+    class."""
 
     x: object
     rows: int
     future: Future = field(default_factory=Future)
     submit_t: float = field(default_factory=time.perf_counter)
     deadline_t: Optional[float] = None   # perf_counter timestamp, or None
+    tenant: str = DEFAULT_TENANT
+    priority: str = "interactive"
 
     def expired(self, now: Optional[float] = None) -> bool:
         if self.deadline_t is None:

@@ -2,50 +2,76 @@
 scheduling over the paged KV cache of ``models/bert.py`` (counterpart:
 ``deeplearning4j_tpu/serving/generation.py``).
 
-Every turn of the scheduler thread (1) admits queued prompts into free
-slots — a prompt prefills alone, padded to a length bucket, into KV blocks
-reserved for its whole worst-case footprint — (2) runs ONE decode step for
-all slots, (3) streams each new token to its caller and (4) retires
-streams on EOS or their token budget so the slot serves the next prompt.
-Admission is gated on free KV blocks as well as free slots: a request the
-pool can never hold sheds typed ``kv_blocks_exhausted``, one that merely
-has to wait for retirements stays at the queue head.
+Every turn of the scheduler thread (1) prefills any shared prefix waiting
+for its one prefill, (2) admits queued prompts into free slots, (3) runs
+ONE decode step for all slots, (4) streams each new token to its caller
+and (5) retires streams on EOS or their token budget so the slot serves
+the next prompt. Admission is gated on free KV blocks as well as free
+slots: a request the pool can never hold sheds typed
+``kv_blocks_exhausted``, one that merely has to wait stays at the queue
+head.
+
+The block lifecycle:
+
+- a prompt is seated by a prefill into fresh blocks, or without one (the
+  decode-feed seat): a stream naming a :meth:`GenerationEngine.
+  register_prefix` prefix references its pinned blocks and copies a
+  partially filled shared tail block on its first write (copy-on-write);
+  a prompt whose leading blocks the automatic prefix cache holds
+  references them; either way the rest of the prompt rides the decode
+  step one token per iteration;
+- ``allocate="reserve"`` takes a stream's worst-case footprint at seating,
+  ``"on_demand"`` only its prompt's blocks and one more per block
+  boundary the decode crosses, preempting a resident stream when the pool
+  is dry; the victim requeues and resumes by recomputing its tokens
+  through the prefill, or, above ``swap_threshold_blocks``, by copying its
+  blocks back from host memory;
+- retired streams' full blocks stay in the automatic prefix cache
+  (``prefix_cache_blocks``) until a seat needs the blocks.
 
 Sampling is gumbel-max under a per-request key folded with the token
 index, computed row by row, so a stream's tokens are the same whether it
-decodes alone or beside any neighbours — and, with the same weights, the
-same as the JAX engine's.
+decodes alone or beside any neighbours, and whether or not it was
+preempted — and, with the same weights, the same as the JAX engine's.
 
-Ported: the paged cache under the ``reserve`` allocation, ``kv_dtype``
-``float32``/``int8``, the ``gather``/``fused`` decode attention routes,
-greedy/temperature/top-k sampling, EOS and max-token retirement, bounded
-FIFO admission with deadlines, one device. Shared prefixes, on-demand
-allocation and preemption, the prefix cache and swap, speculation, QoS,
-resilience, tracing and meshes are not ported yet.
+Ported: the paged cache, ``kv_dtype`` ``float32``/``int8``, the
+``gather``/``fused`` decode attention routes, greedy/temperature/top-k
+sampling, EOS and max-token retirement, bounded FIFO admission with
+deadlines, shared prefixes, on-demand allocation with preemption and
+recompute- or swap-on-resume, the automatic prefix cache, drain, one
+device. The contiguous cache, speculation, QoS policies, resilience
+(retries, breaker, watchdog), tracing, page migration and meshes are not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future, InvalidStateError
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import default_device
 from deeplearning4j_tpu_torch.models.bert import (
-    compute_params, init_kv_cache, make_paged_decode_step,
+    compute_params, grow_block_table, init_kv_cache, make_paged_decode_step,
     make_paged_prefill, validate_block_size, validate_kv_dtype)
 from deeplearning4j_tpu_torch.models.random import prng_key
 from deeplearning4j_tpu_torch.serving.admission import (
-    AdmissionController, KVBlocksExhaustedError, RejectedError, Request)
+    AdmissionController, HostDrainingError, KVBlocksExhaustedError,
+    PreemptedError, RejectedError, Request)
 from deeplearning4j_tpu_torch.serving.engine import bucket_ladder
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.paging import (
-    BlockAllocator, blocks_for_tokens, kv_bytes_per_token)
+    BlockAllocator, BlockSwapStore, PrefixCache, SharedPrefix, SwapEntry,
+    blocks_for_tokens, kv_bytes_per_token)
+from deeplearning4j_tpu_torch.serving.qos import PRIORITIES, resolve_qos
 
 _DONE = object()
 _UNSET = object()   # submit()'s "use the engine default" eos sentinel
@@ -69,7 +95,21 @@ class GenerationRequest:
     top_k: int
     eos_id: Optional[int]
     key: np.ndarray                 # (2,) uint32 base PRNG key
+    prefix_id: Optional[str] = None  # a register_prefix() prefix
     handle: "GenerationHandle" = None
+    # ---- preemption and resume ------------------------------------------
+    # set when the stream was evicted to reclaim KV blocks: the tokens it
+    # had generated (appended to the prompt by the recompute prefill) and
+    # the index its next sample resumes at — the key folds the token
+    # index, so the resumed stream is token-equal to the unpreempted one
+    resume_tokens: Optional[np.ndarray] = None
+    resume_step: int = 0
+    preemptions: int = 0
+    # the key of this stream's parked KV blocks when its preemption
+    # swapped them to host memory: a live key re-seats them with no
+    # prefill; a miss falls back to the recompute above
+    swap_key: Optional[int] = None
+    swap_ins: int = 0               # resumes by swap-in
 
 
 class GenerationHandle:
@@ -156,7 +196,21 @@ class _Slot:
     n_generated: int = 0
     last_token: int = 0
     length: int = 0                  # tokens whose K/V are in the cache
-    blocks: Optional[List[int]] = None   # the blocks this stream holds
+    blocks: Optional[List[int]] = None   # every block this stream refs
+    prefix_len: int = 0              # tokens of shared blocks (prefix or
+    #                                  cache hit) the stream started from
+    # prompt tokens still to feed through decode steps (the decode-feed
+    # seat: no prefill, the suffix rides the decode step one token per
+    # iteration and mid-feed samples are discarded)
+    pending: Optional[Deque[int]] = None
+    # one-shot copy-on-write of a partially filled shared tail block
+    # before the stream's first write into it: (src block, dst block)
+    cow: Optional[Tuple[int, int]] = None
+    # table-row entries mapped so far (shared + fresh): the worst case at
+    # seating under allocate="reserve", one more per boundary under
+    # "on_demand"
+    n_entries: int = 0
+    resumed: bool = False            # seated from a preemption's resume
 
 
 class GenerationEngine:
@@ -166,10 +220,10 @@ class GenerationEngine:
     ``submit(prompt)`` returns a :class:`GenerationHandle`; a background
     thread runs the admit → decode → stream → retire loop. ``slots``
     bounds concurrent generations and ``max_len`` is a stream's capacity
-    (prompt + generated tokens). K/V live in a pool of ``num_blocks``
-    blocks of ``block_size`` tokens (default: the contiguous footprint,
-    16-token blocks); a stream reserves ``ceil((len + max_new) /
-    block_size)`` blocks when it is seated.
+    (prefix + prompt + generated tokens). K/V live in a pool of
+    ``num_blocks`` blocks of ``block_size`` tokens (default: the
+    contiguous footprint, 16-token blocks) addressed through per-slot
+    block tables.
 
     ``kv_dtype`` selects the pool's storage: ``"float32"`` (full precision
     in the cache dtype, by default the model's compute dtype) or
@@ -177,6 +231,27 @@ class GenerationEngine:
     ``paged_attention`` selects the decode attention read: ``"gather"``
     (the reference's default: materialize the block gather) or
     ``"fused"`` (the hand-written paged-attention kernel).
+
+    ``allocate`` is the allocator's discipline: ``"reserve"`` (default)
+    takes a stream's whole worst-case ``ceil((len + max_new) /
+    block_size)`` footprint at seating; ``"on_demand"`` (vLLM SOSP'23
+    §4.5) takes only the prompt's blocks and one more per block boundary,
+    and when the pool is dry preempts one resident stream — never of a
+    higher class than the needy one; the lowest class, then the largest
+    footprint, then the latest arrival — and requeues it to resume
+    token-equal: by recomputing its tokens through the prefill, or, when
+    its footprint exceeds ``swap_threshold_blocks``, by copying its blocks
+    to host memory (a :class:`~.paging.BlockSwapStore` of
+    ``swap_capacity_blocks``, default the pool's size) and back. A victim
+    that can never fit again sheds typed ``'preempted'``.
+
+    :meth:`register_prefix` prefills a shared prefix once and pins its
+    blocks; ``submit(prefix_id=...)`` streams reference them.
+    ``prefix_cache_blocks`` > 0 keeps up to that many of retired streams'
+    full blocks in an LRU that later prompts sharing a block-aligned
+    token prefix reference with no opt-in (SGLang's RadixAttention
+    policy); cached blocks are reclaimed on demand and never gate
+    admission.
 
     The engine keeps one compute-dtype copy of the weights on ``device``,
     made once here (:func:`~deeplearning4j_tpu_torch.models.bert.
@@ -190,6 +265,10 @@ class GenerationEngine:
                  num_blocks: Optional[int] = None,
                  kv_dtype: str = "float32",
                  paged_attention: str = "gather",
+                 allocate: str = "reserve",
+                 prefix_cache_blocks: int = 0,
+                 swap_threshold_blocks: Optional[int] = None,
+                 swap_capacity_blocks: Optional[int] = None,
                  queue_capacity: int = 64,
                  default_timeout_ms: Optional[float] = None,
                  eos_id: Optional[int] = None,
@@ -201,6 +280,24 @@ class GenerationEngine:
                 "causal=True) — a bidirectional encoder has no decode order")
         if slots <= 0:
             raise ValueError("slots must be positive")
+        if allocate not in ("reserve", "on_demand"):
+            raise ValueError(
+                f"allocate must be 'reserve' or 'on_demand', got "
+                f"{allocate!r}")
+        if prefix_cache_blocks < 0:
+            raise ValueError(
+                f"prefix_cache_blocks must be >= 0, got "
+                f"{prefix_cache_blocks}")
+        if swap_threshold_blocks is not None and swap_threshold_blocks < 0:
+            raise ValueError(
+                f"swap_threshold_blocks must be >= 0 (a victim whose "
+                f"footprint EXCEEDS it swaps to host RAM), got "
+                f"{swap_threshold_blocks}")
+        if swap_capacity_blocks is not None \
+                and swap_threshold_blocks is None:
+            raise ValueError(
+                "swap_capacity_blocks requires swap_threshold_blocks "
+                "— the store only fills from preemption swap-outs")
         self.device = default_device(device)
         self.cfg = cfg
         self.slots = slots
@@ -222,10 +319,17 @@ class GenerationEngine:
         self.block_size = validate_block_size(block_size, self.max_len)
         self.kv_dtype = validate_kv_dtype(kv_dtype, self.block_size)
         self.paged_attention = paged_attention
+        self.allocate = allocate
+        self.prefix_cache_blocks = int(prefix_cache_blocks)
         self.max_blocks_per_slot = blocks_for_tokens(self.max_len,
                                                      self.block_size)
         self.num_blocks = (slots * self.max_blocks_per_slot + 1
                            if num_blocks is None else int(num_blocks))
+        self.swap_threshold_blocks = swap_threshold_blocks
+        self._swap_store = BlockSwapStore(
+            int(swap_capacity_blocks) if swap_capacity_blocks is not None
+            else self.num_blocks) if swap_threshold_blocks is not None \
+            else None
         self._cache_dtype = cache_dtype
         self.params = compute_params(params, cfg, self.device)
         self._prefill = make_paged_prefill(cfg, self.block_size,
@@ -233,6 +337,23 @@ class GenerationEngine:
         self._decode = make_paged_decode_step(
             cfg, self.block_size, kv_dtype=self.kv_dtype,
             paged_attention=paged_attention)
+        # shared-prefix registry, and the queue of prefixes waiting for
+        # their prefill (run by the scheduler thread, which owns the pool)
+        self._prefixes: Dict[str, SharedPrefix] = {}
+        self._prefix_lock = threading.Lock()
+        self._pending_prefix: Deque[Tuple[str, Optional[Future]]] = deque()
+        self._prefix_ids = itertools.count()
+        self._prefix_busy = False
+        self._allocator: Optional[BlockAllocator] = None
+        self._tables: Optional[np.ndarray] = None
+        # the automatic prefix cache, rebuilt with the pool; warmup sets
+        # _cache_bypass so every rung's probe really prefills
+        self._prefix_cache: Optional[PrefixCache] = None
+        self._cache_bypass = False
+        # the dequeued request waiting for KV blocks: (request, demand,
+        # priority); freed blocks accumulate toward it instead of being
+        # taken by same-or-lower-class requests behind it
+        self._block_waiter: Optional[Tuple[Request, int, str]] = None
         self._slots: List[Optional[_Slot]] = [None] * slots
         self._reset_cache()
         self._admission = AdmissionController(
@@ -240,6 +361,10 @@ class GenerationEngine:
             default_timeout_ms=default_timeout_ms, unit="requests")
         self._admission.on_shed = self._count_shed
         self._admission.on_close_reject = self._count_close_reject
+        # requests admitted and not yet terminal (drain's exit condition)
+        self._outstanding = 0
+        self._outstanding_lock = threading.Lock()
+        self._draining = False
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._loop, name=f"generation-scheduler[{self.name}]",
@@ -256,36 +381,144 @@ class GenerationEngine:
     def shutdown(self, wait: bool = True):
         """Idempotent: stop the scheduler; queued and in-flight requests
         are rejected ('shutdown') — partial streams keep what they have in
-        :meth:`GenerationHandle.tokens_so_far`."""
+        :meth:`GenerationHandle.tokens_so_far`; waiting
+        :meth:`register_prefix` callers are rejected too."""
         self._stop.set()
         self._admission.close()
+        with self._prefix_lock:
+            pending, self._pending_prefix = list(self._pending_prefix), deque()
+        for _pid, fut in pending:
+            if fut is None:
+                continue
+            try:
+                fut.set_exception(RejectedError(
+                    "engine shut down before the prefix was prefilled",
+                    "shutdown"))
+            except InvalidStateError:
+                pass
         if wait and self._thread.is_alive():
             self._thread.join(timeout=30.0)
+
+    @property
+    def drained(self) -> bool:
+        """Nothing queued, resident or waiting for a prefix prefill."""
+        with self._outstanding_lock:
+            if self._outstanding:
+                return False
+        with self._prefix_lock:
+            return not self._pending_prefix and not self._prefix_busy
+
+    def drain(self, timeout: Optional[float] = None,
+              release_prefixes: bool = True) -> bool:
+        """Graceful drain: stop admitting (new submits and registrations
+        shed typed ``host_draining``), let every queued and resident
+        stream finish, then release every shared-prefix pin so the pool's
+        blocks return to the free list. True when fully drained within
+        ``timeout`` (None waits forever). On a timeout the engine stays
+        draining and keeps its explicit pins (the caller decides whether
+        to force ``shutdown()``). The automatic prefix cache is released
+        on both exits: admission is closed, so nothing can match it
+        again."""
+        self._draining = True
+        deadline = None if timeout is None else time.monotonic() + timeout
+        ok = True
+        while not self.drained:
+            if deadline is not None and time.monotonic() >= deadline:
+                ok = False
+                break
+            time.sleep(0.005)
+        if release_prefixes and self._prefix_cache is not None:
+            before = len(self._prefix_cache)
+            self._prefix_cache.release_all()
+            if before:
+                self.metrics.prefix_cache_evictions_total.inc(before)
+                self._update_block_gauges()
+        if not ok:
+            return False
+        if release_prefixes:
+            with self._prefix_lock:
+                pids = list(self._prefixes)
+            for pid in pids:
+                self.release_prefix(pid)
+        return True
 
     # --------------------------------------------------------------- submit
     def submit(self, prompt, *, max_new_tokens: int = 16,
                temperature: float = 0.0, top_k: int = 0,
                eos_id: Any = _UNSET, seed: int = 0,
                timeout_ms: Optional[float] = None,
-               on_token: Optional[Callable[[int], None]] = None
-               ) -> GenerationHandle:
+               prefix_id: Optional[str] = None,
+               tenant: Optional[str] = None,
+               priority: Optional[str] = None,
+               on_token: Optional[Callable[[int], None]] = None,
+               resume_tokens=None, resume_step: int = 0,
+               swap_key: Optional[int] = None) -> GenerationHandle:
         """Queue one prompt. Greedy by default; ``temperature`` > 0
         samples, ``top_k`` > 0 restricts sampling to the k most likely
         tokens, ``seed`` fixes the stream's PRNG key (a fixed seed gives a
         reproducible stream whatever its neighbours). ``eos_id`` defaults
         to the engine's; ``eos_id=None`` disables EOS retirement.
-        ``timeout_ms`` bounds queue time."""
+        ``timeout_ms`` bounds queue time.
+
+        ``prefix_id`` names a :meth:`register_prefix` prefix: the stream's
+        sequence is ``prefix + prompt``, the prefix's pinned blocks are
+        referenced (its prefill happened once) and only the prompt rides
+        the decode step. ``tenant`` and ``priority`` (``"interactive"``,
+        the default, or ``"batch"``) attribute the request; without a QoS
+        policy the queue stays FIFO, and preemption never evicts a stream
+        of a higher class than the one that needs the blocks.
+
+        ``resume_tokens``/``resume_step`` seat the stream at a resume
+        point: the delivered tokens ride the prompt through one recompute
+        prefill and the next sample is drawn at index ``resume_step``
+        (which must equal ``len(resume_tokens)``). ``swap_key`` names
+        parked blocks to re-seat from instead (it needs
+        ``resume_tokens``, the fallback on a miss)."""
+        tenant, priority = resolve_qos(tenant, priority)
         toks = np.ascontiguousarray(np.asarray(prompt, np.int32).ravel())
         if toks.size == 0:
             raise ValueError("prompt must contain at least one token")
         if max_new_tokens <= 0:
             raise ValueError("max_new_tokens must be positive")
-        total = toks.size + max_new_tokens
+        if resume_tokens is not None:
+            resume_tokens = np.ascontiguousarray(
+                np.asarray(resume_tokens, np.int32).ravel())
+            if int(resume_step) != int(resume_tokens.size):
+                raise ValueError(
+                    f"resume_step ({resume_step}) must equal "
+                    f"len(resume_tokens) ({resume_tokens.size}) — the "
+                    "resume point is the delivery watermark")
+            if resume_step >= max_new_tokens:
+                raise ValueError(
+                    f"resume_step ({resume_step}) must be < "
+                    f"max_new_tokens ({max_new_tokens}) — a finished "
+                    "stream has nothing to resume")
+        elif resume_step:
+            raise ValueError(
+                f"resume_step ({resume_step}) requires resume_tokens — "
+                "the delivered prefix the recompute prefill replays")
+        if swap_key is not None and resume_tokens is None:
+            raise ValueError(
+                "swap_key requires resume_tokens — a swap-in miss degrades "
+                "to the recompute path, which needs the delivered tokens")
+        prefix_len = 0
+        if prefix_id is not None:
+            with self._prefix_lock:
+                prefix = self._prefixes.get(prefix_id)
+            if prefix is None:
+                raise KeyError(
+                    f"prefix_id {prefix_id!r} is not registered — call "
+                    "register_prefix() first")
+            prefix_len = prefix.length
+        total = prefix_len + toks.size + max_new_tokens
         if total > self.max_len:
             raise ValueError(
-                f"prompt ({toks.size}) + max_new_tokens ({max_new_tokens}) "
-                f"exceeds the cache capacity max_len={self.max_len}")
-        if toks.size > self.buckets[-1]:
+                f"prefix ({prefix_len}) + prompt ({toks.size}) + "
+                f"max_new_tokens ({max_new_tokens}) exceeds the cache "
+                f"capacity max_len={self.max_len}")
+        if prefix_id is None and toks.size > self.buckets[-1]:
+            # prefix streams skip the prefill (the prompt rides the decode
+            # step), so the bucket ladder does not bound them
             raise ValueError(
                 f"prompt ({toks.size}) exceeds the top prefill bucket "
                 f"{self.buckets[-1]} — extend `buckets` up to max_len")
@@ -293,34 +526,143 @@ class GenerationEngine:
             prompt=toks, max_new_tokens=max_new_tokens,
             temperature=float(temperature), top_k=int(top_k),
             eos_id=self.eos_id if eos_id is _UNSET else eos_id,
-            key=prng_key(seed))
-        req = Request(x=greq, rows=1)
+            key=prng_key(seed), prefix_id=prefix_id,
+            resume_tokens=resume_tokens, resume_step=int(resume_step),
+            swap_key=swap_key)
+        req = Request(x=greq, rows=1, tenant=tenant, priority=priority)
         greq.handle = GenerationHandle(req, toks.size, on_token=on_token)
         self.metrics.requests_total.inc()
-        # structural shed: a reservation the pool can never satisfy fails
-        # typed now, not after a queue wait that cannot end another way
-        needed = self._blocks_needed(int(toks.size), max_new_tokens)
-        capacity = self._allocator.capacity
-        if needed > capacity:
-            e = KVBlocksExhaustedError(
-                f"request needs {needed} KV blocks but the pool can free "
-                f"at most {capacity} (block_size={self.block_size}) — "
-                "shrink the request or grow num_blocks",
-                needed=needed, usable=capacity, capacity=capacity)
+        if self._draining:
+            e = HostDrainingError(
+                f"engine[{self.name}] is draining — admission is closed")
             self.metrics.record_rejection(e.reason)
             raise e
+        # structural shed: a footprint the pool can never hold (capacity
+        # minus prefix pins) fails typed now, not after a queue wait that
+        # cannot end another way
+        needed = self._fresh_blocks_needed(prefix_len, int(toks.size),
+                                           max_new_tokens)
+        usable = self._usable_blocks()
+        if needed > usable:
+            e = KVBlocksExhaustedError(
+                f"request needs {needed} KV blocks but the pool can free "
+                f"at most {usable} of {self._allocator.capacity} "
+                f"(block_size={self.block_size}; shared-prefix pins "
+                "excluded) — shrink the request or grow num_blocks",
+                needed=needed, usable=usable,
+                capacity=self._allocator.capacity)
+            self.metrics.record_rejection(e.reason)
+            raise e
+        with self._outstanding_lock:
+            self._outstanding += 1
         try:
             self._admission.admit(req, timeout_ms=timeout_ms)
         except RejectedError as e:
+            with self._outstanding_lock:
+                self._outstanding -= 1
             self.metrics.record_rejection(e.reason)
             raise
+        req.future.add_done_callback(self._terminal)
         self.metrics.queue_depth.set(self._admission.depth_requests)
         return greq.handle
+
+    def _terminal(self, _future: Future):
+        with self._outstanding_lock:
+            self._outstanding -= 1
 
     def generate(self, prompt, timeout: Optional[float] = None,
                  **kwargs) -> List[int]:
         """Blocking submit: the full generated-token list."""
         return self.submit(prompt, **kwargs).result(timeout=timeout)
+
+    # ------------------------------------------------------ shared prefixes
+    def register_prefix(self, tokens, prefix_id: Optional[str] = None,
+                        timeout: Optional[float] = 300.0) -> str:
+        """Prefill a shared prefix once and pin its blocks; returns the id
+        to pass as ``submit(prefix_id=...)``. The prefill runs on the
+        scheduler thread, which owns the pool: this call blocks until the
+        prefix is resident. After a cache rebuild the registration
+        survives and the next stream naming it re-prefills it."""
+        if self._draining:
+            raise HostDrainingError(
+                f"engine[{self.name}] is draining — it takes no new prefix "
+                "pins")
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int32).ravel())
+        if toks.size == 0:
+            raise ValueError("prefix must contain at least one token")
+        if toks.size > self.buckets[-1]:
+            raise ValueError(
+                f"prefix ({toks.size}) exceeds the top prefill bucket "
+                f"{self.buckets[-1]} — extend `buckets` up to max_len")
+        if toks.size >= self.max_len:
+            raise ValueError(
+                f"prefix ({toks.size}) leaves no room to generate within "
+                f"max_len={self.max_len}")
+        nb = blocks_for_tokens(int(toks.size), self.block_size)
+        fut: Future = Future()
+        with self._prefix_lock:
+            if self._stop.is_set():
+                raise RejectedError("engine is shut down", "shutdown")
+            # pins and not-yet-prefilled registrations together: two
+            # concurrent registrations must not both pass and over-commit
+            reserved = sum(
+                len(p.blocks) if p.blocks
+                else blocks_for_tokens(p.length, self.block_size)
+                for p in self._prefixes.values())
+            usable = self._allocator.capacity - reserved
+            if nb > usable:
+                raise KVBlocksExhaustedError(
+                    f"prefix needs {nb} KV blocks but only {usable} of "
+                    f"{self._allocator.capacity} can ever be pinned "
+                    "(other prefixes hold the rest)",
+                    needed=nb, usable=usable,
+                    capacity=self._allocator.capacity)
+            if prefix_id is None:
+                prefix_id = f"prefix-{next(self._prefix_ids)}"
+            if prefix_id in self._prefixes:
+                raise ValueError(
+                    f"prefix_id {prefix_id!r} is already registered")
+            self._prefixes[prefix_id] = SharedPrefix(prefix_id, toks)
+            self._pending_prefix.append((prefix_id, fut))
+        try:
+            fut.result(timeout)
+        except BaseException:
+            # withdraw the registration so its reservation does not shrink
+            # the pool forever; a prefill already running frees its blocks
+            # when it finds the id gone
+            with self._prefix_lock:
+                p = self._prefixes.get(prefix_id)
+                if p is not None and not p.ready:
+                    del self._prefixes[prefix_id]
+                    self._pending_prefix = deque(
+                        (pid, f) for pid, f in self._pending_prefix
+                        if pid != prefix_id)
+            raise
+        return prefix_id
+
+    def release_prefix(self, prefix_id: str) -> bool:
+        """Drop a shared prefix's pin. Its blocks return to the free list
+        once the last stream referencing them retires; queued streams
+        naming the id fail at admission. False for an unknown id."""
+        with self._prefix_lock:
+            prefix = self._prefixes.pop(prefix_id, None)
+            if prefix is None:
+                return False
+            blocks, prefix.blocks = prefix.blocks, None
+            if blocks:
+                self._allocator.free(blocks)
+        return True
+
+    def _usable_blocks(self, excluding: Optional[str] = None) -> int:
+        """Blocks a request could ever get: the pool's capacity minus the
+        prefix pins (a registered prefix not prefilled yet reserves its
+        worst case). ``excluding`` leaves one prefix out of the sum."""
+        with self._prefix_lock:
+            pinned = sum(
+                len(p.blocks) if p.blocks
+                else blocks_for_tokens(p.length, self.block_size)
+                for pid, p in self._prefixes.items() if pid != excluding)
+        return self._allocator.capacity - pinned
 
     # ------------------------------------------------------------ scheduler
     def _live_count(self) -> int:
@@ -330,16 +672,31 @@ class GenerationEngine:
         """(Re)allocate the block pool, allocator and block tables as one
         consistent empty state — at construction and after a failed
         prefill or decode step, whose partial writes may have left the
-        pool inconsistent."""
+        pool inconsistent. Every registered prefix loses its blocks (it
+        re-prefills on its next use); cached and swapped blocks are
+        dropped without freeing: their references belong to the old
+        allocator."""
         self._cache = init_kv_cache(
             self.cfg, self.slots, self.max_len, dtype=self._cache_dtype,
             block_size=self.block_size, num_blocks=self.num_blocks,
             kv_dtype=self.kv_dtype, device=self.device)
-        self._allocator = BlockAllocator(self.num_blocks, reserved=1)
-        self._tables = np.zeros((self.slots, self.max_blocks_per_slot),
-                                np.int32)
+        self._block_waiter = None
+        if self._prefix_cache is not None:
+            self._prefix_cache.invalidate()
+        if self._swap_store is not None:
+            self._swap_store.invalidate()
+        with self._prefix_lock:
+            self._allocator = BlockAllocator(self.num_blocks, reserved=1)
+            self._tables = np.zeros((self.slots, self.max_blocks_per_slot),
+                                    np.int32)
+            for p in self._prefixes.values():
+                p.blocks = None
+        self._prefix_cache = (
+            PrefixCache(self._allocator, self.block_size,
+                        self.prefix_cache_blocks)
+            if self.prefix_cache_blocks else None)
         self.metrics.kv_blocks_total.set(self._allocator.capacity)
-        self.metrics.kv_blocks_in_use.set(0)
+        self._update_block_gauges()
 
     @property
     def kv_block_bytes(self) -> int:
@@ -351,9 +708,39 @@ class GenerationEngine:
             self.cfg.layers, self.cfg.heads, self.cfg.head_dim,
             self.kv_dtype, torch.empty((), dtype=dt).element_size())
 
+    def _update_block_gauges(self):
+        """Pool occupancy (blocks held, over capacity), prefix pins, the
+        reservation slack (blocks mapped into a stream's table but not yet
+        written: the worst-case tail ``reserve`` holds idle), and the
+        prefix-cache and swap-store occupancy."""
+        alloc = self._allocator
+        B = self.block_size
+        in_use = alloc.in_use
+        with self._prefix_lock:
+            pinned = sum(len(p.blocks) for p in self._prefixes.values()
+                         if p.blocks)
+        slack = 0
+        for st in list(self._slots):
+            if st is not None:
+                local = max(0, st.length - (st.prefix_len // B) * B)
+                slack += max(0, (st.n_entries - st.prefix_len // B)
+                             - blocks_for_tokens(local, B))
+        cap = alloc.capacity
+        self.metrics.kv_blocks_in_use.set(in_use)
+        self.metrics.kv_blocks_pinned.set(pinned)
+        self.metrics.kv_block_occupancy.set(in_use / cap if cap else 0.0)
+        self.metrics.kv_reservation_slack.set(slack)
+        self.metrics.prefix_cache_blocks.set(
+            self._prefix_cache.total_blocks
+            if self._prefix_cache is not None else 0)
+        self.metrics.kv_swapped_blocks_held.set(
+            self._swap_store.blocks_held
+            if self._swap_store is not None else 0)
+
     def _loop(self):
         try:
             while not self._stop.is_set():
+                self._drain_prefix_queue()
                 self._admit()
                 if self._live_count() and not self._stop.is_set():
                     try:
@@ -375,8 +762,10 @@ class GenerationEngine:
     def _admit(self):
         """Fill free slots from the queue. Waits briefly only when the
         engine is idle; with live tenants admission is opportunistic so
-        decode cadence never stalls on an empty queue. A head whose blocks
-        are not free yet goes back to the queue head (FIFO preserved)."""
+        decode cadence never stalls on an empty queue. Each head is
+        planned (:meth:`_plan_blocks`): shed typed, requeued at the head
+        to wait for blocks (FIFO preserved), or seated — by a swap-in, the
+        decode-feed seat or a prefill."""
         self._admission.expire_queued()
         for i in range(self.slots):
             if self._stop.is_set():
@@ -390,16 +779,35 @@ class GenerationEngine:
                 if idle:
                     return
                 continue
-            greq: GenerationRequest = req.x
-            if self._blocks_needed(int(greq.prompt.size),
-                                   greq.max_new_tokens) \
-                    > self._allocator.free_count:
+            verdict, prefix, cached = self._plan_blocks(req)
+            if verdict == "shed":
+                continue
+            if verdict == "wait":
                 self._admission.requeue_head(req)
                 return
-            if not req.future.set_running_or_notify_cancel():
-                continue     # caller cancelled while queued
-            self.metrics.queue_wait_ms.observe(
-                (time.perf_counter() - req.submit_t) * 1e3)
+            greq: GenerationRequest = req.x
+            resumed = greq.resume_tokens is not None
+            if not req.future.running():
+                if not req.future.set_running_or_notify_cancel():
+                    if cached is not None:
+                        # the plan's match references must not outlive it
+                        self._allocator.free(cached[2])
+                    self._discard_swap(greq)
+                    continue     # caller cancelled while queued
+            if not resumed:
+                self.metrics.queue_wait_ms.observe(
+                    (time.perf_counter() - req.submit_t) * 1e3)
+            if greq.swap_key is not None and self._swap_in_seat(i, req):
+                continue
+            if prefix is not None or cached is not None:
+                self._seat_stream(i, req, prefix, cached)
+                continue
+            if resumed and int(greq.prompt.size) \
+                    + int(greq.resume_tokens.size) > self.buckets[-1]:
+                # the recompute prompt outgrew the prefill ladder: rebuild
+                # the K/V through the decode-feed seat instead
+                self._seat_stream(i, req, None, None)
+                continue
             try:
                 self._prefill_into(i, req)
             except Exception as e:
@@ -407,10 +815,589 @@ class GenerationEngine:
                     self.metrics.record_rejection("model_error")
                 self._on_device_failure(e)
 
-    def _blocks_needed(self, n_prompt: int, max_new: int) -> int:
-        """THE block-demand formula: a stream's whole worst-case footprint,
-        taken at seating — shared by the submit-time gate and the seat."""
-        return blocks_for_tokens(n_prompt + max_new, self.block_size)
+    # ------------------------------------------------- paged block planning
+    def _fresh_blocks_needed(self, prefix_len: int, n_prompt: int,
+                             max_new: int, admit: bool = False) -> int:
+        """THE block-demand formula: fresh blocks a stream allocates, its
+        footprint minus the prefix's full shared blocks (a partially
+        filled shared tail is copied into a fresh block). ``admit=False``
+        is the worst case (every token the stream may generate): the
+        structural bound, and what ``reserve`` takes at seating.
+        ``admit=True`` is what seating takes: the same under ``reserve``;
+        under ``on_demand`` the prompt's positions plus one (the first
+        generated token's write target)."""
+        total = prefix_len + n_prompt + max_new
+        if admit and self.allocate == "on_demand":
+            total = prefix_len + n_prompt + 1
+        return blocks_for_tokens(total, self.block_size) \
+            - prefix_len // self.block_size
+
+    def _blocks_needed(self, greq: GenerationRequest,
+                       prefix: Optional[SharedPrefix],
+                       admit: bool = False) -> int:
+        """A request's fresh-block demand. A resumed request recomputes its
+        generated tokens through the prompt and its remaining budget
+        shrinks by as many: its worst case is unchanged."""
+        n = int(greq.prompt.size)
+        if greq.resume_tokens is not None:
+            n += int(greq.resume_tokens.size)
+        return self._fresh_blocks_needed(
+            prefix.length if prefix is not None else 0,
+            n, greq.max_new_tokens - greq.resume_step, admit=admit)
+
+    def _shed_typed(self, req: Request, exc: RejectedError):
+        """Fail a dequeued request with a typed serving error."""
+        try:
+            req.future.set_exception(exc)
+        except InvalidStateError:
+            return   # the caller cancelled it first
+        self.metrics.record_rejection(exc.reason)
+
+    def _plan_blocks(self, req: Request):
+        """Dispose of the dequeued head: ``("ok", prefix, cached)`` when its
+        seat demand fits the free pool (``cached`` the prefix cache's hit
+        ``(entry, m, blocks)``, its block references this planner's),
+        ``("wait", None, None)`` when it must wait for retirements or for
+        a prefix's prefill, ``("shed", None, None)`` when it was failed
+        typed here. The worst case gates structurally; the seat demand
+        (the prompt's blocks only under ``on_demand``) gates against the
+        free pool."""
+        greq: GenerationRequest = req.x
+        prefix = None
+        if greq.prefix_id is not None:
+            with self._prefix_lock:
+                prefix = self._prefixes.get(greq.prefix_id)
+            if prefix is None:
+                e = RuntimeError(
+                    f"shared prefix {greq.prefix_id!r} was released while "
+                    "this request was queued")
+                if greq.handle._fail(e):
+                    self.metrics.record_rejection("client_error")
+                return "shed", None, None
+            if not prefix.ready:
+                # K/V lost to a cache rebuild: re-prefill, wait our turn
+                self._queue_prefix_prefill(greq.prefix_id)
+                return "wait", None, None
+        needed_worst = self._blocks_needed(greq, prefix)
+        usable = self._usable_blocks()
+        waiter = self._block_waiter
+        if waiter is not None and (waiter[0] is req
+                                   or waiter[0].future.done()):
+            self._block_waiter = waiter = None
+        if needed_worst > usable:
+            if greq.resume_tokens is not None:
+                # a preemption victim whose footprint can never fit again
+                # (prefix pins grew after its blocks were freed)
+                self._discard_swap(greq)
+                self._shed_typed(req, PreemptedError(
+                    f"stream was preempted after {greq.resume_step} "
+                    f"token(s) and its resume needs {needed_worst} KV "
+                    f"blocks but the pool can free at most {usable} of "
+                    f"{self._allocator.capacity} — resubmit",
+                    tokens_generated=greq.resume_step))
+                return "shed", None, None
+            self._shed_typed(req, KVBlocksExhaustedError(
+                f"request needs {needed_worst} KV blocks but the pool "
+                f"can free at most {usable} of "
+                f"{self._allocator.capacity} (shared-prefix pins "
+                "excluded)",
+                needed=needed_worst, usable=usable,
+                capacity=self._allocator.capacity))
+            return "shed", None, None
+        # the automatic prefix cache's longest block-aligned match (its
+        # references taken with the match); resumed streams skip it, their
+        # recompute rebuilds the state through the same prefill route
+        cached = None
+        if (self._prefix_cache is not None and prefix is None
+                and greq.resume_tokens is None and not self._cache_bypass):
+            cached = self._prefix_cache.match_and_ref(greq.prompt)
+        if cached is not None:
+            m = cached[1]
+            needed = self._fresh_blocks_needed(
+                m * self.block_size,
+                int(greq.prompt.size) - m * self.block_size,
+                greq.max_new_tokens, admit=True)
+        else:
+            needed = self._blocks_needed(greq, prefix, admit=True)
+        # off limits: the blocks a queued prefix prefill still needs, and
+        # the block waiter's demand when this request's class is the
+        # waiter's or lower
+        rank = PRIORITIES.index(req.priority)
+        reserved = 0
+        if waiter is not None and rank >= PRIORITIES.index(waiter[2]):
+            reserved = waiter[1]
+        avail = self._allocator.free_count \
+            - self._pending_prefix_demand() - reserved
+        if needed > avail and self._prefix_cache is not None \
+                and len(self._prefix_cache):
+            # cached blocks are reclaimable: evict LRU entries (never the
+            # one just matched) before making anyone wait
+            self._cache_evict(needed - avail,
+                              protect=cached[0] if cached else None)
+            avail = self._allocator.free_count \
+                - self._pending_prefix_demand() - reserved
+        if needed > avail:
+            if cached is not None:
+                self._allocator.free(cached[2])
+            self._block_waiter = (req, needed, req.priority)
+            return "wait", None, None
+        return "ok", prefix, cached
+
+    def _pending_prefix_demand(self) -> int:
+        """Worst-case blocks the queued, not yet prefilled prefixes need:
+        held back from stream admission so retirements accumulate toward
+        the prefix prefill."""
+        with self._prefix_lock:
+            pending = {pid for pid, _ in self._pending_prefix}
+            return sum(blocks_for_tokens(p.length, self.block_size)
+                       for pid, p in self._prefixes.items()
+                       if pid in pending and not p.ready)
+
+    def _queue_prefix_prefill(self, prefix_id: str):
+        with self._prefix_lock:
+            if any(pid == prefix_id for pid, _ in self._pending_prefix):
+                return
+            self._pending_prefix.append((prefix_id, None))
+
+    def _drain_prefix_queue(self):
+        """Prefill the pending shared prefixes (scheduler thread). A prefix
+        whose blocks are not free yet stays at the head until retirements
+        free them; one that can never fit is unregistered and failed
+        typed."""
+        while not self._stop.is_set():
+            with self._prefix_lock:
+                if not self._pending_prefix:
+                    return
+                pid, fut = self._pending_prefix[0]
+                prefix = self._prefixes.get(pid)
+                self._prefix_busy = True
+            try:
+                if prefix is not None and not prefix.ready:
+                    nb = blocks_for_tokens(prefix.length, self.block_size)
+                    if nb > self._usable_blocks(excluding=pid):
+                        with self._prefix_lock:
+                            self._prefixes.pop(pid, None)
+                        self._pop_prefix_head(pid)
+                        if fut is not None:
+                            try:
+                                fut.set_exception(KVBlocksExhaustedError(
+                                    f"prefix {pid!r} needs {nb} KV blocks "
+                                    "the pool can never free (pinned by "
+                                    "other prefixes)", needed=nb,
+                                    usable=self._usable_blocks(),
+                                    capacity=self._allocator.capacity))
+                            except InvalidStateError:
+                                pass
+                        continue
+                    if nb > self._allocator.free_count:
+                        return   # wait for retirements to free blocks
+                    try:
+                        self._prefill_prefix(prefix)
+                    except Exception as e:
+                        self._pop_prefix_head(pid)
+                        if fut is not None:
+                            try:
+                                fut.set_exception(e)
+                            except InvalidStateError:
+                                pass
+                        self._on_device_failure(e)
+                        return
+                self._pop_prefix_head(pid)
+                if fut is None:
+                    continue
+                try:
+                    if prefix is None:
+                        fut.set_exception(RuntimeError(
+                            f"prefix {pid!r} was released before its "
+                            "prefill"))
+                    else:
+                        fut.set_result(pid)
+                except InvalidStateError:
+                    pass
+            finally:
+                with self._prefix_lock:
+                    self._prefix_busy = False
+
+    def _pop_prefix_head(self, pid: str):
+        with self._prefix_lock:
+            if self._pending_prefix and self._pending_prefix[0][0] == pid:
+                self._pending_prefix.popleft()
+
+    def _prefill_prefix(self, prefix: SharedPrefix):
+        """The one prefill a shared prefix gets per pool: allocate its
+        blocks, write its K/V through the bucketed prefill (its sampled
+        token discarded), publish ``prefix.blocks``."""
+        alloc = self._allocator
+        n = prefix.length
+        nb = blocks_for_tokens(n, self.block_size)
+        blocks = alloc.alloc(nb)
+        bucket = self._bucket_for(n)
+        row = np.zeros(blocks_for_tokens(bucket, self.block_size), np.int32)
+        row[:nb] = blocks
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = prefix.tokens
+        t0 = time.perf_counter()
+        try:
+            self._prefill(self.params, self._cache, padded, row, n,
+                          prng_key(0), 0.0, 0, 0)
+        except Exception:
+            alloc.free(blocks)
+            raise
+        with self._prefix_lock:
+            registered = self._prefixes.get(prefix.prefix_id) is prefix
+            if registered:
+                prefix.blocks = blocks
+        if not registered:      # released while it was prefilling
+            alloc.free(blocks)
+            return
+        self.metrics.prefix_prefills_total.inc()
+        self.metrics.prefill_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._update_block_gauges()
+
+    def _seat_stream(self, i: int, req: Request,
+                     prefix: Optional[SharedPrefix], cached):
+        """Seat a stream without a prefill — the decode-feed seat, in three
+        flavours:
+
+        - an explicit shared prefix: the table references the prefix's
+          pinned blocks; a partially filled shared tail block is held
+          read-only and copied by the slot's first decode step
+          (``_Slot.cow``) into its first fresh block;
+        - a prefix-cache hit ``(entry, m, blocks)``: the table references
+          the entry's first ``m`` (full) blocks;
+        - a bare feed: a resumed stream whose recompute prompt outgrew the
+          prefill ladder rebuilds its K/V from position 0.
+
+        Fresh blocks cover the rest of the seat demand; the unprefilled
+        tokens (prompt suffix, and a resumed stream's generated tokens)
+        ride the decode step one per iteration with mid-feed samples
+        discarded. The last feed's sample is token ``resume_step`` (0 for
+        a fresh stream), the index the request key folds."""
+        greq: GenerationRequest = req.x
+        B = self.block_size
+        alloc = self._allocator
+        resumed = greq.resume_tokens is not None
+        feed = [int(t) for t in greq.prompt]
+        if resumed:
+            feed += [int(t) for t in greq.resume_tokens]
+        cow = cow_src = None
+        owned: List[int] = []   # references the planner already holds
+        try:
+            if prefix is not None:
+                P = prefix.length
+                pblocks = prefix.blocks
+                if pblocks is None:
+                    raise RuntimeError(
+                        f"shared prefix {greq.prefix_id!r} was "
+                        "invalidated while this request was being "
+                        "seated; resubmit")
+                shared = list(pblocks[:P // B])
+                # the partial tail block is referenced (the copy reads it)
+                # but never enters the table: its entry is the copy's dst
+                part = [pblocks[P // B]] if P % B else []
+                cow_src = pblocks[P // B] if P % B else None
+                nfresh = self._blocks_needed(greq, prefix, admit=True)
+            elif cached is not None:
+                _entry, m, owned = cached
+                P = m * B
+                shared = list(owned)
+                part = []
+                nfresh = self._fresh_blocks_needed(
+                    P, len(feed) - P, greq.max_new_tokens
+                    - greq.resume_step, admit=True)
+                feed = feed[m * B:]
+            else:
+                P = 0
+                shared, part = [], []
+                nfresh = self._fresh_blocks_needed(
+                    0, len(feed), greq.max_new_tokens - greq.resume_step,
+                    admit=True)
+            fresh = alloc.alloc(nfresh)
+            refs = part if owned else shared + part
+            try:
+                alloc.incref(refs)   # all-or-nothing
+            except ValueError as e:
+                alloc.free(fresh)
+                raise RuntimeError(
+                    f"shared prefix {greq.prefix_id!r} was released while "
+                    "this request was being seated; resubmit") from e
+            held = shared + part + fresh
+            if cow_src is not None:
+                cow = (cow_src, fresh[0])
+        except Exception as e:
+            if owned:
+                alloc.free(owned)   # the match references must not leak
+            if greq.handle._fail(e):
+                self.metrics.record_rejection("client_error")
+            return
+        n_shared = len(shared)
+        n_entries = n_shared + len(fresh)
+        row = np.zeros(self.max_blocks_per_slot, np.int32)
+        row[:n_shared] = shared
+        row[n_shared:n_entries] = fresh
+        self._tables[i] = row
+        self._slots[i] = _Slot(greq=greq, request=req,
+                               n_generated=greq.resume_step, last_token=0,
+                               length=P, blocks=held, prefix_len=P,
+                               pending=deque(feed), cow=cow,
+                               n_entries=n_entries, resumed=resumed)
+        if prefix is not None and not resumed:
+            prefix.hits += 1
+            self.metrics.prefix_hits_total.inc()
+        if cached is not None:
+            self.metrics.prefix_cache_hits_total.inc()
+        if cow is not None:
+            self.metrics.kv_cow_copies_total.inc()
+        self._update_block_gauges()
+
+    def _swap_in_seat(self, i: int, req: Request) -> bool:
+        """Re-seat a swapped-out preemption victim by copying its parked
+        blocks into freshly allocated ones and rebuilding its table row:
+        no prefill, no feed — the slot resumes where the eviction froze it
+        and the next decode step continues the stream. The copy is queued
+        on the decode step's stream, so that step sees the blocks. False on
+        any miss (entry evicted from the store, pool refusal): the caller
+        falls through to the recompute path."""
+        greq: GenerationRequest = req.x
+        key, greq.swap_key = greq.swap_key, None   # one shot either way
+        store = self._swap_store
+        entry = store.take(key) if store is not None else None
+        if entry is None:
+            return False
+        alloc = self._allocator
+        # the demand _plan_blocks just verified (swapped victims hold no
+        # prefix); it covers the parked blocks
+        nfresh = self._blocks_needed(greq, None, admit=True)
+        try:
+            blocks = alloc.alloc(nfresh)
+        except KVBlocksExhaustedError:
+            return False
+        self._blocks_from_host(blocks[:entry.used_blocks], entry.payload)
+        row = np.zeros(self.max_blocks_per_slot, np.int32)
+        row[:nfresh] = blocks
+        self._tables[i] = row
+        self._slots[i] = _Slot(greq=greq, request=req,
+                               n_generated=entry.n_generated,
+                               last_token=entry.last_token,
+                               length=entry.length, blocks=blocks,
+                               prefix_len=0, n_entries=nfresh, resumed=True)
+        greq.swap_ins += 1
+        self.metrics.kv_swap_bytes_in.inc(entry.nbytes)
+        self._update_block_gauges()
+        return True
+
+    # ---------------------------------------- on-demand growth + preemption
+    def _grow_block_tables(self):
+        """Map a fresh block into every live slot whose next write (at
+        position ``st.length``) falls past its mapped entries — the
+        on-demand allocator's per-iteration work. Host-side only: the
+        fixed-width table row gains an entry, so the decode step's shapes
+        (and the paged kernel's split plan) never change."""
+        B = self.block_size
+        while True:
+            needy = None
+            for i, st in enumerate(self._slots):
+                if st is not None \
+                        and blocks_for_tokens(st.length + 1, B) > st.n_entries:
+                    needy = (i, st)
+                    break
+            if needy is None:
+                return
+            self._grow_slot(*needy)
+
+    def _grow_slot(self, i: int, st: _Slot):
+        """Allocate one block for slot ``i``'s boundary crossing; when the
+        pool is dry, evict prefix-cache entries first, then preempt. A
+        self-preempted slot is gone when this returns (the caller's re-scan
+        finds it)."""
+        while True:
+            try:
+                block = self._allocator.alloc(1)[0]
+            except KVBlocksExhaustedError:
+                block = None
+            if block is not None:
+                st.n_entries = grow_block_table(self._tables, i,
+                                                st.n_entries, block)
+                st.blocks.append(block)
+                return
+            if self._prefix_cache is not None and len(self._prefix_cache):
+                if self._cache_evict(1):
+                    continue
+            if self._preempt_for(i, st) == "self":
+                return
+
+    def _try_swap_out(self, j: int, vst: _Slot):
+        """Copy victim slot ``j``'s written blocks (values and int8 scales)
+        to host memory. Called before the victim's blocks are freed, and
+        the copy completes before this returns: once ``free_batch`` runs
+        the pool may hand the blocks to another stream. Returns ``(key,
+        blocks, bytes)``, or ``(None, 0, 0)`` when the victim is at or
+        below the threshold, holds shared blocks, has a pending
+        copy-on-write or feed (its K/V is not complete), or the store
+        cannot take it — every miss resumes by recompute."""
+        store = self._swap_store
+        if store is None or vst.blocks is None:
+            return None, 0, 0
+        if len(vst.blocks) <= self.swap_threshold_blocks:
+            return None, 0, 0
+        if vst.cow is not None or vst.pending:
+            return None, 0, 0
+        if vst.prefix_len != 0 or vst.greq.prefix_id is not None:
+            # shared blocks outlive the eviction; the re-seat's demand
+            # would need the plan's shared-block discount
+            return None, 0, 0
+        used = blocks_for_tokens(vst.length, self.block_size)
+        if used <= 0 or used > vst.n_entries:
+            return None, 0, 0
+        payload, nbytes = self._blocks_to_host(self._tables[j][:used])
+        key = store.put(SwapEntry(
+            payload=payload, used_blocks=used, length=vst.length,
+            n_generated=vst.n_generated, last_token=int(vst.last_token),
+            prefix_len=vst.prefix_len, nbytes=nbytes))
+        if key is None:
+            return None, 0, 0
+        return key, used, nbytes
+
+    def _blocks_to_host(self, blocks) -> Tuple[List[Dict[str, Any]], int]:
+        """Copy ``blocks`` of every pool leaf (K and V values, and an int8
+        pool's scales) into host buffers, pinned on the card; returns the
+        per-layer buffers and their bytes. The copies are complete when
+        this returns, so the blocks may be freed right after."""
+        rows = torch.as_tensor(np.asarray(blocks, np.int64),
+                               device=self.device)
+        pin = self.device.type == "cuda"
+        payload, nbytes = [], 0
+        for lc in self._cache["layers"]:
+            parked = {}
+            for name, leaf in lc.items():
+                src = leaf.index_select(0, rows)
+                dst = torch.empty(src.shape, dtype=src.dtype,
+                                  pin_memory=pin)
+                dst.copy_(src, non_blocking=True)
+                parked[name] = dst
+                nbytes += dst.numel() * dst.element_size()
+            payload.append(parked)
+        if pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        return payload, nbytes
+
+    def _blocks_from_host(self, blocks, payload: List[Dict[str, Any]]):
+        """Write :meth:`_blocks_to_host` buffers into ``blocks`` of the
+        pool. The copies are queued on the current stream, the one the
+        decode step runs on, so the next step reads the restored blocks."""
+        rows = torch.as_tensor(np.asarray(blocks, np.int64),
+                               device=self.device)
+        for lc, parked in zip(self._cache["layers"], payload):
+            for name, leaf in lc.items():
+                leaf[rows] = parked[name].to(self.device, non_blocking=True)
+
+    def _discard_swap(self, greq: GenerationRequest):
+        """Drop a requeued stream's parked blocks (it was shed or
+        cancelled: they will never be swapped back in)."""
+        if greq.swap_key is not None:
+            if self._swap_store is not None:
+                self._swap_store.discard(greq.swap_key)
+                self.metrics.kv_swapped_blocks_held.set(
+                    self._swap_store.blocks_held)
+            greq.swap_key = None
+
+    def _preempt_for(self, needy_i: int, needy_st: _Slot) -> str:
+        """The pool cannot serve slot ``needy_i``'s next block: evict ONE
+        resident stream and requeue it at the queue head — its written
+        blocks swapped to host memory when its footprint exceeds
+        ``swap_threshold_blocks``, else for recompute-on-resume. Victims
+        are of the needy stream's class or lower; among them the lowest
+        class, then the largest footprint, then the latest arrival goes
+        first. With no eligible victim the needy stream preempts itself.
+        Returns ``"freed"`` or ``"self"``."""
+        needy_rank = PRIORITIES.index(needy_st.request.priority)
+        best = None
+        for j, st in enumerate(self._slots):
+            if st is None or st is needy_st:
+                continue
+            if st.request.future.done():
+                continue   # terminal delivered; its retire owns it
+            rank = PRIORITIES.index(st.request.priority)
+            if rank < needy_rank:
+                continue   # never evict a higher class
+            key = (rank, len(st.blocks or ()), st.request.submit_t)
+            if best is None or key > best[0]:
+                best = (key, j, st)
+        j, vst = (best[1], best[2]) if best is not None \
+            else (needy_i, needy_st)
+        swap_key, swap_blocks, swap_bytes = self._try_swap_out(j, vst)
+        self._slots[j] = None
+        self._tables[j] = 0
+        blocks, vst.blocks = vst.blocks, None
+        if blocks:
+            self._allocator.free_batch([blocks])
+        greq = vst.greq
+        req = vst.request
+        greq.resume_tokens = np.asarray(greq.handle.tokens_so_far(),
+                                        np.int32)
+        greq.resume_step = vst.n_generated
+        greq.swap_key = swap_key
+        greq.preemptions += 1
+        self.metrics.preemptions_total.inc()
+        if swap_key is not None:
+            self.metrics.kv_swapped_blocks.inc(swap_blocks)
+            self.metrics.kv_swap_bytes_out.inc(swap_bytes)
+            self.metrics.kv_swapped_blocks_held.set(
+                self._swap_store.blocks_held)
+        # the deadline bounded queue time, which this stream already
+        # served: its requeue must not turn into a 'deadline' shed
+        req.deadline_t = None
+        if self._stop.is_set():
+            self._discard_swap(greq)
+            self._shed_typed(req, PreemptedError(
+                f"stream preempted after {vst.n_generated} token(s) "
+                "while the engine was shutting down — resubmit",
+                tokens_generated=vst.n_generated))
+        else:
+            self._admission.requeue_head(req)
+            self.metrics.queue_depth.set(self._admission.depth_requests)
+        return "self" if vst is needy_st else "freed"
+
+    def _maybe_cache_retired(self, i: int, st: _Slot):
+        """Offer a normally retired stream's full blocks to the automatic
+        prefix cache instead of freeing them: the block-aligned span of
+        the ``st.length`` written positions (the retiring token's own K/V
+        was never written), covered by its prompt and generated tokens.
+        Explicit-prefix streams are skipped (their pin owns the shared
+        span)."""
+        cache = self._prefix_cache
+        if cache is None or st.greq.prefix_id is not None \
+                or st.blocks is None:
+            return
+        B = self.block_size
+        m = st.length // B
+        if m <= 0 or st.n_entries < m:
+            return
+        seq = np.concatenate([
+            np.asarray(st.greq.prompt, np.int32),
+            np.asarray(st.greq.handle.tokens_so_far(), np.int32)])
+        if seq.size < m * B:
+            return
+        row = [int(b) for b in self._tables[i][:m]]
+        self._allocator.incref(row)   # the cache's own reference
+        before = len(cache)
+        kept = cache.insert(seq[:m * B], row)
+        if kept:
+            self.metrics.prefix_cache_inserts_total.inc()
+        evicted = before + (1 if kept else 0) - len(cache)
+        if evicted > 0:
+            self.metrics.prefix_cache_evictions_total.inc(evicted)
+
+    def _cache_evict(self, need_blocks: int, protect=None) -> int:
+        """Evict LRU prefix-cache entries, counted into the metrics;
+        returns the references released."""
+        cache = self._prefix_cache
+        before = len(cache)
+        released = cache.evict(need_blocks, protect=protect)
+        evicted = before - len(cache)
+        if evicted > 0:
+            self.metrics.prefix_cache_evictions_total.inc(evicted)
+        return released
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -419,13 +1406,22 @@ class GenerationEngine:
         return self.buckets[-1]
 
     def _prefill_into(self, slot: int, req: Request):
+        """Seat ``req`` in ``slot`` by a prefill. A resumed request's
+        generated tokens ride the prompt (recompute-on-resume) and its
+        sample is drawn at ``resume_step``; TTFT is observed only for a
+        stream's first token (``resume_step == 0``)."""
         greq: GenerationRequest = req.x
-        n = int(greq.prompt.size)
+        resumed = greq.resume_tokens is not None
+        toks = greq.prompt
+        if resumed:
+            toks = np.concatenate(
+                [greq.prompt, np.asarray(greq.resume_tokens, np.int32)])
+        n = int(toks.size)
         bucket = self._bucket_for(n)
         padded = np.zeros((1, bucket), np.int32)
-        padded[0, :n] = greq.prompt
-        nb_total = self._blocks_needed(n, greq.max_new_tokens)
+        padded[0, :n] = toks
         alloc = self._allocator
+        nb_total = self._blocks_needed(greq, None, admit=True)
         blocks = alloc.alloc(nb_total)
         row = np.zeros(self.max_blocks_per_slot, np.int32)
         row[:nb_total] = blocks
@@ -434,88 +1430,121 @@ class GenerationEngine:
             _, tok = self._prefill(
                 self.params, self._cache, padded,
                 row[:blocks_for_tokens(bucket, self.block_size)], n,
-                greq.key, greq.temperature, greq.top_k, 0)
+                greq.key, greq.temperature, greq.top_k, greq.resume_step)
             tok = int(tok)
         except Exception:
             alloc.free(blocks)
             raise
         now = time.perf_counter()
         self.metrics.prefill_ms.observe((now - t0) * 1e3)
-        self.metrics.ttft_ms.observe((now - req.submit_t) * 1e3)
+        if greq.resume_step == 0:
+            self.metrics.ttft_ms.observe((now - req.submit_t) * 1e3)
         self.metrics.prefills_total.inc()
         self.metrics.generated_tokens_total.inc()
-        state = _Slot(greq=greq, request=req, n_generated=1, last_token=tok,
-                      length=n, blocks=blocks)
+        state = _Slot(greq=greq, request=req,
+                      n_generated=greq.resume_step + 1, last_token=tok,
+                      length=n, blocks=blocks, n_entries=nb_total,
+                      resumed=resumed)
         if greq.handle._push(tok) is not None:
-            # a broken on_token consumer failed its own stream at token 0
+            # a broken on_token consumer failed its own stream
             self.metrics.record_rejection("client_error")
             self._release_blocks(state)
         elif self._maybe_retire(state, tok):
-            self._release_blocks(state)   # retired at token 0
+            self._release_blocks(state)   # retired at its first token
         else:
             self._tables[slot] = row
             self._slots[slot] = state
-        self.metrics.kv_blocks_in_use.set(self._allocator.in_use)
+        self._update_block_gauges()
 
     def _decode_iteration(self):
         """One scheduler turn: a single decode step over ALL slots (dead
         slots ride along on the scratch block), then stream/retire per
-        live slot."""
+        live slot. Under ``on_demand`` the slots crossing a block boundary
+        get their block first (preempting when the pool is dry). A feeding
+        slot's token is its next pending prompt token and its sample is
+        discarded until the feed ends; a pending copy-on-write goes out
+        once as ``cow_src``/``cow_dst``."""
         S = self.slots
+        if self.allocate == "on_demand":
+            self._grow_block_tables()
         tokens = np.zeros(S, np.int64)
         keys = np.zeros((S, 2), np.uint32)
         steps = np.zeros(S, np.int64)
         temps = np.zeros(S, np.float32)
         top_ks = np.zeros(S, np.int64)
         lengths = np.zeros(S, np.int64)
-        no_cow = np.zeros(S, np.int64)
+        cow_src = np.zeros(S, np.int64)
+        cow_dst = np.zeros(S, np.int64)
         states = list(self._slots)
         n_live = 0
         for i, st in enumerate(states):
             if st is None:
                 continue
             n_live += 1
-            tokens[i] = st.last_token
+            tokens[i] = st.pending[0] if st.pending else st.last_token
             keys[i] = st.greq.key
             steps[i] = st.n_generated
             temps[i] = st.greq.temperature
             top_ks[i] = st.greq.top_k
             lengths[i] = st.length
+            if st.cow is not None:
+                cow_src[i], cow_dst[i] = st.cow
         self.metrics.slot_occupancy.set(n_live / S)
+        if not n_live:
+            return   # growth preempted every stream: nothing to decode
         t0 = time.perf_counter()
         _, toks = self._decode(self.params, self._cache, self._tables,
                                lengths, tokens, keys, steps, temps, top_ks,
-                               no_cow, no_cow)
+                               cow_src, cow_dst)
         toks = toks.cpu().numpy()
         dt_ms = (time.perf_counter() - t0) * 1e3
+        now = time.perf_counter()
         self.metrics.decode_step_ms.observe(dt_ms)
         self.metrics.decode_wall_ms.inc(dt_ms)
         self.metrics.decode_steps_total.inc()
+        emitted = 0
         for i, st in enumerate(states):
-            if st is not None:
-                self._commit_sampled(i, st, int(toks[i]))
-        self.metrics.generated_tokens_total.inc(n_live)
+            if st is not None and \
+                    self._commit_sampled(i, st, int(toks[i]), now) != "fed":
+                emitted += 1
+        self.metrics.generated_tokens_total.inc(emitted)
         self.metrics.slot_occupancy.set(self._live_count() / S)
-        self.metrics.kv_blocks_in_use.set(self._allocator.in_use)
+        self._update_block_gauges()
 
-    def _commit_sampled(self, i: int, st: _Slot, tok: int):
-        """Commit one sampled token to slot ``i``: advance the stream,
-        retire it on EOS/budget (freeing its slot for the next
-        admission), deliver the token."""
+    def _commit_sampled(self, i: int, st: _Slot, tok: int,
+                        now: float) -> str:
+        """Commit one sampled token to slot ``i``: advance the stream (a
+        mid-feed sample is discarded: ``"fed"``), retire it on EOS/budget
+        (its full blocks offered to the prefix cache, its slot freed for
+        the next admission), deliver the token. Returns ``"fed"``,
+        ``"ok"``, ``"retired"`` or ``"client_error"``."""
         st.length += 1
+        st.cow = None          # the copy landed with this step
+        first_token = False
+        if st.pending:
+            st.pending.popleft()
+            if st.pending:
+                return "fed"
+            first_token = True
         st.n_generated += 1
         st.last_token = tok
         reason = self._retire_reason(st, tok)
         if reason is not None:
+            self._maybe_cache_retired(i, st)
             self._clear_slot(i, st)
+        if first_token and st.greq.resume_step == 0:
+            # a feed stream's first token lands here, never again on resume
+            self.metrics.ttft_ms.observe((now - st.request.submit_t) * 1e3)
         if st.greq.handle._push(tok) is not None:
             # a broken on_token consumer: its handle holds the terminal
             if reason is None:
                 self._clear_slot(i, st)
             self.metrics.record_rejection("client_error")
-            return
+            return "client_error"
         if reason is not None:
             self._finish_stream(st, reason)
+            return "retired"
+        return "ok"
 
     def _retire_reason(self, st: _Slot, tok: int) -> Optional[str]:
         if st.greq.eos_id is not None and tok == st.greq.eos_id:
@@ -538,7 +1567,7 @@ class GenerationEngine:
         return True
 
     def _release_blocks(self, st: _Slot):
-        """Return a stream's blocks to the free list (idempotent)."""
+        """Drop a stream's block references (idempotent)."""
         if st.blocks is None:
             return
         blocks, st.blocks = st.blocks, None
@@ -565,10 +1594,14 @@ class GenerationEngine:
                 self.metrics.record_rejection(
                     getattr(exc, "reason", "model_error"))
 
+    # a preempted stream requeued with parked blocks can die in the queue
+    # (deadline, shutdown): its host memory comes back with it
     def _count_shed(self, req: Request):
+        self._discard_swap(req.x)
         self.metrics.record_rejection("deadline")
 
     def _count_close_reject(self, req: Request):
+        self._discard_swap(req.x)
         self.metrics.record_rejection("shutdown")
 
     # -------------------------------------------------------------- insight
@@ -576,19 +1609,31 @@ class GenerationEngine:
     def live_slots(self) -> int:
         return self._live_count()
 
+    @property
+    def queue_depth(self) -> int:
+        return self._admission.depth_requests
+
     def warmup(self) -> "GenerationEngine":
         """Run one short throwaway stream per prefill bucket (token-0
         prompts, the shortest length that maps to each rung) so the first
         live request does not pay one-time set-up: the kernels' build and
-        load, the allocator's and libraries' first use."""
+        load, the allocator's and libraries' first use. The prefix cache
+        is bypassed meanwhile (a rung's probe must prefill) and its probe
+        entries are dropped after."""
         prev = 0
-        for b in self.buckets:
-            n, prev = prev + 1, b
-            new = min(2, self.max_len - n)
-            if new < 1:
-                continue   # rung admits no prompt at all (n == max_len)
-            # eos_id=None: an engine eos_id matching the continuation would
-            # retire every probe at prefill and skip the decode step
-            self.generate(np.zeros(n, np.int32), max_new_tokens=new,
-                          eos_id=None, timeout=300.0)
+        self._cache_bypass = True
+        try:
+            for b in self.buckets:
+                n, prev = prev + 1, b
+                new = min(2, self.max_len - n)
+                if new < 1:
+                    continue   # rung admits no prompt at all (n == max_len)
+                # eos_id=None: an engine eos_id matching the continuation
+                # would retire every probe at prefill and skip the decode
+                self.generate(np.zeros(n, np.int32), max_new_tokens=new,
+                              eos_id=None, timeout=300.0)
+        finally:
+            self._cache_bypass = False
+            if self._prefix_cache is not None:
+                self._prefix_cache.release_all()
         return self

@@ -7,6 +7,17 @@ from __future__ import annotations
 import threading
 from typing import Dict, Sequence
 
+#: Every machine-readable reason a request can be refused or shed with
+#: (``RejectedError.reason``, the keys of ``rejections_by_reason``), each
+#: listed once.
+REJECTION_REASONS = (
+    "queue_full", "deadline", "shutdown", "model_error", "client_error",
+    "kv_blocks_exhausted", "host_draining",
+    # a preemption victim whose resume became impossible
+    # (admission.PreemptedError)
+    "preempted",
+)
+
 
 class Counter:
     """Monotone non-negative counter."""
@@ -70,6 +81,11 @@ class Histogram:
             self._n += 1
 
     @property
+    def count(self) -> int:
+        with self._lock:
+            return self._n
+
+    @property
     def mean(self) -> float:
         with self._lock:
             return self._sum / self._n if self._n else 0.0
@@ -129,8 +145,33 @@ class ServingMetrics:
         self.ttft_ms = Histogram("ttft_ms")               # submit->token 0
         self.prefill_ms = Histogram("prefill_ms")
         self.decode_step_ms = Histogram("decode_step_ms")
+        # ---- paged KV cache (block pool + shared-prefix reuse) -----------
+        self.prefix_prefills_total = Counter("prefix_prefills_total")
+        self.prefix_hits_total = Counter("prefix_hits_total")
+        self.kv_cow_copies_total = Counter("kv_cow_copies_total")
         self.kv_blocks_total = Gauge("kv_blocks_total")      # pool capacity
         self.kv_blocks_in_use = Gauge("kv_blocks_in_use")
+        self.kv_blocks_pinned = Gauge("kv_blocks_pinned")    # prefix pins
+        self.kv_block_occupancy = Gauge("kv_block_occupancy")  # in use/total
+        # blocks reserved by resident streams but holding no written token
+        # yet: the worst-case generation tail allocate="reserve" holds
+        # idle and allocate="on_demand" recovers
+        self.kv_reservation_slack = Gauge("kv_reservation_slack")
+        # ---- automatic prefix cache (paging.PrefixCache) ------------------
+        self.prefix_cache_hits_total = Counter("prefix_cache_hits_total")
+        self.prefix_cache_inserts_total = Counter(
+            "prefix_cache_inserts_total")
+        self.prefix_cache_evictions_total = Counter(
+            "prefix_cache_evictions_total")
+        self.prefix_cache_blocks = Gauge("prefix_cache_blocks")
+        # ---- preemption, and KV swap to host (paging.BlockSwapStore) ------
+        self.preemptions_total = Counter("preemptions_total")
+        # blocks and bytes copied device->host at swap-out and
+        # host->device at swap-in; the gauge is the store's occupancy
+        self.kv_swapped_blocks = Counter("kv_swapped_blocks")
+        self.kv_swap_bytes_out = Counter("kv_swap_bytes_out")
+        self.kv_swap_bytes_in = Counter("kv_swap_bytes_in")
+        self.kv_swapped_blocks_held = Gauge("kv_swapped_blocks_held")
 
     def record_rejection(self, reason: str):
         """Attribute one shed/rejection to its cause."""

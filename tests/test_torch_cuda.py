@@ -93,19 +93,21 @@ def test_packed_bf16_matches_plain(card, p_dtype):
 
 
 def test_packed_refuses_unbuilt_head_dim(card):
-    """Head dims past 128 (the kernels' shared-memory limit) refuse."""
-    q = torch.zeros(1, 8, 2 * 136, device=card)
-    with pytest.raises(ValueError, match="head_dim"):
+    """Head dims past 256 (the kernels' shared-memory limit) refuse, and
+    the error names the shared memory that width would need."""
+    q = torch.zeros(1, 8, 2 * 264, device=card)
+    with pytest.raises(ValueError, match="head_dim") as ei:
         ak.mha_packed_forward(q, q, q, 2)
+    assert f"{ak.backward_smem_bytes(264)} bytes" in str(ei.value)
 
 
 def test_backward_kernels_refuse_unbuilt_head_dim(card):
-    """The backward kernels refuse head dims past 128, as the forward."""
-    q = torch.zeros(1, 8, 2 * 136, device=card)
+    """The backward kernels refuse head dims past 256, as the forward."""
+    q = torch.zeros(1, 8, 2 * 264, device=card)
     lse = torch.zeros(1, 2, 8, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         ak.mha_packed_backward(q, q, q, q, lse, 2)
-    q3, vec = torch.zeros(2, 8, 136, device=card), torch.zeros(2, 1, 8,
+    q3, vec = torch.zeros(2, 8, 264, device=card), torch.zeros(2, 1, 8,
                                                                 device=card)
     with pytest.raises(ValueError, match="head_dim"):
         ak.flash_bwd_dq(q3, q3, q3, q3, vec, vec)
@@ -124,9 +126,10 @@ def _check_head_dim(got, ref, d, dtype, floor, fp32_tol):
 
 
 # Head dims off the built widths run padded to the next one (16, 32, 64,
-# 128): 8 and 48 and 96 pad, 16 is exact; bf16 at these takes the FMA
-# templates, forward and backward
-@pytest.mark.parametrize("head_dim", [8, 16, 48, 96])
+# 128, 256): 8 and 48 and 96 and 160 pad, 16 and 256 are exact; bf16 at
+# these takes the FMA templates, forward and backward; 160 and 256 take the
+# 256-wide instances on opted-in dynamic shared memory
+@pytest.mark.parametrize("head_dim", [8, 16, 48, 96, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_packed_head_dims_match_plain(card, head_dim, dtype, causal):
@@ -144,7 +147,7 @@ def test_packed_head_dims_match_plain(card, head_dim, dtype, causal):
     _check_head_dim(got, ref, head_dim, dtype, BWD_FLOOR, 1e-4)
 
 
-@pytest.mark.parametrize("head_dim", [8, 16, 48, 96])
+@pytest.mark.parametrize("head_dim", [8, 16, 48, 96, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_streamed_head_dims_match_plain(card, head_dim, dtype, causal):
@@ -907,3 +910,79 @@ def test_fused_adamw_tree_wider_than_one_launch(card):
     before = updaters.fused_adamw.launches
     _adamw_check(params, None, 2, rng, card)
     assert updaters.fused_adamw.launches == before + 2
+
+
+# ------------------------------- the paged engine's block lifecycle (row 6)
+
+from deeplearning4j_tpu_torch.models import (  # noqa: E402
+    TransformerConfig, init_params)
+from deeplearning4j_tpu_torch.serving import GenerationEngine  # noqa: E402
+
+_LIFE_CFG = dict(vocab_size=64, hidden=64, layers=2, heads=2, mlp_dim=128,
+                 max_seq=64, causal=True, remat=False)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_swap_round_trip_is_bit_exact(card, kv_dtype):
+    """Blocks copied to pinned host buffers and back into other blocks
+    equal the originals bit for bit: bf16 values, or int8 values and their
+    fp32 scales."""
+    cfg = TransformerConfig(**_LIFE_CFG, dtype=torch.bfloat16,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=0, device=card)
+    with GenerationEngine(params, cfg, slots=2, max_len=64, block_size=8,
+                          kv_dtype=kv_dtype, device=card) as eng:
+        gen = torch.Generator(device=card).manual_seed(5)
+        for lc in eng._cache["layers"]:
+            for name, leaf in lc.items():
+                if leaf.dtype == torch.int8:
+                    leaf.copy_(torch.randint(-127, 128, leaf.shape,
+                                             generator=gen, device=card))
+                else:
+                    leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                           device=card).to(leaf.dtype))
+        src, dst = [3, 7, 1], [9, 2, 12]
+        payload, nbytes = eng._blocks_to_host(src)
+        assert all(t.is_pinned() for layer in payload for t in layer.values())
+        eng._blocks_from_host(dst, payload)
+        torch.cuda.synchronize()
+        names = set()
+        for lc in eng._cache["layers"]:
+            for name, leaf in lc.items():
+                names.add(name)
+                assert torch.equal(leaf[dst], leaf[src]), name
+        want = {"k", "v"} | ({"k_scale", "v_scale"} if kv_dtype == "int8"
+                             else set())
+        assert names == want
+        assert nbytes == len(src) * eng.kv_block_bytes
+
+
+def test_decode_feed_with_copy_on_write_matches_on_both_routes(card):
+    """Streams on a 10-token prefix (its tail block copied on write, 8-token
+    blocks) feed their suffixes through the paged decode step: token-equal
+    to plain submits of prefix + suffix on the fused and gather routes, in
+    fp32; the fused route launches the paged kernel."""
+    cfg = TransformerConfig(**_LIFE_CFG, dtype=torch.float32,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=1, device=card)
+    rng = np.random.default_rng(31)
+    pre = rng.integers(0, 64, 10).astype(np.int32)
+    sfx = [rng.integers(0, 64, 3).astype(np.int32) for _ in range(4)]
+    streams = {}
+    for route in ("fused", "gather"):
+        with GenerationEngine(params, cfg, slots=4, max_len=64, block_size=8,
+                              paged_attention=route, device=card) as eng:
+            plain = [eng.generate(np.concatenate([pre, s]), max_new_tokens=6,
+                                  timeout=120) for s in sfx]
+            before = ak.paged_decode_attention.launches
+            pid = eng.register_prefix(pre)
+            hs = [eng.submit(s, prefix_id=pid, max_new_tokens=6)
+                  for s in sfx]
+            got = [h.result(timeout=120) for h in hs]
+            assert eng.metrics.kv_cow_copies_total.value == 4
+            assert eng.metrics.prefills_total.value == 4   # the plain ones
+            launched = ak.paged_decode_attention.launches - before
+        assert got == plain, route
+        assert (launched > 0) == (route == "fused")
+        streams[route] = got
+    assert streams["fused"] == streams["gather"]

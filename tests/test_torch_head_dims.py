@@ -1,7 +1,7 @@
 """Head dims, the paged kernel's split plan and the fused AdamW's leaf table
 of the PyTorch port (deeplearning4j_tpu_torch), on the CPU.
 
-- The attention kernels take every head dim 1..128, as the JAX package's
+- The attention kernels take every head dim 1..256, as the JAX package's
   packed route does (it asserts only that the packed width divides by the
   heads); the port's flash route at the reference's TINY widths (head dim
   8) and at head dim 48 gives the JAX package's loss and gradients, its
@@ -42,9 +42,10 @@ def _one_torch_thread():
 # ------------------------------------------------------------- head dims
 
 
-@pytest.mark.parametrize("d", [1, 8, 16, 24, 48, 64, 96, 100, 128])
+@pytest.mark.parametrize("d", [1, 8, 16, 24, 48, 64, 96, 100, 128, 160,
+                               256])
 def test_predicate_takes_what_the_reference_packed_route_takes(d):
-    """Every head dim up to 128 that the reference's packed forward runs,
+    """Every head dim up to 256 that the reference's packed forward runs,
     the port's kernels take; its result there is the port's plain
     version's."""
     heads = 2
@@ -64,12 +65,18 @@ def test_predicate_takes_what_the_reference_packed_route_takes(d):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("d", [0, -1, 129, 136, 256])
+@pytest.mark.parametrize("d", [0, -1, 257, 264, 512])
 def test_predicate_refuses_past_the_limit(d):
-    """D > 128 is the kernels' shared-memory limit; the error names it."""
+    """D > 256 is the kernels' shared-memory limit; the error names it,
+    and past it the bytes that width would need."""
     assert not ak.kernel_head_dim_ok(d)
-    with pytest.raises(ValueError, match=f"1 to {ak.MAX_KERNEL_HEAD_DIM}"):
+    with pytest.raises(ValueError, match=f"1 to {ak.MAX_KERNEL_HEAD_DIM}") \
+            as ei:
         ak._check_kernel_operands("mha_packed_fwd", d)
+    if d > ak.MAX_KERNEL_HEAD_DIM:
+        need = ak.backward_smem_bytes(d)
+        assert need > ak.MAX_BLOCK_SMEM_BYTES
+        assert f"{need} bytes" in str(ei.value)
 
 
 def _packed_vjp_inputs(seed, t, heads, d):
