@@ -33,9 +33,14 @@ seconds:
    (streamed); dq's first causal row is exactly 0 on both sides (packed)
    or equal bit for bit (streamed, whose delta the caller sums);
    head dims — the packed and streamed kernels, forward and backward, at
-   head dims 8, 48, 96, 160 and 256 (padded to the built widths; 160 and
-   256 on the 256-wide instances, in opted-in dynamic shared memory),
-   fp32 and bf16, causal and not; head dim 257 must refuse;
+   head dims 8, 48, 96, 160, 256, 320 and 512 (padded to the built
+   widths; 160 and 256 on the 256-wide instances, in opted-in dynamic
+   shared memory; 320 and 512 on the chunked kernels, 256 dims a CTA),
+   fp32 and bf16, causal and not, with their CUDA launches per call and
+   shared memory per block (read from the profiler's kernel records)
+   and, in bf16, their times at 256, 320 and 512; paged decode at head
+   dim 1280 (the wide kernel) on a bf16 and an int8 pool; head dim 0
+   must refuse at the default scale;
    loss and update kernels — the fused cross-entropy forward and backward
    at the MLM step's logits (49152 x 30522, bf16) and at edge cases
    (fp32, targets -1 and V, N not a multiple of 128), the fused AdamW over
@@ -49,7 +54,7 @@ seconds:
    layers x decode steps;
 6. routes — the two decode routes agree at the model level;
 7. fp32 — a 2-layer fp32 engine gives token-equal greedy streams on both
-   routes;
+   routes and on the contiguous cache (``paged=False``);
 8. profile — torch.profiler over a short engine run: the device's busy
    share of the wall time, the kernels that take the most device time,
    and the paged decode kernels' (split and merge) share;
@@ -66,6 +71,21 @@ seconds:
    ``reserve`` and ``on_demand`` with a 64-block prefix cache (preemptions
    and cache hits required), then ``on_demand`` swapping to host against
    an unpressured run (streams resumed by swap-in token-equal);
+   contiguous — the engine phase's mix through ``paged=False`` beside the
+   paged gather route in the same run: greedy streams token-equal, decode
+   tokens/s and KV bytes per stream of each;
+   speculative fp32 — a 2-layer fp32 copy with the grid's draft (1 layer,
+   hidden 384, 12 heads, mlp 1536): k 2 and 4, gather and fused, float32
+   and int8 pools, greedy and sampled streams token-equal to the plain
+   engine's; a self-draft accepts >= 0.9; an on-demand pool preempts and
+   stays token-equal;
+   speculative — the JAX package's ``speculative_grid`` at its TPU
+   settings (bf16 BERT-base target and draft, ``lm_head`` zeroed,
+   acceptance 1.0, 16 slots, 32 requests, 64 new tokens), k 0, 2, 4, 8 x
+   float32, int8 pools, fused: tokens/s, decode steps (fewer than k 0's
+   in every k > 0 cell), acceptance, best speedup, row 6's launches
+   (layers x (k + 1) per verify turn); then a self-draft with real logits
+   at k 4, token-equal to the engine phase;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -824,23 +844,29 @@ def chain_phase():
 
 def head_dim_phase():
     """Head dims off BERT-base's 64, which the kernels run padded to the
-    next built width: the packed forward and backward (B=2, T=128, 4
-    heads) and the streamed forward, dq and dk/dv (BH=4, T=256) at D = 8,
-    48, 96, 160 and 256 (the last two on the 256-wide instances, their
-    tiles in opted-in dynamic shared memory), fp32 and bf16, causal and
-    not, against the plain versions: fp32 to 1e-5 (forward) or 1e-4
-    (backward) of the largest |plain|, bf16 per element (``judge``). Each
-    call must launch its kernel; D = 257 must refuse, naming the shared
-    memory it would need."""
+    next built width or, past 256, in 256-wide chunks: the packed forward
+    and backward (B=2, T=128, 4 heads) and the streamed forward, dq and
+    dk/dv (BH=4, T=256) at D = 8, 48, 96, 160, 256, 320 and 512 (160 and
+    256 on the 256-wide instances, their tiles in opted-in dynamic shared
+    memory; 320 and 512 on the chunked kernels at those tiles), fp32 and
+    bf16, causal and not, against the plain versions: fp32 to 1e-5
+    (forward) or 1e-4 (backward) of the largest |plain|, bf16 per element
+    (``judge``). Each call must launch its kernel. Then paged decode at
+    D = 1280 (the wide kernel, two 1024-dim chunks) on a bf16 and an int8
+    pool, held as the kernels phase holds row 6. D = 0 must refuse at the
+    default scale. Each wrapper's CUDA launches per call and the shared
+    memory of each launch's block are read from the profiler's kernel
+    records (``head_dim_launches``); at D = 320 and 512 they must equal
+    D = 256's."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import attention_kernels as ak
 
     rng = np.random.default_rng(4)
-    worst = {}
+    worst, smem = {}, {}
     calls = (ak.mha_attention_packed, ak.mha_packed_backward,
              ak.flash_forward, ak.flash_bwd_dq, ak.flash_bwd_dkv)
-    for d in (8, 48, 96, 160, 256):
+    for d in (8, 48, 96, 160, 256, 320, 512):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 def rand(shape):
@@ -896,18 +922,181 @@ def head_dim_phase():
                 check(max(lse_errs) <= lse_tol, f"head dims {label}: lse "
                       f"err {max(lse_errs)} > {lse_tol}")
                 worst[label] = share
+        smem[d] = head_dim_launches(rng, d)
+        log(f"head dims: D{d} bf16: CUDA launches per call and shared "
+            f"memory per block (bytes), from the profiler's kernel "
+            f"records: {json.dumps(smem[d])}; "
+            f"{-(-d // ak.ATTENTION_CHUNK)} CTA(s) per (row tile, head), "
+            f"one per {ak.ATTENTION_CHUNK}-dim chunk")
+    for d in (320, 512):
+        check(smem[d] == smem[256], f"head dims: D{d}'s launches and shared "
+              f"memory {smem[d]} differ from D256's {smem[256]}: the "
+              "chunked kernels should hold the 256-wide tiles")
     log("head dims: worst share of the bound per case: "
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
-    q = torch.zeros(1, 8, 2 * 257, device=DEVICE)
+    # the chunked kernels' cost against the 256-wide instance's, bf16,
+    # non-causal, at the shapes above
+    for d in (256, 320, 512):
+        q, k, v, do = (torch.as_tensor(rng.standard_normal((2, 128, 4 * d)),
+                                       dtype=torch.float32).to(
+            DEVICE, torch.bfloat16) for _ in range(4))
+        qs, ks_, vs_, dos = (x.reshape(2, 128, 4, d).transpose(1, 2)
+                             .reshape(8, 128, d).contiguous()
+                             for x in (q, k, v, do))
+        _, lse = ak.mha_packed_forward(q, k, v, 4)
+        o, slse = ak.flash_forward(qs, ks_, vs_)
+        delta = (dos.float() * o.float()).sum(-1).reshape(8, 1, 128)
+        ms = {"packed forward": time_ms(
+                  lambda: ak.mha_packed_forward(q, k, v, 4)),
+              "packed backward": time_ms(
+                  lambda: ak.mha_packed_backward(q, k, v, do, lse, 4)),
+              "streamed forward": time_ms(
+                  lambda: ak.flash_forward(qs, ks_, vs_)),
+              "streamed dq": time_ms(
+                  lambda: ak.flash_bwd_dq(qs, ks_, vs_, dos, slse, delta)),
+              "streamed dk/dv": time_ms(
+                  lambda: ak.flash_bwd_dkv(qs, ks_, vs_, dos, slse, delta))}
+        log(f"head dims: D{d} bf16 (B=2 T=128 H=4 packed, BH=8 T=128 "
+            "streamed) ms: " + json.dumps(ms))
+    wide_paged_cases(rng)
+    q = torch.zeros(1, 8, 0, device=DEVICE)
     try:
         ak.mha_packed_forward(q, q, q, 2)
     except ValueError as e:
-        need = f"{ak.backward_smem_bytes(257)} bytes"
-        check(need in str(e), f"head dim 257 refused without naming {need}: "
-              f"{e}")
-        log(f"head dims: D = 257 refuses: {e}")
+        check("head_dim >= 1" in str(e), f"head dim 0 refused without "
+              f"naming the bound: {e}")
+        log(f"head dims: D = 0 refuses: {e}")
     else:
-        raise AssertionError("head dim 257 ran: the kernels take 1..256")
+        raise AssertionError("head dim 0 ran: the kernels take D >= 1")
+
+
+def head_dim_launches(rng, d):
+    """Each attention wrapper called once at head dim ``d`` (bf16,
+    non-causal, the phase's shapes) under the profiler: per call, the
+    shared memory per block of each CUDA launch, in launch order, as the
+    device tracer recorded it. Fails unless the forward and each
+    streamed pass launch once, the packed backward twice (dq, then
+    dk/dv), and every block fits the card's shared memory."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.profiler import cuda_launches
+
+    def rand(shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(DEVICE, torch.bfloat16)
+
+    q, k, v, do = (rand((2, 128, 4 * d)) for _ in range(4))
+    qs, ks_, vs_, dos = (rand((4, 256, d)) for _ in range(4))
+    _, lse = ak.mha_packed_forward(q, k, v, 4)
+    o, slse = ak.flash_forward(qs, ks_, vs_)
+    delta = (dos.float() * o.float()).sum(-1).reshape(4, 1, 256)
+    calls = {"packed forward": (lambda: ak.mha_packed_forward(q, k, v, 4), 1),
+             "packed backward": (
+                 lambda: ak.mha_packed_backward(q, k, v, do, lse, 4), 2),
+             "streamed forward": (lambda: ak.flash_forward(qs, ks_, vs_), 1),
+             "streamed dq": (lambda: ak.flash_bwd_dq(
+                 qs, ks_, vs_, dos, slse, delta), 1),
+             "streamed dk/dv": (lambda: ak.flash_bwd_dkv(
+                 qs, ks_, vs_, dos, slse, delta), 1)}
+    out = {}
+    for name, (fn, want) in calls.items():
+        got = cuda_launches(fn)
+        check(len(got) == want, f"head dims D{d}: {name} made {len(got)} "
+              f"CUDA launches ({[g['name'] for g in got]}), expected {want}")
+        out[name] = [g["shared_memory"] for g in got]
+        check(max(out[name]) <= ak.MAX_BLOCK_SMEM_BYTES, f"head dims D{d}: "
+              f"{name} takes {out[name]} bytes a block")
+    return out
+
+
+def wide_paged_cases(rng):
+    """Row 6 at head dim 1280 (the wide kernel: two 1024-dim chunks a
+    (split, head), the scores summed over the whole row in each), 16
+    slots of 4 heads over a 32-entry table of 16-token blocks (8 splits
+    and the merge), bf16 and int8 pools, against the plain version: two
+    calls bit-equal, 2^-7 of the largest |o|, and per element as the
+    kernels phase holds row 6."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import quantize_kv
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.profiler import cuda_launches
+
+    S, H, D, B, nbmax = 16, 4, 1280, 16, 32
+    NB = S * nbmax + 1
+    per, n_splits = ak.paged_decode_plan(nbmax, B)
+    for kv in ("bf16", "int8"):
+        q = torch.as_tensor(rng.standard_normal((S, H, D)),
+                            dtype=torch.float32).to(DEVICE, torch.bfloat16)
+        kf = torch.as_tensor(rng.standard_normal((NB, B, H, D)),
+                             dtype=torch.float32, device=DEVICE)
+        vf = torch.as_tensor(rng.standard_normal((NB, B, H, D)),
+                             dtype=torch.float32, device=DEVICE)
+        if kv == "int8":
+            kp, ks = quantize_kv(kf)
+            vp, vs = quantize_kv(vf)
+        else:
+            kp, vp = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+            ks = vs = None
+        del kf, vf
+        pos_np = rng.integers(0, nbmax * B, S).astype(np.int32)
+        pos_np[3] = 0                           # a dead slot
+        tables_np = np.zeros((S, nbmax), np.int32)
+        perm = rng.permutation(np.arange(1, NB)).astype(np.int32)
+        for s in range(S):
+            if s != 3:
+                n = pos_np[s] // B + 1
+                tables_np[s, :n] = perm[s * nbmax:s * nbmax + n]
+        tables = torch.as_tensor(tables_np, device=DEVICE)
+        pos = torch.as_tensor(pos_np, device=DEVICE)
+        before = ak.paged_decode_attention.launches
+        o = ak.paged_decode_attention(q, kp, vp, tables, pos, block_size=B,
+                                      k_scale=ks, v_scale=vs)
+        again = ak.paged_decode_attention(q, kp, vp, tables, pos,
+                                          block_size=B, k_scale=ks,
+                                          v_scale=vs)
+        ro = ak.paged_decode_attention_reference(
+            q, kp, vp, tables, pos, block_size=B, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        check(ak.paged_decode_attention.launches == before + 2,
+              f"head dims paged D{D} {kv}: the kernel did not launch")
+        check(torch.equal(o, again), f"head dims paged D{D} {kv}: two "
+              "calls differ")
+        err = (o.float() - ro.float()).abs().max().item()
+        tol = 2 ** -7 * max(ro.float().abs().max().item(), 1.0)
+        check(err <= tol, f"head dims paged D{D} {kv}: max |o - plain| "
+              f"{err} > {tol}")
+        _, share, rule = judge(o, ro, D, False, PAGED_FLOOR)
+        check(share <= 1.0, f"head dims paged D{D} {kv}: an element takes "
+              f"{share} of its bound {rule}")
+        got = cuda_launches(lambda: ak.paged_decode_attention(
+            q, kp, vp, tables, pos, block_size=B, k_scale=ks, v_scale=vs))
+        check(len(got) == 1 + (n_splits > 1), f"head dims paged D{D} {kv}: "
+              f"{len(got)} CUDA launches, expected the split pass"
+              f"{' and the merge' if n_splits > 1 else ''}")
+        launched = [(g["name"].split("<")[0].split()[-1], g["shared_memory"])
+                    for g in got]
+        ms = time_ms(lambda: ak.paged_decode_attention(
+            q, kp, vp, tables, pos, block_size=B, k_scale=ks, v_scale=vs))
+        plain_ms = time_ms(lambda: ak.paged_decode_attention_reference(
+            q, kp, vp, tables, pos, block_size=B, k_scale=ks, v_scale=vs),
+            iters=3, reps=3, graph=False)
+        n_pos = int((pos_np.astype(np.int64) + 1).sum())
+        nbytes = 2 * n_pos * H * D * kp.element_size() + 2 * S * H * D * 2 \
+            + (2 * n_pos * H * 4 if kv == "int8" else 0) \
+            + tables_np.nbytes + pos_np.nbytes
+        b_ms, b_by = bound(nbytes, 4 * n_pos * H * D)
+        log(f"head dims: paged D{D} {kv} pool: max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}; {share:.3f} of {rule}), two calls bit-equal; "
+            f"splits {n_splits} of {per} blocks, CUDA launches per call "
+            f"and shared memory per block (bytes), from the profiler's "
+            f"kernel records: {launched}; "
+            f"{-(-D // ak.PAGED_CHUNK)} CTA(s) per (split, head); kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.5f} ms "
+            f"({b_by})")
+        del q, kp, vp, o, again, ro
+        torch.cuda.empty_cache()
 
 
 def chat_mix(vocab: int, n_requests: int = 32, max_len: int = 512):
@@ -979,7 +1168,7 @@ def engine_phase(cfg, params, prompts, device="cuda", max_new=64):
                      prefills=prefills, decode_steps=steps,
                      packed_launches=packed_n, paged_launches=paged_n)
         log(f"engine kv_dtype={kv}: " + json.dumps(stats))
-        results[kv] = stats
+        results[kv] = dict(stats, streams=outs)
     return results
 
 
@@ -1040,7 +1229,8 @@ def route_phase(cfg, params, prompts, device="cuda"):
 
 def fp32_phase(cfg, prompts, device="cuda"):
     """A 2-layer fp32 copy of ``cfg`` (same widths): greedy streams
-    token-equal between the fused and gather routes."""
+    token-equal between the fused and gather routes and the contiguous
+    cache (``paged=False``)."""
     import dataclasses
 
     import torch
@@ -1051,15 +1241,20 @@ def fp32_phase(cfg, prompts, device="cuda"):
     cfg = dataclasses.replace(cfg, layers=2, dtype=torch.float32)
     params = init_params(cfg, seed=1, device=device)
     streams = {}
-    for route in ("fused", "gather"):
+    for route, paged in (("fused", True), ("gather", True),
+                         ("gather", False)):
         with GenerationEngine(params, cfg, slots=8, max_len=cfg.max_seq,
-                              paged_attention=route, device=device) as eng:
+                              paged=paged, paged_attention=route,
+                              device=device) as eng:
             hs = [eng.submit(p, max_new_tokens=16) for p in prompts[:8]]
-            streams[route] = [h.result(timeout=600) for h in hs]
+            streams[route if paged else "contiguous"] = [
+                h.result(timeout=600) for h in hs]
     check(streams["fused"] == streams["gather"],
           "fp32 engine: fused and gather greedy streams differ")
+    check(streams["contiguous"] == streams["gather"],
+          "fp32 engine: paged=False and paged greedy streams differ")
     log(f"fp32 2-layer engine: {len(streams['fused'])} greedy streams "
-        "token-equal on fused and gather")
+        "token-equal on fused, gather and paged=False")
 
 
 def profile_phase(cfg, params, prompts, device="cuda"):
@@ -1405,6 +1600,256 @@ def occupancy_phase(cfg, params, device="cuda"):
     check(not differ, f"occupancy swap: streams {differ} (never preempted "
           "or resumed by swap-in only) differ from the unpressured run")
     return {"reserve": reserve, "on_demand": on_demand, "swap": swap}
+
+
+def draft_config(cfg, dtype):
+    """The JAX package's grid draft (``bench.py`` ``speculative_grid``): one
+    layer at half the target's hidden (384) and mlp (1536), its 12 heads
+    (head dim 32), vocab and positions."""
+    return dataclasses.replace(cfg, hidden=cfg.hidden // 2, layers=1,
+                               mlp_dim=cfg.mlp_dim // 2, dtype=dtype)
+
+
+def serve_mix(eng, prompts, max_new, **kw):
+    """Submit every prompt, wait for every stream; (streams, wall s)."""
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, max_new_tokens=max_new, **kw) for p in prompts]
+    outs = [h.result(timeout=600) for h in hs]
+    return outs, time.perf_counter() - t0
+
+
+def contiguous_phase(cfg, params, prompts, device="cuda", max_new=64):
+    """The engine phase's chat mix (32 requests, 64 new tokens, 16 slots,
+    max_len 512, bf16) through the contiguous cache (``paged=False``) and,
+    in the same run, the paged engine on the gather route (both read the
+    decode attention through the same (slots, 512) einsum): greedy streams
+    token-equal; decode tokens/s and KV bytes per stream beside each
+    other. Both runs sample the engine's gauges every 50 ms: the paged
+    figure is the median over samples of blocks in use times the block's
+    bytes over the live slots, the contiguous one the cache's allocated
+    bytes over the slots."""
+    from deeplearning4j_tpu_torch.serving import (GenerationEngine,
+                                                  ServingMetrics)
+
+    out = {}
+    streams = {}
+    for label, paged in (("contiguous", False), ("paged gather", True)):
+        with GenerationEngine(params, cfg, slots=16, max_len=cfg.max_seq,
+                              paged=paged, queue_capacity=len(prompts) + 16,
+                              device=device) as eng:
+            eng.warmup()
+            m = eng.metrics = ServingMetrics()
+            reset_launches()
+            t0 = time.perf_counter()
+            hs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+            samples = []
+            while not all(h.future.done() for h in hs):
+                live = m.slot_occupancy.value * eng.slots
+                if paged and live > 0:
+                    samples.append(m.kv_blocks_in_use.value
+                                   * eng.kv_block_bytes / live)
+                time.sleep(0.05)
+            streams[label] = [h.result(timeout=600) for h in hs]
+            wall = time.perf_counter() - t0
+            n = read_launches()
+            if paged:
+                check(bool(samples), "contiguous paged gather: no gauge "
+                      "sample with a live slot")
+                per_stream = float(np.median(samples))
+            else:
+                per_stream = sum(t.numel() * t.element_size()
+                                 for layer in eng._cache["layers"]
+                                 for t in layer.values()) / eng.slots
+        check(n["mha_attention_packed"] == cfg.layers * len(prompts),
+              f"contiguous {label}: the packed kernel launched "
+              f"{n['mha_attention_packed']} times, expected layers x "
+              "prefills")
+        check(n["paged_decode_attention"] == 0,
+              f"contiguous {label}: the paged kernel launched")
+        out[label] = dict(
+            decode_tokens_per_sec=m.decode_tokens_per_sec(),
+            end_to_end_tokens_per_sec=len(prompts) * max_new / wall,
+            decode_steps=int(m.decode_steps_total.value),
+            decode_step_ms_mean=m.decode_step_ms.mean,
+            kv_bytes_per_stream=per_stream,
+            gauge_samples=len(samples))
+        log(f"contiguous: {label}: " + json.dumps(out[label]))
+    check(streams["contiguous"] == streams["paged gather"],
+          "contiguous: paged=False greedy streams differ from the paged "
+          "gather route's")
+    log(f"contiguous: {len(prompts)} greedy streams token-equal to the "
+        "paged gather route's")
+    return out
+
+
+def speculative_fp32_phase(cfg, prompts, device="cuda", max_new=32):
+    """Speculative decoding against the plain engine on a 2-layer fp32 copy
+    of ``cfg`` (BERT-base widths) with the grid's draft shape in fp32: 8
+    chat-mix prompts, greedy and sampled (temperature 0.8, top_k 40), 32
+    new tokens, 8 slots. Every speculative stream (k 2 and 4, gather and
+    fused, float32 and int8 pools) is token-equal to the plain engine's on
+    the same route and pool; a self-draft (draft = target, k 4) accepts
+    at least 0.9 and is token-equal; an on-demand pool of 32 usable blocks
+    preempts at least once and is token-equal."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import init_params
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.serving import GenerationEngine, SpecConfig
+
+    cfg32 = dataclasses.replace(cfg, layers=2, dtype=torch.float32)
+    params = init_params(cfg32, seed=1, device=device)
+    dcfg = draft_config(cfg, torch.float32)
+    dparams = init_params(dcfg, seed=2, device=device)
+    reqs = [(p, dict(max_new_tokens=max_new, eos_id=None, seed=i))
+            for i, p in enumerate(prompts[:8])]
+    reqs += [(p, dict(max_new_tokens=max_new, eos_id=None, seed=100 + i,
+                      temperature=0.8, top_k=40))
+             for i, p in enumerate(prompts[:8])]
+
+    def run(route, kv, spec=None, **kw):
+        with GenerationEngine(params, cfg32, slots=8, max_len=cfg.max_seq,
+                              paged_attention=route, kv_dtype=kv,
+                              speculative=spec, queue_capacity=64,
+                              device=device, **kw) as eng:
+            hs = [eng.submit(p, **k) for p, k in reqs]
+            return [h.result(timeout=600) for h in hs], eng.metrics
+
+    summary = {}
+    plain = {}
+    for route in ("gather", "fused"):
+        for kv in ("float32", "int8"):
+            plain[route, kv], _ = run(route, kv)
+            for k in (2, 4):
+                ak.paged_decode_attention.launches = 0
+                got, m = run(route, kv, SpecConfig(dparams, dcfg, k=k))
+                label = f"{route} {kv} k{k}"
+                check(got == plain[route, kv], f"speculative fp32 {label}: "
+                      "streams differ from the plain engine's")
+                launched = ak.paged_decode_attention.launches
+                check((launched > 0) == (route == "fused"),
+                      f"speculative fp32 {label}: paged kernel launches "
+                      f"{launched}")
+                summary[label] = dict(
+                    decode_steps=int(m.decode_steps_total.value),
+                    acceptance=m.spec_acceptance_rate.value,
+                    fallbacks=int(m.spec_fallbacks_total.value),
+                    paged_launches=launched)
+    base = plain["fused", "float32"]
+    got, m = run("fused", "float32", SpecConfig(params, cfg32, k=4))
+    acc = m.spec_acceptance_rate.value
+    check(got == base, "speculative fp32 self-draft: streams differ")
+    check(acc >= 0.9, f"speculative fp32 self-draft: acceptance {acc} < 0.9")
+    summary["self-draft fused float32 k4"] = dict(
+        decode_steps=int(m.decode_steps_total.value), acceptance=acc)
+    got, m = run("fused", "float32", SpecConfig(dparams, dcfg, k=4),
+                 allocate="on_demand", num_blocks=33)
+    pre = int(m.preemptions_total.value)
+    check(got == base, "speculative fp32 on_demand: streams differ from "
+          "their unpressured runs")
+    check(pre >= 1, "speculative fp32 on_demand: no preemption")
+    summary["on_demand fused float32 k4"] = dict(
+        preemptions=pre, decode_steps=int(m.decode_steps_total.value))
+    log("speculative fp32: every stream token-equal to the plain engine's; "
+        + json.dumps(summary))
+
+
+def speculative_phase(cfg, params, prompts, plain_streams, device="cuda",
+                      max_new=64):
+    """The JAX package's ``speculative_grid`` at its TPU settings
+    (``bench.py:326-395``): the BERT-base causal LM (bf16, flash) and the
+    grid's draft (bf16), ``lm_head`` zeroed in both (acceptance 1.0), 16
+    slots, max_len 512, the 32-request chat mix, 64 new tokens; k in
+    {0, 2, 4, 8} x {float32, int8} pools on the fused route (the gather
+    route is cut for time; the fp32 phase holds its parity). Each k > 0
+    cell must accept 1.0 and take fewer decode steps than its pool's
+    k = 0 cell; row 6 launches layers x (k + 1) per verify turn and
+    layers per plain turn, row 1 target layers + draft layers per prompt
+    (the draft prefill at head dim 32). Then a self-draft with real
+    logits at k 4 on the bf16 pool: token-equal to the engine phase's
+    streams, its acceptance printed."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import init_params
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, ServingMetrics, SpecConfig)
+
+    dcfg = draft_config(cfg, torch.bfloat16)
+    dparams = init_params(dcfg, seed=2, device=device)
+    zp = dict(params, lm_head=torch.zeros_like(params["lm_head"]))
+    zd = dict(dparams, lm_head=torch.zeros_like(dparams["lm_head"]))
+    cells = []
+    for kv in ("float32", "int8"):
+        for k in (0, 2, 4, 8):
+            spec = SpecConfig(zd, dcfg, k=k) if k else None
+            with GenerationEngine(zp, cfg, slots=16, max_len=cfg.max_seq,
+                                  kv_dtype=kv, paged_attention="fused",
+                                  queue_capacity=len(prompts) + 16,
+                                  speculative=spec, device=device) as eng:
+                eng.warmup()
+                eng.metrics = ServingMetrics()
+                reset_launches()
+                outs, wall = serve_mix(eng, prompts, max_new, eos_id=None)
+                n = read_launches()
+                m = eng.metrics
+            steps = int(m.decode_steps_total.value)
+            prefills = int(m.prefills_total.value)
+            check(all(len(o) == max_new for o in outs),
+                  f"speculative k{k} {kv}: a stream came back short")
+            paged = n["paged_decode_attention"]
+            # layers x (k+1) per verify turn, layers per plain turn
+            verify, rest = divmod(paged // cfg.layers - steps, max(k, 1))
+            check(paged % cfg.layers == 0 and rest == 0
+                  and (k == 0) == (verify == 0),
+                  f"speculative k{k} {kv}: {paged} paged launches over "
+                  f"{steps} steps")
+            packed_want = (cfg.layers + (dcfg.layers if k else 0)) * prefills
+            check(n["mha_attention_packed"] == packed_want,
+                  f"speculative k{k} {kv}: {n['mha_attention_packed']} "
+                  f"packed launches, expected {packed_want}")
+            cell = dict(k=k, kv_dtype=kv, paged_attention="fused",
+                        tokens_per_sec=len(prompts) * max_new / wall,
+                        decode_tokens_per_sec=m.decode_tokens_per_sec(),
+                        decode_steps_total=steps, verify_turns=verify,
+                        acceptance_rate=m.spec_acceptance_rate.value
+                        if k else None,
+                        paged_launches=paged,
+                        paged_launches_per_verify=cfg.layers * (k + 1)
+                        if k else None,
+                        packed_launches=n["mha_attention_packed"])
+            if k:
+                check(cell["acceptance_rate"] == 1.0,
+                      f"speculative k{k} {kv}: acceptance "
+                      f"{cell['acceptance_rate']}, expected 1.0")
+                base = next(c for c in cells
+                            if c["kv_dtype"] == kv and c["k"] == 0)
+                check(steps < base["decode_steps_total"],
+                      f"speculative k{k} {kv}: {steps} decode steps, not "
+                      f"fewer than k=0's {base['decode_steps_total']}")
+                cell["speedup_vs_k0"] = cell["tokens_per_sec"] \
+                    / base["tokens_per_sec"]
+            log("speculative: " + json.dumps(cell))
+            cells.append(cell)
+    best = max(c["speedup_vs_k0"] for c in cells if c["k"])
+    log(f"speculative: best_speedup_vs_k0 {best:.4f}")
+    with GenerationEngine(params, cfg, slots=16, max_len=cfg.max_seq,
+                          paged_attention="fused",
+                          queue_capacity=len(prompts) + 16,
+                          speculative=SpecConfig(params, cfg, k=4),
+                          device=device) as eng:
+        reset_launches()
+        outs, wall = serve_mix(eng, prompts, max_new)
+        n = read_launches()
+        m = eng.metrics
+    check(outs == plain_streams, "speculative self-draft bf16: streams "
+          "differ from the plain engine's")
+    self_draft = dict(acceptance_rate=m.spec_acceptance_rate.value,
+                      decode_steps_total=int(m.decode_steps_total.value),
+                      tokens_per_sec=len(prompts) * max_new / wall,
+                      paged_launches=n["paged_decode_attention"])
+    log("speculative: self-draft k4 bf16 pool, real logits, token-equal "
+        "to the engine phase: " + json.dumps(self_draft))
+    return dict(cells=cells, best_speedup_vs_k0=best, self_draft=self_draft)
 
 
 def train_batch(cfg, B, T, seed=0):
@@ -2096,6 +2541,10 @@ def main() -> int:
     timed_phase("kv lifecycle fp32", kv_lifecycle_phase, cfg)
     timed_phase("shared prefix", shared_prefix_phase, cfg, params)
     timed_phase("occupancy", occupancy_phase, cfg, params)
+    timed_phase("contiguous", contiguous_phase, cfg, params, prompts)
+    timed_phase("speculative fp32", speculative_fp32_phase, cfg, prompts)
+    spec = timed_phase("speculative", speculative_phase, cfg, params,
+                       prompts, engine["float32"]["streams"])
     del params
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
@@ -2150,6 +2599,9 @@ def main() -> int:
             "cases": rows[name]})
         if name == "paged_decode_attention":
             kernels[-1]["library"] = PAGED_LIBRARY
+            k4 = next(c for c in spec["cells"]
+                      if c["k"] == 4 and c["kv_dtype"] == "float32")
+            kernels[-1]["launches_speculative_k4"] = k4["paged_launches"]
         if name == "fused_adamw":
             kernels[-1].update(kernel_ms=main["kernel_ms"],
                                host_ms=main["host_ms"])

@@ -13,12 +13,15 @@ through the attention kernels' autograd Functions and applies AdamW with
 optax's semantics to the fp32 master params IN PLACE (the reference
 donates them to a jitted executable and returns new ones).
 
-Generation keeps the JAX package's paged design (vLLM's block pool): K/V
-live in a shared pool of fixed-size blocks addressed through per-slot
-block tables held on the host. There is no jit here: the prefill and
-decode functions run eagerly and update the pool IN PLACE (the reference
-donates it to a jitted executable and returns the new one); they still
-return the cache so the call shapes match.
+Generation keeps the JAX package's two cache layouts: the paged design
+(vLLM's block pool), whose K/V live in a shared pool of fixed-size blocks
+addressed through per-slot block tables held on the host, and the
+contiguous per-slot layout with its lengths on the device. Speculative
+decoding adds the draft model's contiguous cache (lengths on the host)
+and the paged verify step. There is no jit here: the prefill, decode,
+draft and verify functions run eagerly and update the cache IN PLACE (the
+reference donates it to a jitted executable and returns the new one);
+they still return the cache so the call shapes match.
 """
 from __future__ import annotations
 
@@ -428,15 +431,21 @@ def quantize_kv(x):
 
 def init_kv_cache(cfg: TransformerConfig, slots: int, max_len: int,
                   dtype: Optional[torch.dtype] = None,
-                  block_size: int = 16, num_blocks: Optional[int] = None,
+                  block_size: Optional[int] = None,
+                  num_blocks: Optional[int] = None,
                   kv_dtype: str = "float32", device=None) -> Dict[str, Any]:
-    """Allocate the paged block pool ``{"layers": [{"k", "v"}: (num_blocks,
-    block_size, heads, head_dim)]}`` in ``dtype`` (default the compute
-    dtype), plus ``{"k_scale", "v_scale"}: (num_blocks, block_size,
-    heads)`` fp32 for ``kv_dtype="int8"`` (values int8). Block 0 is the
-    reserved scratch block: dead-slot writes land there and it is never
-    given to a stream. ``num_blocks`` defaults to ``slots *
-    ceil(max_len / block_size) + 1``. Only the paged layout is ported."""
+    """Allocate the generation cache in ``dtype`` (default the compute
+    dtype). Two layouts, as in the reference:
+
+    - ``block_size=None``: the contiguous per-slot layout ``{"layers":
+      [{"k", "v"}: (slots, max_len, heads, head_dim)], "lengths": (slots,)
+      int32}``, every slot reserving ``max_len`` positions;
+    - ``block_size=B``: the paged block pool ``{"layers": [{"k", "v"}:
+      (num_blocks, B, heads, head_dim)]}``, plus ``{"k_scale",
+      "v_scale"}: (num_blocks, B, heads)`` fp32 for ``kv_dtype="int8"``
+      (values int8). Block 0 is the reserved scratch block: dead-slot
+      writes land there and it is never given to a stream.
+      ``num_blocks`` defaults to ``slots * ceil(max_len / B) + 1``."""
     if max_len > cfg.max_seq:
         raise ValueError(
             f"max_len {max_len} exceeds the model's positional table "
@@ -448,6 +457,17 @@ def init_kv_cache(cfg: TransformerConfig, slots: int, max_len: int,
     validate_kv_dtype(kv_dtype, block_size)
     dev = default_device(device)
     dt = cfg.dtype if dtype is None else dtype
+    if block_size is None:
+        if num_blocks is not None:
+            raise ValueError(
+                f"num_blocks={num_blocks} requires block_size: the block "
+                "pool is a paged-layout concept")
+        shape = (slots, max_len, cfg.heads, cfg.head_dim)
+        return {"layers": [
+            {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+            for _ in range(cfg.layers)],
+            "lengths": torch.zeros(slots, dtype=torch.int32, device=dev)}
     block_size = validate_block_size(block_size, max_len)
     if num_blocks is None:
         num_blocks = slots * -(-max_len // block_size) + 1
@@ -584,6 +604,56 @@ def make_paged_prefill(cfg: TransformerConfig, block_size: int,
     return prefill
 
 
+def _paged_attention(cfg: TransformerConfig, block_size: int,
+                     quantized: bool, paged_attention: str):
+    """The paged decode step's attention read. ``attend(qs, lc, tables,
+    poss)`` takes lists of (S, heads, D) single-token queries and their
+    (S,) int32 positions, read against one state of the layer's pool
+    ``lc``, and returns the (S, heads, D) outputs: per query one
+    :func:`paged_decode_attention` launch on the ``"fused"`` route; on the
+    ``"gather"`` route ``pool[tables]`` gathered once as (S, L, heads, D)
+    and, per query, the masked einsum attention. Every query runs at the
+    decode step's own shapes, so the verify step's k+1 positions each get
+    the bits the decode step would give them."""
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    def attend(qs, lc, tables, poss):
+        S = qs[0].shape[0]
+        L = tables.shape[1] * block_size
+        if paged_attention == "fused":
+            return [paged_decode_attention(
+                q, lc["k"], lc["v"], tables, pos, block_size=block_size,
+                scale=scale, k_scale=lc["k_scale"] if quantized else None,
+                v_scale=lc["v_scale"] if quantized else None)
+                for q, pos in zip(qs, poss)]
+        dt = qs[0].dtype
+        tl = tables.long()
+        gk = lc["k"][tl].reshape(S, L, cfg.heads, cfg.head_dim)
+        gv = lc["v"][tl].reshape(S, L, cfg.heads, cfg.head_dim)
+        if quantized:
+            gk = (gk.float() * lc["k_scale"][tl].reshape(
+                S, L, cfg.heads)[..., None]).to(dt)
+            gv = (gv.float() * lc["v_scale"][tl].reshape(
+                S, L, cfg.heads)[..., None]).to(dt)
+        return [_masked_attention(q, gk, gv, pos, scale, cfg)
+                for q, pos in zip(qs, poss)]
+
+    return attend
+
+
+def _masked_attention(q, k, v, pos, scale: float, cfg: TransformerConfig):
+    """One query per slot, q (S, heads, D), over (S, L, heads, D) K/V:
+    positions past ``pos`` (S,) masked, softmax in ``cfg.softmax_dtype``
+    — the einsum attention of the reference's decode steps (no kernel:
+    the reference has none on this read)."""
+    L = k.shape[1]
+    s = torch.einsum("shd,slhd->shl", q, k.to(q.dtype)) * scale
+    mask = torch.arange(L, device=q.device)[None, :] <= pos[:, None]
+    s = s.masked_fill(~mask[:, None, :], torch.finfo(s.dtype).min)
+    p = torch.softmax(s.to(cfg.softmax_dtype), dim=-1).to(q.dtype)
+    return torch.einsum("shl,slhd->shd", p, v.to(p.dtype))
+
+
 def make_paged_decode_logits(cfg: TransformerConfig, block_size: int,
                              kv_dtype: str = "float32",
                              paged_attention: str = "gather"):
@@ -610,29 +680,7 @@ def make_paged_decode_logits(cfg: TransformerConfig, block_size: int,
             f"paged_attention must be 'gather' or 'fused', "
             f"got {paged_attention!r}")
     quantized = kv_dtype == "int8"
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-
-    def attend(q, lc, tables, pos):
-        S = q.shape[0]
-        L = tables.shape[1] * block_size
-        if paged_attention == "fused":
-            return paged_decode_attention(
-                q, lc["k"], lc["v"], tables, pos, block_size=block_size,
-                scale=scale, k_scale=lc["k_scale"] if quantized else None,
-                v_scale=lc["v_scale"] if quantized else None)
-        tl = tables.long()
-        gk = lc["k"][tl].reshape(S, L, cfg.heads, cfg.head_dim)
-        gv = lc["v"][tl].reshape(S, L, cfg.heads, cfg.head_dim)
-        if quantized:
-            gk = (gk.float() * lc["k_scale"][tl].reshape(
-                S, L, cfg.heads)[..., None]).to(q.dtype)
-            gv = (gv.float() * lc["v_scale"][tl].reshape(
-                S, L, cfg.heads)[..., None]).to(q.dtype)
-        s = torch.einsum("shd,slhd->shl", q, gk.to(q.dtype)) * scale
-        mask = torch.arange(L, device=q.device)[None, :] <= pos[:, None]
-        s = s.masked_fill(~mask[:, None, :], torch.finfo(s.dtype).min)
-        p = torch.softmax(s.to(cfg.softmax_dtype), dim=-1).to(q.dtype)
-        return torch.einsum("shl,slhd->shd", p, gv.to(p.dtype))
+    attend = _paged_attention(cfg, block_size, quantized, paged_attention)
 
     @torch.no_grad()
     def decode_logits(params, cache, tables, lengths, tokens, cow_src,
@@ -675,7 +723,8 @@ def make_paged_decode_logits(cfg: TransformerConfig, block_size: int,
             else:
                 lc["k"][pb, off] = k.to(lc["k"].dtype)
                 lc["v"][pb, off] = v.to(lc["v"].dtype)
-            o = attend(q, lc, tables_t, pos_t).reshape(S, H).to(x.dtype)
+            o = attend([q], lc, tables_t, [pos_t])[0].reshape(S, H).to(
+                x.dtype)
             x = x + _dense(o, bp["attn_out"])
             h = _layernorm(x, bp["ln2"])
             h = F.gelu(_dense(h, bp["mlp_in"]), approximate="tanh")
@@ -707,3 +756,315 @@ def make_paged_decode_step(cfg: TransformerConfig, block_size: int,
                                     top_ks)
 
     return decode_step
+
+
+# --------------------------------------------------------------------------
+# Contiguous generation: per-slot (slots, max_len) rows, lengths on device
+# --------------------------------------------------------------------------
+
+
+def _prefill_rows(params, cache, tokens, slot: int, cfg: TransformerConfig):
+    """One padded prompt through the standard forward (``_block``, so the
+    packed kernel serves it under ``attention_impl="flash"``), its per-layer
+    K/V written into row ``slot`` of a contiguous cache from position 0.
+    Returns the final hidden states (1, T, hidden)."""
+    dev = params["tok_emb"].device
+    _, T = tokens.shape
+    x = _embed(params, tokens, torch.arange(T, device=dev)[None], cfg)
+    for bp, lc in zip(params["blocks"], cache["layers"]):
+        x, k, v = _block(bp, x, cfg, return_kv=True)
+        lc["k"][slot, :T] = k[0].to(lc["k"].dtype)
+        lc["v"][slot, :T] = v[0].to(lc["v"].dtype)
+    return x
+
+
+def make_prefill(cfg: TransformerConfig):
+    """The contiguous prefill: one padded prompt written into cache row
+    ``slot``, ``lengths[slot]`` set, and token 0 sampled.
+
+    ``prefill(params, cache, tokens, slot, length, key, temperature, top_k,
+    step=0) -> (cache, token0)`` with tokens (1, T_bucket) integer and
+    ``length`` the real prompt length; ``step`` is the sample index the
+    draw folds into the key (0 for a fresh stream, as the reference's
+    draws). The cache is updated in place."""
+    _require_causal(cfg)
+
+    @torch.no_grad()
+    def prefill(params, cache, tokens, slot, length, key, temperature,
+                top_k, step=0):
+        dev = params["tok_emb"].device
+        tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
+        x = _prefill_rows(params, cache, tokens, int(slot), cfg)
+        x = _layernorm(x, params["ln_f"])
+        last = x[0, int(length) - 1]
+        logits = (last @ params["lm_head"].to(last.dtype)).float()
+        token0 = sample_token(logits, key, temperature, top_k, step)
+        cache["lengths"][int(slot)] = int(length)
+        return cache, token0
+
+    return prefill
+
+
+def _contiguous_logits(params, layers, tokens, pos, cfg: TransformerConfig):
+    """One token per slot through contiguous (slots, L, heads, D) cache
+    layers: per layer the new K/V written at ``pos`` (S,) in place, then
+    the masked einsum attention over the slot's own row. Returns (S,
+    vocab) fp32 logits."""
+    S = tokens.shape[0]
+    H = cfg.hidden
+    rows = torch.arange(S, device=tokens.device)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    pos_l = pos.long()
+    x = _embed(params, tokens, pos_l, cfg)
+    for bp, lc in zip(params["blocks"], layers):
+        h = _layernorm(x, bp["ln1"])
+        q, k, v = _dense(h, bp["qkv"]).split(H, dim=-1)
+        q = q.reshape(S, cfg.heads, cfg.head_dim)
+        lc["k"][rows, pos_l] = k.reshape(S, cfg.heads, cfg.head_dim).to(
+            lc["k"].dtype)
+        lc["v"][rows, pos_l] = v.reshape(S, cfg.heads, cfg.head_dim).to(
+            lc["v"].dtype)
+        o = _masked_attention(q, lc["k"], lc["v"], pos, scale, cfg)
+        x = x + _dense(o.reshape(S, H), bp["attn_out"])
+        h = _layernorm(x, bp["ln2"])
+        h = F.gelu(_dense(h, bp["mlp_in"]), approximate="tanh")
+        x = x + _dense(h, bp["mlp_out"])
+    x = _layernorm(x, params["ln_f"])
+    return (x @ params["lm_head"].to(x.dtype)).float()
+
+
+def make_decode_step(cfg: TransformerConfig):
+    """THE contiguous decode step: one token for every slot, live or dead.
+
+    ``decode_step(params, cache, tokens, live, keys, steps, temperatures,
+    top_ks) -> (cache, next_tokens)``, every argument after ``cache`` a
+    (slots,)-leading host array (``keys`` (slots, 2) uint32). The write
+    goes at ``pos = clip(lengths, 0, max_len - 1)`` on the device, the
+    query attends positions 0..pos of its own row, and ``lengths`` grows
+    by one where ``live`` (dead slots compute masked garbage and keep
+    their lengths)."""
+    _require_causal(cfg)
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens, live, keys, steps, temperatures,
+                    top_ks):
+        dev = params["tok_emb"].device
+        lengths = cache["lengths"]
+        L = cache["layers"][0]["k"].shape[1]
+        pos = lengths.clamp(0, L - 1)
+        logits = _contiguous_logits(
+            params, cache["layers"],
+            torch.as_tensor(np.asarray(tokens, np.int64), device=dev), pos,
+            cfg)
+        lengths += torch.as_tensor(np.asarray(live, bool),
+                                   device=dev).to(lengths.dtype)
+        return cache, sample_tokens(logits, keys, steps, temperatures,
+                                    top_ks)
+
+    return decode_step
+
+
+# --------------------------------------------------------------------------
+# Speculative decoding: the draft's contiguous cache and the paged verify
+# --------------------------------------------------------------------------
+
+
+def init_draft_kv_cache(cfg: TransformerConfig, slots: int, max_len: int,
+                        dtype: Optional[torch.dtype] = None,
+                        device=None) -> Dict[str, Any]:
+    """The draft model's contiguous cache ``{"layers": [{"k", "v"}:
+    (slots, max_len, heads, head_dim)]}`` without device lengths: the
+    scheduler passes each call's lengths from the host, so rewinding a
+    rejected tail is passing a smaller length."""
+    if max_len > cfg.max_seq:
+        raise ValueError(
+            f"max_len {max_len} exceeds the draft model's positional "
+            f"table max_seq={cfg.max_seq}")
+    dev = default_device(device)
+    dt = cfg.dtype if dtype is None else dtype
+    shape = (slots, max_len, cfg.heads, cfg.head_dim)
+    return {"layers": [{"k": torch.zeros(shape, dtype=dt, device=dev),
+                        "v": torch.zeros(shape, dtype=dt, device=dev)}
+                       for _ in range(cfg.layers)]}
+
+
+def _require_causal_draft(cfg: TransformerConfig):
+    if not cfg.causal:
+        raise ValueError("speculative drafting needs a causal LM: set "
+                         "TransformerConfig(causal=True)")
+
+
+def make_draft_prefill(cfg: TransformerConfig):
+    """``draft_prefill(params, cache, tokens, slot) -> cache``: one padded
+    prompt through the draft's standard forward, its K/V written into row
+    ``slot``. No sampling: the first proposal comes from
+    :func:`make_draft_step` fed the target's last token."""
+    _require_causal_draft(cfg)
+
+    @torch.no_grad()
+    def draft_prefill(params, cache, tokens, slot):
+        dev = params["tok_emb"].device
+        tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
+        _prefill_rows(params, cache, tokens, int(slot), cfg)
+        return cache
+
+    return draft_prefill
+
+
+def make_draft_step(cfg: TransformerConfig):
+    """THE draft step: one proposed token per slot.
+
+    ``draft_step(params, cache, tokens, lengths, keys, steps, temperatures,
+    top_ks) -> (cache, proposals)`` — the contiguous decode math with
+    ``lengths`` from the host (no ``live`` mask: dead or draft-cold slots
+    compute garbage the scheduler ignores), ``pos`` clipped to
+    ``min(max_len, max_seq) - 1``. ``steps`` carries the TARGET's token
+    index of each proposal, so the draw folds the key and step the verify
+    folds."""
+    _require_causal_draft(cfg)
+
+    @torch.no_grad()
+    def draft_step(params, cache, tokens, lengths, keys, steps,
+                   temperatures, top_ks):
+        dev = params["tok_emb"].device
+        L = cache["layers"][0]["k"].shape[1]
+        pos = np.clip(np.asarray(lengths, np.int64), 0,
+                      min(L, cfg.max_seq) - 1)
+        logits = _contiguous_logits(
+            params, cache["layers"],
+            torch.as_tensor(np.asarray(tokens, np.int64), device=dev),
+            torch.as_tensor(pos.astype(np.int32), device=dev), cfg)
+        return cache, sample_tokens(logits, keys, steps, temperatures,
+                                    top_ks)
+
+    return draft_step
+
+
+def _rows_dense(x, p):
+    """:func:`_dense` of each position's (S, in) rows of position-major x
+    (T, S, in) on its own: every matrix product at the decode step's
+    shape, so each row comes out with the decode step's bits whatever T
+    (a GEMM library picks its kernel, and with it its summation order,
+    from the shape)."""
+    w = p["kernel"].to(x.dtype)
+    return torch.stack([xj @ w for xj in x]) + p["bias"].to(x.dtype)
+
+
+def _rows_layernorm(x, p):
+    """:func:`_layernorm` of each position's (S, hidden) rows of
+    position-major x (T, S, hidden) on its own, so each row comes out
+    with the decode step's bits (a row reduction may split a row by the
+    row count)."""
+    return torch.stack([_layernorm(xj, p) for xj in x])
+
+
+def make_verify_step(cfg: TransformerConfig, block_size: int, k: int,
+                     kv_dtype: str = "float32",
+                     paged_attention: str = "gather"):
+    """THE speculative verify step: k+1 positions per slot scored in one
+    call, the accepted proposal prefix counted on the device.
+
+    ``verify_step(params, cache, tables, lengths, tokens, keys, steps,
+    temperatures, top_ks, cow_src, cow_dst) -> (cache, samples,
+    accepted)``: :func:`make_paged_decode_step` from one query per slot to
+    k+1. ``tokens`` (slots, k+1): column 0 the slot's last committed
+    token, columns 1..k the draft's proposals. Per layer the copy-on-write
+    pair goes first, then all k+1 K/V writes at positions length..length+k
+    (a write past ``Lcap = min(L, max_seq)`` goes to scratch block 0,
+    never clamped: a clamped write would land on a live entry; a write
+    past the mapped table entries lands in scratch through the table's
+    zeros), then one single-query attention per position, at
+    ``min(length + j, Lcap - 1)``: on the fused route one
+    :func:`paged_decode_attention` launch each, on the gather route the
+    decode step's own gather and einsum. ``samples[:, j]`` is the target's
+    sample for token index ``steps + j``; ``accepted`` (slots,) counts the
+    leading ``tokens[:, j+1] == samples[:, j]``.
+
+    Each position runs at the decode step's shapes (position-major rows,
+    the matrix products one position at a time, :func:`_rows_dense`), so
+    ``samples[:, j]`` is bit for bit what the decode step would sample
+    there: a speculative stream equals the plain one."""
+    _require_causal(cfg)
+    if k < 1:
+        raise ValueError(
+            f"verify needs k >= 1 proposed tokens per turn, got {k} — "
+            "k == 0 IS the plain decode_step; the engine falls back to "
+            "it rather than minting a degenerate verify executable")
+    validate_kv_dtype(kv_dtype, block_size)
+    if paged_attention not in ("gather", "fused"):
+        raise ValueError(
+            f"paged_attention must be 'gather' or 'fused', "
+            f"got {paged_attention!r}")
+    T = k + 1
+    quantized = kv_dtype == "int8"
+    attend = _paged_attention(cfg, block_size, quantized, paged_attention)
+
+    @torch.no_grad()
+    def verify_step(params, cache, tables, lengths, tokens, keys, steps,
+                    temperatures, top_ks, cow_src, cow_dst):
+        dev = params["tok_emb"].device
+        tables_np = np.asarray(tables, np.int32)
+        S, nb = tables_np.shape
+        L = nb * block_size
+        Lcap = min(L, cfg.max_seq)
+        pos = np.clip(np.asarray(lengths, np.int64), 0, Lcap - 1)
+        # (T, S) position-major: write positions, their blocks, and the
+        # read (attention and embedding) positions
+        posm = pos[None, :] + np.arange(T)[:, None]
+        blk = tables_np[np.arange(S)[None, :],
+                        np.minimum(posm, L - 1) // block_size]
+        pb = torch.as_tensor(np.where(posm < Lcap, blk, 0), device=dev)
+        off = torch.as_tensor(posm % block_size, device=dev)
+        read = torch.as_tensor(np.minimum(posm, Lcap - 1).astype(np.int32),
+                               device=dev)
+        cow_src = np.asarray(cow_src, np.int64)
+        cow_dst = np.asarray(cow_dst, np.int64)
+        cow = np.flatnonzero(cow_src != cow_dst)
+        tables_t = torch.as_tensor(tables_np, device=dev)
+        tok = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
+        x = _embed(params, tok.T, read.long(), cfg)        # (T, S, hidden)
+        H = cfg.hidden
+        hd = (cfg.heads, cfg.head_dim)
+        for bp, lc in zip(params["blocks"], cache["layers"]):
+            if cow.size:
+                src = torch.as_tensor(cow_src[cow], device=dev)
+                dst = torch.as_tensor(cow_dst[cow], device=dev)
+                for name in lc:
+                    lc[name][dst] = lc[name][src]
+            h = _rows_layernorm(x, bp["ln1"])
+            q, kx, vx = _rows_dense(h, bp["qkv"]).split(H, dim=-1)
+            kx = kx.reshape(T, S, *hd)
+            vx = vx.reshape(T, S, *hd)
+            if quantized:
+                kq, ks = quantize_kv(kx)
+                vq, vs = quantize_kv(vx)
+                lc["k"][pb, off] = kq
+                lc["v"][pb, off] = vq
+                lc["k_scale"][pb, off] = ks
+                lc["v_scale"][pb, off] = vs
+            else:
+                lc["k"][pb, off] = kx.to(lc["k"].dtype)
+                lc["v"][pb, off] = vx.to(lc["v"].dtype)
+            qs = [q[j].reshape(S, *hd).contiguous() for j in range(T)]
+            o = torch.stack(attend(qs, lc, tables_t, list(read)))
+            x = x + _rows_dense(o.reshape(T, S, H).to(x.dtype),
+                                bp["attn_out"])
+            h = _rows_layernorm(x, bp["ln2"])
+            h = F.gelu(_rows_dense(h, bp["mlp_in"]), approximate="tanh")
+            x = x + _rows_dense(h, bp["mlp_out"])
+        x = _rows_layernorm(x, params["ln_f"])
+        w = params["lm_head"].to(x.dtype)
+        logits = torch.stack([xj @ w for xj in x]).float()   # (T, S, V)
+        keys = np.asarray(keys, np.uint32).reshape(S, 2)
+        samples = sample_tokens(
+            logits.reshape(T * S, -1), np.tile(keys, (T, 1)),
+            (np.asarray(steps, np.int64)[None, :]
+             + np.arange(T)[:, None]).reshape(-1),
+            np.tile(np.asarray(temperatures, np.float32).reshape(S), T),
+            np.tile(np.asarray(top_ks, np.int64).reshape(S), T),
+        ).reshape(T, S).T                                    # (S, T)
+        matches = (tok[:, 1:] == samples[:, :k]).long()
+        accepted = torch.cumprod(matches, dim=1).sum(dim=1)
+        return cache, samples, accepted
+
+    return verify_step

@@ -17,8 +17,11 @@
   shared KV block pool (counterpart: ``paged_decode_attention``), the
   decode attention of the ``"fused"`` route.
 
-The kernels take every head dim from 1 to 256 (:func:`kernel_head_dim_ok`),
+The kernels take every head dim from 1 up (:func:`kernel_head_dim_ok`),
 forward and backward, fp32 and bf16; bf16 at 64 runs on the tensor cores.
+Heads wider than 256 (1024 for paged decode) are cut into chunks of that
+width on the card, one CTA per chunk of the output, so a CTA's shared
+memory is bounded whatever the width.
 
 A wrapper takes the plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises. Each wrapper counts its kernel
@@ -53,47 +56,31 @@ from deeplearning4j_tpu_torch.ops._launch import (
 _NEG_INF = -1e30
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the widest head the kernels take: their FMA templates are built for
-# padded widths 16, 32, 64, 128 and 256 and stage tiles at that width in
-# shared memory (a shared-memory limit, not a semantic one)
-MAX_KERNEL_HEAD_DIM = 256
 # shared memory one block may take on the H100 (227 KB)
 MAX_BLOCK_SMEM_BYTES = 232448
-
-
-def backward_smem_bytes(d: int) -> int:
-    """Shared memory of the dk/dv pass (the kernels' largest) at head dim
-    ``d`` padded to the next power of two, with the widest instance's
-    tiles (16 keys, 64 queries, fp32 staging, +1 pads): the layout of
-    ``DkvSmem`` in ``csrc/attention_bwd.cu``. 173312 bytes at 256; 337152
-    at 512, past :data:`MAX_BLOCK_SMEM_BYTES`."""
-    width = 16
-    while width < d:
-        width *= 2
-    rows, queries = 16, 64
-    return 4 * (2 * rows * (width + 1) + 2 * queries * (width + 1)
-                + 2 * rows * (queries + 1) + 2 * queries)
+# the chunk width of the attention kernels above their widest instance
+# (``csrc/attention_fwd.cuh``, ``csrc/attention_bwd.cu``) and of paged
+# decode (``csrc/paged_decode.cu``)
+ATTENTION_CHUNK = 256
+PAGED_CHUNK = 1024
 
 
 def kernel_head_dim_ok(d: int) -> bool:
     """True for the head dims the attention kernels run, forward and
-    backward, fp32 and bf16: every ``1 <= d <= 256``. The JAX package's
-    packed route asserts only that the packed width divides by the heads,
-    so this takes every head dim it takes up to the limit."""
-    return 1 <= d <= MAX_KERNEL_HEAD_DIM
+    backward, fp32 and bf16: every ``d >= 1``, as the JAX package's packed
+    route takes any head dim its packed width divides into."""
+    return d >= 1
 
 
-def _check_kernel_operands(name: str, d: int, *tensors,
-                           limit: int = MAX_KERNEL_HEAD_DIM):
-    if not 1 <= d <= limit:
-        need = ""
-        if d > limit and limit == MAX_KERNEL_HEAD_DIM:
-            need = (f": a {d}-wide head would need "
-                    f"{backward_smem_bytes(d)} bytes of shared memory in "
-                    f"the dk/dv pass, over the {MAX_BLOCK_SMEM_BYTES} a "
-                    "block may take")
-        raise ValueError(f"{name} kernel takes head_dim from 1 to {limit}, "
-                         f"got {d}{need}")
+def _scale(name: str, d: int, scale: Optional[float]) -> float:
+    """The softmax scale, ``1/sqrt(d)`` unless given, after refusing a
+    head dim below 1 with the bound named (never a ZeroDivisionError)."""
+    if d < 1:
+        raise ValueError(f"{name} kernel takes head_dim >= 1, got {d}")
+    return scale if scale is not None else 1.0 / (d ** 0.5)
+
+
+def _check_kernel_operands(name: str, *tensors):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous operands")
 
@@ -134,7 +121,7 @@ def _attention_reference(q, k, v, causal: bool, scale: Optional[float]):
     """Plain attention on (..., T, D), differentiable to any order: fp32
     scores and softmax, output in q's dtype (``_attention_reference``)."""
     d = q.shape[-1]
-    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    sc = _scale("attention", d, scale)
     s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * sc
     if causal:
         t = q.shape[-2]
@@ -249,7 +236,7 @@ def mha_packed_forward_reference(q, k, v, heads: int, causal: bool = False,
     ``p = exp((s - m).to(p_dtype))``, fp32 row sum, P.V with p in q's
     dtype. Returns ``(o (B, T, H*D) in q's dtype, lse (B, H, T) fp32)``."""
     d = q.shape[-1] // heads
-    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    sc = _scale("mha_packed_fwd", d, scale)
     return _forward_plain(q, k, v, heads, causal, sc, p_dtype, False)
 
 
@@ -265,7 +252,7 @@ def mha_packed_backward_reference(q, k, v, do, lse, heads: int,
     delta)`` for bf16 p), ``dq = (ds k) scale``, ``dk = ds^T qs``.
     Returns ``(dq, dk, dv)`` in q's dtype."""
     d = q.shape[-1] // heads
-    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    sc = _scale("mha_packed_bwd", d, scale)
     return _backward_plain(q, k, v, do, lse, None, heads, causal, sc,
                            p_dtype)
 
@@ -296,11 +283,11 @@ def mha_packed_forward(q, k, v, heads: int, causal: bool = False,
     _check_packed(q, k, v, heads, p_dtype)
     b, t, hd = q.shape
     d = hd // heads
-    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    sc = _scale("mha_packed_fwd", d, scale)
     if _route(q, k, v) == "cpu":
         return mha_packed_forward_reference(q, k, v, heads, causal, sc,
                                             p_dtype)
-    _check_kernel_operands("mha_packed_fwd", d, q, k, v)
+    _check_kernel_operands("mha_packed_fwd", q, k, v)
     p = ctypes.c_void_p
     i = ctypes.c_int
     o = torch.empty_like(q)
@@ -331,11 +318,11 @@ def mha_packed_backward(q, k, v, do, lse, heads: int, causal: bool = False,
     if lse.shape != (b, heads, t) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be ({b}, {heads}, {t}) float32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    sc = _scale("mha_packed_bwd", d, scale)
     if _route(q, k, v, do, lse) == "cpu":
         return mha_packed_backward_reference(q, k, v, do, lse, heads, causal,
                                              sc, p_dtype)
-    _check_kernel_operands("mha_packed_bwd", d, q, k, v, do, lse)
+    _check_kernel_operands("mha_packed_bwd", q, k, v, do, lse)
     p = ctypes.c_void_p
     i = ctypes.c_int
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -465,7 +452,7 @@ def _streamed_setup(q, k, v, block_q, block_k, scale):
     if t % bq or t % bk:
         raise ValueError(f"flash_attention: T={t} is not a multiple of the "
                          f"blocks ({bq}, {bk})")
-    return scale if scale is not None else 1.0 / (d ** 0.5)
+    return _scale("flash_attention", d, scale)
 
 
 def _check_vec(name, x, bh, t):
@@ -480,7 +467,7 @@ def flash_forward_reference(q, k, v, causal: bool = False,
     packed forward's arithmetic with one head and fp32 p, plus the floor
     ``l = max(l, 1e-30)`` of ``_flash_kernel``. Returns ``(o, lse (BH, 1,
     T) fp32)``."""
-    sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    sc = _scale("flash_fwd", q.shape[-1], scale)
     return _forward_plain(q, k, v, 1, causal, sc, torch.float32, True)
 
 
@@ -502,7 +489,7 @@ def flash_forward(q, k, v, causal: bool = False, block_q=None, block_k=None,
     if _route(q, k, v) == "cpu":
         o, lse = flash_forward_reference(q, k, v, causal, sc)
         return o.reshape(shape), lse
-    _check_kernel_operands("flash_fwd", d, q, k, v)
+    _check_kernel_operands("flash_fwd", q, k, v)
     p = ctypes.c_void_p
     i = ctypes.c_int
     o = torch.empty_like(q)
@@ -524,7 +511,7 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = False,
     """Plain version of the streamed dq pass on (BH, T, D), lse and delta
     (BH, 1, T) in the global softmax frame: ``p = exp(s - lse)`` in fp32,
     ``ds = p (dp - delta)`` in q's dtype, ``dq = scale (ds k)``."""
-    sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    sc = _scale("flash_bwd_dq", q.shape[-1], scale)
     return _backward_plain(q, k, v, do, lse, delta, 1, causal, sc,
                            torch.float32, ("dq",))[0]
 
@@ -533,7 +520,7 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = False,
                             scale: Optional[float] = None):
     """Plain version of the streamed dk/dv pass: ``dv = p^T dO`` with p in
     dO's dtype, ``dk = ds^T (scale q)``. Returns ``(dk, dv)``."""
-    sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    sc = _scale("flash_bwd_dkv", q.shape[-1], scale)
     return _backward_plain(q, k, v, do, lse, delta, 1, causal, sc,
                            torch.float32, ("dk", "dv"))
 
@@ -553,10 +540,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     pair. CPU tensors take :func:`flash_bwd_dq_reference`."""
     _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
     bh, t, d = q.shape
-    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    sc = _scale("flash_bwd_dq", d, scale)
     if _route(q, k, v, do, lse, delta) == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, sc)
-    _check_kernel_operands("flash_bwd_dq", d, q, k, v, do, lse, delta)
+    _check_kernel_operands("flash_bwd_dq", q, k, v, do, lse, delta)
     p = ctypes.c_void_p
     i = ctypes.c_int
     dq = torch.empty_like(q)
@@ -580,10 +567,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     take :func:`flash_bwd_dkv_reference`."""
     _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
     bh, t, d = q.shape
-    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    sc = _scale("flash_bwd_dkv", d, scale)
     if _route(q, k, v, do, lse, delta) == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, sc)
-    _check_kernel_operands("flash_bwd_dkv", d, q, k, v, do, lse, delta)
+    _check_kernel_operands("flash_bwd_dkv", q, k, v, do, lse, delta)
     p = ctypes.c_void_p
     i = ctypes.c_int
     dk, dv = torch.empty_like(q), torch.empty_like(q)
@@ -658,7 +645,7 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, pos, *,
     S, H, D = q.shape
     NB = k_pool.shape[0]
     L = tables.shape[1] * block_size
-    sc = scale if scale is not None else 1.0 / (D ** 0.5)
+    sc = _scale("paged_decode", D, scale)
     tl = tables.long()
     tl = torch.where(tl < 0, tl + NB, tl).clamp(0, NB - 1)
     gk = k_pool[tl].reshape(S, L, H, D).float()
@@ -675,9 +662,6 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, pos, *,
 
 # positions one CTA of the paged kernel takes (whole blocks, at least one)
 PAGED_SPLIT_POSITIONS = 64
-# the paged kernel's widest head (its widest instance holds a 1024-dim row
-# in registers across a warp)
-PAGED_MAX_HEAD_DIM = 1024
 # the kernel stages a split's block-table entries in shared memory
 _PAGED_MAX_SPLIT_BLOCKS = 64
 
@@ -708,10 +692,11 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     dequantize in the same pass. Returns (S, H, D) in q's dtype. Dead
     slots' rows name scratch block 0 and give a finite row. CPU tensors
     take :func:`paged_decode_attention_reference`. On the card the
-    positions split as :func:`paged_decode_plan` says (D up to 1024, any
-    block size); one call is one count of ``launches``, whatever the
-    CUDA launches inside (the split pass, then a merge where there is
-    more than one split)."""
+    positions split as :func:`paged_decode_plan` says (any D, any block
+    size; above :data:`PAGED_CHUNK` dims one CTA per chunk of the
+    output); one call is one count of ``launches``, whatever the CUDA
+    launches inside (the split pass, then a merge where there is more
+    than one split)."""
     S, H, D = q.shape
     NB, B = k_pool.shape[:2]
     if B != block_size:
@@ -737,7 +722,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     if tables.dim() != 2 or tables.shape[0] != S or pos.shape != (S,):
         raise ValueError(f"tables must be ({S}, nbmax) and pos ({S},), got "
                          f"{tuple(tables.shape)}, {tuple(pos.shape)}")
-    sc = scale if scale is not None else 1.0 / (D ** 0.5)
+    sc = _scale("paged_decode", D, scale)
     if _route(q, k_pool, v_pool, tables, pos, k_scale, v_scale) == "cpu":
         return paged_decode_attention_reference(
             q, k_pool, v_pool, tables, pos, block_size=block_size, scale=sc,
@@ -746,8 +731,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
         raise TypeError("tables and pos must be int32")
     operands = [q, k_pool, v_pool, tables, pos] + (
         [k_scale, v_scale] if quantized else [])
-    _check_kernel_operands("paged_decode", D, *operands,
-                           limit=PAGED_MAX_HEAD_DIM)
+    _check_kernel_operands("paged_decode", *operands)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

@@ -37,7 +37,10 @@
 // for bit from run to run. A table of one split skips the merge and writes
 // o itself. Any 1 <= D <= 1024 runs, built for the padded widths 16, 32,
 // 64, 128 and 1024 (a row of more than 32 16-byte slices gives each lane
-// several); dims past D load as zeros. Blocks past pos are never read;
+// several); dims past D load as zeros. Wider heads run on
+// `paged_decode_wide_kernel`, 1024-dim chunks of the output a CTA, the
+// scores summed over the whole row in every chunk's CTA alike (the score
+// work is ceil(D / 1024) x). Blocks past pos are never read;
 // dead slots (all-zero table row, pos 0) read position 0 of scratch block
 // 0 and emit a finite row; pos < 0 gives zeros.
 #include "dtype.cuh"
@@ -49,7 +52,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 4;            // rows of K and V in flight per lane
 constexpr int kMaxSplitBlocks = 64;   // table entries of one split
-constexpr int kMaxHeadDim = 1024;     // the widest instance
+constexpr int kMaxHeadDim = 1024;     // the widest instance, and
+                                      // the wide kernel's chunk
 
 // the storage word of one pool element, for the scalar (unaligned) path
 template <typename T> struct Bits;
@@ -331,6 +335,117 @@ paged_decode_split_kernel(const PagedArgs<TQ, TKV> a) {
   }
 }
 
+// Heads wider than kMaxHeadDim: grid (split, head * n_chunks + chunk,
+// slot); the CTA owns the output dims chunk * 1024 .. + 1023. Each warp
+// takes the split's positions round robin; for a position all 32 lanes
+// take its full D-long score (lane l the dims l, l + 32, ..., then a
+// butterfly sum), so every chunk's CTA reaches the same scores, m and l
+// bit for bit; then each lane's 32 dims of its chunk take p v. The warps
+// merge through shared memory in order, as above, and chunk 0 writes the
+// split's m and l. Element loads, not 16-byte vectors: no main path runs
+// these widths.
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_wide_kernel(const PagedArgs<TQ, TKV> a, int n_chunks) {
+  constexpr int DP = kMaxHeadDim;
+  constexpr int kDims = DP / 32;   // dims of the chunk a lane owns
+  __shared__ int tbl[kMaxSplitBlocks];
+  __shared__ float red_m[kWarps];
+  __shared__ float red_l[kWarps];
+  __shared__ float red_acc[kWarps][DP];
+
+  const int split = blockIdx.x;
+  const int h = blockIdx.y / n_chunks;
+  const int own0 = (blockIdx.y % n_chunks) * DP;
+  const int s = blockIdx.z;
+  const int B = a.block_size;
+  const int D = a.head_dim;
+  const bool direct = a.n_splits == 1;
+  const int p = a.pos[s];
+  const int blk0 = split * a.blocks_per_split;
+  const int first = blk0 * B;
+  if (!direct && (p < 0 || first > p)) return;
+  const int n_blk = min(a.blocks_per_split, a.nbmax - blk0);
+  const int rows = p < 0 ? 0 : min(p - first + 1, n_blk * B);
+  const int need = rows > 0 ? (rows - 1) / B + 1 : 0;
+  for (int j = threadIdx.x; j < need; j += kThreads) {
+    int phys = a.tables[static_cast<long long>(s) * a.nbmax + blk0 + j];
+    if (phys < 0) phys += a.num_blocks;
+    tbl[j] = min(max(phys, 0), a.num_blocks - 1);
+  }
+  __syncthreads();   // tbl
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const TQ* qh = a.q + (static_cast<long long>(s) * a.heads + h) * D;
+  const bool quant = a.k_scale != nullptr;
+  float m = kNegInf;
+  float l = 0.f;
+  float acc[kDims];
+#pragma unroll
+  for (int e = 0; e < kDims; ++e) acc[e] = 0.f;
+  for (int r = warp; r < rows; r += kWarps) {
+    const int jb = r / B;
+    const long long row =
+        (static_cast<long long>(tbl[jb]) * B + (r - jb * B)) * a.heads + h;
+    const TKV* kr = a.k_pool + row * D;
+    const TKV* vr = a.v_pool + row * D;
+    float dot = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      dot = fmaf(to_f(qh[d]) * a.scale, to_f(kr[d]), dot);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    const float sc = quant ? dot * __ldg(a.k_scale + row) : dot;
+    const float mx = fmaxf(m, sc);
+    const float alpha = expf(m - mx);
+    const float pu = expf(sc - mx);
+    l = l * alpha + pu;
+    const float pv = quant ? pu * __ldg(a.v_scale + row) : pu;
+#pragma unroll
+    for (int e = 0; e < kDims; ++e) {
+      const int d = own0 + lane + 32 * e;
+      acc[e] = fmaf(pv, d < D ? to_f(vr[d]) : 0.f, acc[e] * alpha);
+    }
+    m = mx;
+  }
+  if (lane == 0) {
+    red_m[warp] = m;
+    red_l[warp] = l;
+  }
+#pragma unroll
+  for (int e = 0; e < kDims; ++e) red_acc[warp][lane + 32 * e] = acc[e];
+  __syncthreads();
+  float mm = red_m[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, red_m[w]);
+  float ew[kWarps];
+  float ll = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    ew[w] = expf(red_m[w] - mm);
+    ll += red_l[w] * ew[w];
+  }
+  const long long sh = static_cast<long long>(s) * a.heads + h;
+  const long long part = sh * a.n_splits + split;
+  for (int d = threadIdx.x; d < DP && own0 + d < D; d += kThreads) {
+    float aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) aa += red_acc[w][d] * ew[w];
+    if (direct) {
+      a.o[sh * D + own0 + d] = from_f<TQ>(aa / fmaxf(ll, 1e-30f));
+    } else {
+      a.part_acc[part * D + own0 + d] = aa;
+    }
+  }
+  if (!direct && threadIdx.x == 0 && own0 == 0) {
+    a.part_m[part] = mm;
+    a.part_l[part] = ll;
+  }
+}
+
 // One CTA per (head, slot), threads over the output dims: the slot's live
 // splits (those starting at or before pos) merged in split-index order.
 template <typename TQ>
@@ -375,9 +490,18 @@ int launch(const PagedArgs<TQ, TKV>& a, int slots, cudaStream_t stream) {
   } else if (a.head_dim <= 128) {
     paged_decode_split_kernel<TQ, TKV, 128><<<grid, kThreads, 0, stream>>>(
         a);
-  } else {   // wider heads: each lane holds several 16-byte slices of a row
+  } else if (a.head_dim <= kMaxHeadDim) {
+    // each lane holds several 16-byte slices of a row
     paged_decode_split_kernel<TQ, TKV, kMaxHeadDim>
         <<<grid, kThreads, 0, stream>>>(a);
+  } else {
+    const int n_chunks = (a.head_dim + kMaxHeadDim - 1) / kMaxHeadDim;
+    if (static_cast<long long>(a.heads) * n_chunks > 65535) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    paged_decode_wide_kernel<TQ, TKV>
+        <<<dim3(a.n_splits, a.heads * n_chunks, slots), kThreads, 0,
+           stream>>>(a, n_chunks);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_splits == 1) return static_cast<int>(err);
@@ -454,7 +578,7 @@ extern "C" {
 // nbmax) int32; pos: (slots,) int32. All contiguous. The positions are cut
 // into n_splits splits of blocks_per_split blocks (at most 64 blocks);
 // workspace: fp32 scratch of slots * heads * n_splits * (head_dim + 2)
-// elements when n_splits > 1 (else unused). head_dim 1..1024. Returns a
+// elements when n_splits > 1 (else unused). Any head_dim >= 1. Returns a
 // cudaError_t.
 int paged_decode(const void* q, const void* k_pool, const void* v_pool,
                  const void* k_scale, const void* v_scale, const void* tables,
@@ -462,9 +586,7 @@ int paged_decode(const void* q, const void* k_pool, const void* v_pool,
                  int heads, int head_dim, int num_blocks, int block_size,
                  int nbmax, int blocks_per_split, int n_splits, float scale,
                  int q_dtype, int kv_dtype, void* stream) {
-  if (slots < 1 || heads < 1 || head_dim < 1 ||
-      head_dim > dl4jt::kMaxHeadDim ||
-      num_blocks < 1 || block_size < 1 || blocks_per_split < 1 ||
+  if (slots < 1 || heads < 1 || head_dim < 1 || num_blocks < 1 || block_size < 1 || blocks_per_split < 1 ||
       blocks_per_split > dl4jt::kMaxSplitBlocks || n_splits < 1 ||
       heads > 65535 || slots > 65535 ||
       static_cast<long long>(n_splits) * blocks_per_split <

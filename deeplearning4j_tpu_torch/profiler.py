@@ -5,8 +5,16 @@
 ``mfu`` takes the device's peak explicitly: the reference's default is a
 TPU's, and no peak is assumed here. For an NVIDIA H100 SXM the data
 sheet's dense bf16 tensor-core rate is 989e12 FLOP/s at 700 W.
+
+``cuda_launches`` reads what a call launched on the card from the
+profiler's own record of each kernel: its name, grid, block and shared
+memory per block (static and dynamic, as the device reported them).
 """
 from __future__ import annotations
+
+import json
+import os
+import tempfile
 
 MFU_BASIS = "analytic_model_flops: 6*N_nonemb + 12*L*H*T per token"
 
@@ -40,3 +48,28 @@ def non_embedding_params(params, cfg) -> int:
 
     return count(params) - cfg.vocab_size * cfg.hidden \
         - cfg.max_seq * cfg.hidden
+
+
+def cuda_launches(fn) -> list:
+    """Run ``fn()`` once under ``torch.profiler`` and return the CUDA
+    kernels it launched, in launch order: ``[{"name", "grid", "block",
+    "shared_memory"}]``, ``shared_memory`` the bytes one block holds as
+    the device tracer (CUPTI) recorded them. Needs a card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    return [{"name": e["name"], "grid": e["args"]["grid"],
+             "block": e["args"]["block"],
+             "shared_memory": e["args"]["shared memory"]} for e in kernels]

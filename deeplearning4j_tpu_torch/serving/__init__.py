@@ -1,6 +1,7 @@
 """Serving runtime of the port: the continuous-batching generation engine
-over the paged KV cache, with its admission control, paging and metrics
-(counterpart: ``deeplearning4j_tpu/serving``)."""
+over the paged or contiguous KV cache, with speculative decoding, its
+admission control, paging and metrics (counterpart:
+``deeplearning4j_tpu/serving``)."""
 from deeplearning4j_tpu_torch.serving.admission import (  # noqa: F401
     AdmissionController, DeadlineExceededError, HostDrainingError,
     KVBlocksExhaustedError, PreemptedError, QueueFullError, RejectedError,
@@ -8,7 +9,7 @@ from deeplearning4j_tpu_torch.serving.admission import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.serving.engine import bucket_ladder  # noqa: F401
 from deeplearning4j_tpu_torch.serving.generation import (  # noqa: F401
-    GenerationEngine, GenerationHandle, prefill_buckets,
+    GenerationEngine, GenerationHandle, SpecConfig, prefill_buckets,
 )
 from deeplearning4j_tpu_torch.serving.metrics import (  # noqa: F401
     REJECTION_REASONS, ServingMetrics,
@@ -17,4 +18,9 @@ from deeplearning4j_tpu_torch.serving.paging import (  # noqa: F401
     BlockAllocator, BlockSwapStore, PrefixCache, RadixPrefixIndex,
     SharedPrefix, SwapEntry, blocks_for_tokens, kv_bytes_per_token,
 )
-from deeplearning4j_tpu_torch.serving.qos import PRIORITIES  # noqa: F401
+from deeplearning4j_tpu_torch.serving.qos import (  # noqa: F401
+    PRIORITIES, SpecAcceptanceGovernor,
+)
+from deeplearning4j_tpu_torch.serving.resilience import (  # noqa: F401
+    CircuitBreaker,
+)

@@ -1,6 +1,6 @@
 """Continuous-batching generation engine: ORCA-style iteration-level
-scheduling over the paged KV cache of ``models/bert.py`` (counterpart:
-``deeplearning4j_tpu/serving/generation.py``).
+scheduling over the paged or contiguous KV cache of ``models/bert.py``
+(counterpart: ``deeplearning4j_tpu/serving/generation.py``).
 
 Every turn of the scheduler thread (1) prefills any shared prefix waiting
 for its one prefill, (2) admits queued prompts into free slots, (3) runs
@@ -34,14 +34,24 @@ index, computed row by row, so a stream's tokens are the same whether it
 decodes alone or beside any neighbours, and whether or not it was
 preempted — and, with the same weights, the same as the JAX engine's.
 
-Ported: the paged cache, ``kv_dtype`` ``float32``/``int8``, the
-``gather``/``fused`` decode attention routes, greedy/temperature/top-k
-sampling, EOS and max-token retirement, bounded FIFO admission with
-deadlines, shared prefixes, on-demand allocation with preemption and
-recompute- or swap-on-resume, the automatic prefix cache, drain, one
-device. The contiguous cache, speculation, QoS policies, resilience
-(retries, breaker, watchdog), tracing, page migration and meshes are not
-ported yet.
+Speculative decoding (``speculative=SpecConfig(...)``) turns a scheduler
+turn into k draft steps on the draft model's contiguous cache and ONE
+verify step that scores k+1 positions per slot through the paged cache;
+each stream commits the prefix of the draft's proposals that matches the
+target's own samples, plus the target's next sample. The tokens are the
+plain engine's at any k; only the steps per token change.
+
+Ported: the paged cache and the contiguous one (``paged=False``),
+``kv_dtype`` ``float32``/``int8``, the ``gather``/``fused`` decode
+attention routes, greedy/temperature/top-k sampling, EOS and max-token
+retirement, bounded FIFO admission with deadlines, shared prefixes,
+on-demand allocation with preemption and recompute- or swap-on-resume,
+the automatic prefix cache, drain, speculative decoding with its draft
+breaker and acceptance governor, one device. QoS policies, resilience
+(retries, watchdog, epochs), tracing, page migration, the model registry
+and meshes are not ported yet. The reference's ``compiled_signatures`` and
+``draft_compiled_signatures`` count XLA executables; the port runs
+eagerly and has none to count.
 """
 from __future__ import annotations
 
@@ -60,8 +70,10 @@ import torch
 
 from deeplearning4j_tpu_torch import default_device
 from deeplearning4j_tpu_torch.models.bert import (
-    compute_params, grow_block_table, init_kv_cache, make_paged_decode_step,
-    make_paged_prefill, validate_block_size, validate_kv_dtype)
+    compute_params, grow_block_table, init_draft_kv_cache, init_kv_cache,
+    make_decode_step, make_draft_prefill, make_draft_step,
+    make_paged_decode_step, make_paged_prefill, make_prefill,
+    make_verify_step, validate_block_size, validate_kv_dtype)
 from deeplearning4j_tpu_torch.models.random import prng_key
 from deeplearning4j_tpu_torch.serving.admission import (
     AdmissionController, HostDrainingError, KVBlocksExhaustedError,
@@ -71,7 +83,9 @@ from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.paging import (
     BlockAllocator, BlockSwapStore, PrefixCache, SharedPrefix, SwapEntry,
     blocks_for_tokens, kv_bytes_per_token)
-from deeplearning4j_tpu_torch.serving.qos import PRIORITIES, resolve_qos
+from deeplearning4j_tpu_torch.serving.qos import (
+    PRIORITIES, SpecAcceptanceGovernor, resolve_qos)
+from deeplearning4j_tpu_torch.serving.resilience import CircuitBreaker
 
 _DONE = object()
 _UNSET = object()   # submit()'s "use the engine default" eos sentinel
@@ -187,6 +201,38 @@ class GenerationHandle:
             return False
 
 
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decoding (Leviathan et al., ICML'23): a small DRAFT
+    model proposes ``k`` tokens per scheduler turn and the target verifies
+    them in ONE k+1-position verify step, committing the longest proposal
+    prefix that matches its own samples.
+
+    Every token of a stream is a function of (request key, token index),
+    so the verify step computes the target's samples at the k+1 positions
+    and acceptance only decides how MANY commit per turn: a speculative
+    stream is the plain one at any k, temperature and ``kv_dtype``.
+
+    ``draft_params``/``draft_cfg`` are the draft model (it must share the
+    target's vocab and cover the engine's ``max_len`` positions); ``k`` is
+    the proposals per turn. ``min_acceptance`` > 0 arms the per-tenant
+    :class:`~deeplearning4j_tpu_torch.serving.qos.SpecAcceptanceGovernor`:
+    a tenant whose acceptance stays below it after ``min_proposed``
+    proposals is demoted to k=0 (plain turns)."""
+
+    draft_params: Any
+    draft_cfg: Any
+    k: int = 4
+    min_acceptance: float = 0.0
+    min_proposed: int = 256
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(
+                f"SpecConfig.k must be >= 1 (k == 0 IS plain decode — "
+                f"pass speculative=None), got {self.k}")
+
+
 @dataclasses.dataclass
 class _Slot:
     """Scheduler-side state of one occupied cache slot."""
@@ -211,11 +257,16 @@ class _Slot:
     # "on_demand"
     n_entries: int = 0
     resumed: bool = False            # seated from a preemption's resume
+    # speculative decoding: positions of this stream the DRAFT cache holds.
+    # The slot speculates (is draft-warm) iff draft_len == length at turn
+    # start; -1 is draft-cold (never draft-prefilled, the draft failed, or
+    # the stream advanced through a plain turn)
+    draft_len: int = -1
 
 
 class GenerationEngine:
-    """Iteration-level scheduler over one causal LM and one paged KV cache
-    on one device.
+    """Iteration-level scheduler over one causal LM and one KV cache on one
+    device.
 
     ``submit(prompt)`` returns a :class:`GenerationHandle`; a background
     thread runs the admit → decode → stream → retire loop. ``slots``
@@ -245,6 +296,17 @@ class GenerationEngine:
     ``swap_capacity_blocks``, default the pool's size) and back. A victim
     that can never fit again sheds typed ``'preempted'``.
 
+    ``paged=False`` keeps the contiguous layout instead: every slot
+    reserves ``max_len`` positions of a (slots, max_len) cache whose
+    lengths live on the device, with no block tables, sharing, on-demand
+    allocation, swap, int8 storage or fused route.
+
+    ``speculative`` (a :class:`SpecConfig`; paged only) turns each turn
+    into k draft steps and ONE k+1-position verify step; streams are the
+    plain engine's token for token. A failing draft degrades turns to
+    plain decode behind its own :class:`~deeplearning4j_tpu_torch.serving.
+    resilience.CircuitBreaker` and never sheds a stream.
+
     :meth:`register_prefix` prefills a shared prefix once and pins its
     blocks; ``submit(prefix_id=...)`` streams reference them.
     ``prefix_cache_blocks`` > 0 keeps up to that many of retired streams'
@@ -261,6 +323,7 @@ class GenerationEngine:
                  max_len: Optional[int] = None,
                  buckets: Optional[Sequence[int]] = None,
                  cache_dtype: Optional[torch.dtype] = None,
+                 paged: bool = True,
                  block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  kv_dtype: str = "float32",
@@ -273,6 +336,7 @@ class GenerationEngine:
                  default_timeout_ms: Optional[float] = None,
                  eos_id: Optional[int] = None,
                  metrics: Optional[ServingMetrics] = None,
+                 speculative: Optional[SpecConfig] = None,
                  device=None, name: str = "generation"):
         if not cfg.causal:
             raise ValueError(
@@ -280,24 +344,6 @@ class GenerationEngine:
                 "causal=True) — a bidirectional encoder has no decode order")
         if slots <= 0:
             raise ValueError("slots must be positive")
-        if allocate not in ("reserve", "on_demand"):
-            raise ValueError(
-                f"allocate must be 'reserve' or 'on_demand', got "
-                f"{allocate!r}")
-        if prefix_cache_blocks < 0:
-            raise ValueError(
-                f"prefix_cache_blocks must be >= 0, got "
-                f"{prefix_cache_blocks}")
-        if swap_threshold_blocks is not None and swap_threshold_blocks < 0:
-            raise ValueError(
-                f"swap_threshold_blocks must be >= 0 (a victim whose "
-                f"footprint EXCEEDS it swaps to host RAM), got "
-                f"{swap_threshold_blocks}")
-        if swap_capacity_blocks is not None \
-                and swap_threshold_blocks is None:
-            raise ValueError(
-                "swap_capacity_blocks requires swap_threshold_blocks "
-                "— the store only fills from preemption swap-outs")
         self.device = default_device(device)
         self.cfg = cfg
         self.slots = slots
@@ -310,33 +356,91 @@ class GenerationEngine:
         self.eos_id = eos_id
         self.name = name
         self.metrics = metrics or ServingMetrics()
-        if block_size is None:
-            # 16-token blocks, degrading to the largest power of two that
-            # fits a tiny max_len
-            block_size = 16
-            while block_size > self.max_len:
-                block_size //= 2
-        self.block_size = validate_block_size(block_size, self.max_len)
-        self.kv_dtype = validate_kv_dtype(kv_dtype, self.block_size)
-        self.paged_attention = paged_attention
-        self.allocate = allocate
-        self.prefix_cache_blocks = int(prefix_cache_blocks)
-        self.max_blocks_per_slot = blocks_for_tokens(self.max_len,
-                                                     self.block_size)
-        self.num_blocks = (slots * self.max_blocks_per_slot + 1
-                           if num_blocks is None else int(num_blocks))
-        self.swap_threshold_blocks = swap_threshold_blocks
-        self._swap_store = BlockSwapStore(
-            int(swap_capacity_blocks) if swap_capacity_blocks is not None
-            else self.num_blocks) if swap_threshold_blocks is not None \
-            else None
+        self.paged = paged
+        if paged:
+            if allocate not in ("reserve", "on_demand"):
+                raise ValueError(
+                    f"allocate must be 'reserve' or 'on_demand', got "
+                    f"{allocate!r}")
+            if prefix_cache_blocks < 0:
+                raise ValueError(
+                    f"prefix_cache_blocks must be >= 0, got "
+                    f"{prefix_cache_blocks}")
+            if swap_threshold_blocks is not None \
+                    and swap_threshold_blocks < 0:
+                raise ValueError(
+                    f"swap_threshold_blocks must be >= 0 (a victim whose "
+                    f"footprint EXCEEDS it swaps to host RAM), got "
+                    f"{swap_threshold_blocks}")
+            if swap_capacity_blocks is not None \
+                    and swap_threshold_blocks is None:
+                raise ValueError(
+                    "swap_capacity_blocks requires swap_threshold_blocks "
+                    "— the store only fills from preemption swap-outs")
+            if block_size is None:
+                # 16-token blocks, degrading to the largest power of two
+                # that fits a tiny max_len
+                block_size = 16
+                while block_size > self.max_len:
+                    block_size //= 2
+            self.block_size = validate_block_size(block_size, self.max_len)
+            self.kv_dtype = validate_kv_dtype(kv_dtype, self.block_size)
+            self.paged_attention = paged_attention
+            self.allocate = allocate
+            self.prefix_cache_blocks = int(prefix_cache_blocks)
+            self.max_blocks_per_slot = blocks_for_tokens(self.max_len,
+                                                         self.block_size)
+            self.num_blocks = (slots * self.max_blocks_per_slot + 1
+                               if num_blocks is None else int(num_blocks))
+            self.swap_threshold_blocks = swap_threshold_blocks
+            self._swap_store = BlockSwapStore(
+                int(swap_capacity_blocks) if swap_capacity_blocks
+                is not None else self.num_blocks) \
+                if swap_threshold_blocks is not None else None
+            self._prefill = make_paged_prefill(cfg, self.block_size,
+                                               kv_dtype=self.kv_dtype)
+            self._decode = make_paged_decode_step(
+                cfg, self.block_size, kv_dtype=self.kv_dtype,
+                paged_attention=paged_attention)
+        else:
+            # int8 storage is a block-pool concept: validated against the
+            # contiguous layout's absent block size, so the error names it
+            validate_kv_dtype(kv_dtype, None)
+            if allocate != "reserve":
+                raise ValueError(
+                    f"allocate={allocate!r} requires the paged KV cache "
+                    "(GenerationEngine(paged=True)) — the contiguous "
+                    "layout reserves whole rows, there is nothing to "
+                    "allocate on demand")
+            if prefix_cache_blocks:
+                raise ValueError(
+                    "prefix_cache_blocks requires the paged KV cache "
+                    "(GenerationEngine(paged=True)) — the automatic "
+                    "prefix cache holds retired streams' blocks")
+            if swap_threshold_blocks is not None \
+                    or swap_capacity_blocks is not None:
+                raise ValueError(
+                    "swap_threshold_blocks requires the paged KV cache "
+                    "(GenerationEngine(paged=True)) — swap-to-host parks "
+                    "block K/V, and the contiguous layout has no blocks")
+            if paged_attention != "gather":
+                raise ValueError(
+                    f"paged_attention={paged_attention!r} requires the "
+                    "paged KV cache (GenerationEngine(paged=True)) — the "
+                    "contiguous layout has no block table to fuse over")
+            self.kv_dtype = kv_dtype
+            self.paged_attention = "gather"
+            self.allocate = "reserve"
+            self.prefix_cache_blocks = 0
+            self.swap_threshold_blocks = None
+            self._swap_store = None
+            self.block_size = None
+            self.num_blocks = None
+            self.max_blocks_per_slot = None
+            self._prefill = make_prefill(cfg)
+            self._decode = make_decode_step(cfg)
         self._cache_dtype = cache_dtype
         self.params = compute_params(params, cfg, self.device)
-        self._prefill = make_paged_prefill(cfg, self.block_size,
-                                           kv_dtype=self.kv_dtype)
-        self._decode = make_paged_decode_step(
-            cfg, self.block_size, kv_dtype=self.kv_dtype,
-            paged_attention=paged_attention)
         # shared-prefix registry, and the queue of prefixes waiting for
         # their prefill (run by the scheduler thread, which owns the pool)
         self._prefixes: Dict[str, SharedPrefix] = {}
@@ -354,6 +458,48 @@ class GenerationEngine:
         # priority); freed blocks accumulate toward it instead of being
         # taken by same-or-lower-class requests behind it
         self._block_waiter: Optional[Tuple[Request, int, str]] = None
+        # speculative decoding: the draft's steps and THE verify step, the
+        # draft's own breaker (a failing draft degrades turns to plain
+        # decode, never sheds) and the per-tenant acceptance governor
+        self._spec = speculative
+        self._spec_force_plain = False   # warmup: run the plain fallback
+        if speculative is not None:
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding requires the paged KV cache "
+                    "(GenerationEngine(paged=True)) — the verify step is "
+                    "a paged executable")
+            dcfg = speculative.draft_cfg
+            if not dcfg.causal:
+                raise ValueError(
+                    "the draft model must be causal: TransformerConfig("
+                    "causal=True)")
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dcfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size} — proposals are fed to the target "
+                    "as token ids, the vocabularies must be shared")
+            if dcfg.max_seq < self.max_len:
+                raise ValueError(
+                    f"draft max_seq {dcfg.max_seq} < engine max_len "
+                    f"{self.max_len} — the draft must cover every prompt "
+                    "bucket position")
+            self._draft_cfg = dcfg
+            self._draft_params = compute_params(speculative.draft_params,
+                                                dcfg, self.device)
+            # the draft writes K/V up to position length + k - 1, within
+            # its positional table (proposals near the end degrade to
+            # garbage the verify rejects, never to wrong tokens)
+            self._draft_max_len = min(self.max_len + speculative.k,
+                                      dcfg.max_seq)
+            self._draft_prefill = make_draft_prefill(dcfg)
+            self._draft_step = make_draft_step(dcfg)
+            self._verify = make_verify_step(
+                cfg, self.block_size, speculative.k, kv_dtype=self.kv_dtype,
+                paged_attention=paged_attention)
+            self._draft_breaker = CircuitBreaker(name=f"{name}.draft")
+            self._spec_governor = SpecAcceptanceGovernor(
+                speculative.min_acceptance, speculative.min_proposed)
         self._slots: List[Optional[_Slot]] = [None] * slots
         self._reset_cache()
         self._admission = AdmissionController(
@@ -503,6 +649,10 @@ class GenerationEngine:
                 "to the recompute path, which needs the delivered tokens")
         prefix_len = 0
         if prefix_id is not None:
+            if not self.paged:
+                raise ValueError(
+                    "prefix_id requires the paged KV cache "
+                    "(GenerationEngine(paged=True))")
             with self._prefix_lock:
                 prefix = self._prefixes.get(prefix_id)
             if prefix is None:
@@ -540,9 +690,11 @@ class GenerationEngine:
         # structural shed: a footprint the pool can never hold (capacity
         # minus prefix pins) fails typed now, not after a queue wait that
         # cannot end another way
-        needed = self._fresh_blocks_needed(prefix_len, int(toks.size),
-                                           max_new_tokens)
-        usable = self._usable_blocks()
+        needed = usable = 0
+        if self.paged:
+            needed = self._fresh_blocks_needed(prefix_len, int(toks.size),
+                                               max_new_tokens)
+            usable = self._usable_blocks()
         if needed > usable:
             e = KVBlocksExhaustedError(
                 f"request needs {needed} KV blocks but the pool can free "
@@ -583,6 +735,9 @@ class GenerationEngine:
         scheduler thread, which owns the pool: this call blocks until the
         prefix is resident. After a cache rebuild the registration
         survives and the next stream naming it re-prefills it."""
+        if not self.paged:
+            raise ValueError("register_prefix requires the paged KV cache "
+                             "(GenerationEngine(paged=True))")
         if self._draining:
             raise HostDrainingError(
                 f"engine[{self.name}] is draining — it takes no new prefix "
@@ -669,39 +824,57 @@ class GenerationEngine:
         return sum(s is not None for s in self._slots)
 
     def _reset_cache(self):
-        """(Re)allocate the block pool, allocator and block tables as one
-        consistent empty state — at construction and after a failed
-        prefill or decode step, whose partial writes may have left the
-        pool inconsistent. Every registered prefix loses its blocks (it
-        re-prefills on its next use); cached and swapped blocks are
-        dropped without freeing: their references belong to the old
-        allocator."""
+        """(Re)allocate the cache as one consistent empty state — at
+        construction and after a failed prefill or decode step, whose
+        partial writes may have left it inconsistent. Paged: the block
+        pool, allocator and block tables together; every registered prefix
+        loses its blocks (it re-prefills on its next use); cached and
+        swapped blocks are dropped without freeing: their references
+        belong to the old allocator. A speculative engine's draft cache is
+        rebuilt with it."""
         self._cache = init_kv_cache(
             self.cfg, self.slots, self.max_len, dtype=self._cache_dtype,
             block_size=self.block_size, num_blocks=self.num_blocks,
             kv_dtype=self.kv_dtype, device=self.device)
-        self._block_waiter = None
-        if self._prefix_cache is not None:
-            self._prefix_cache.invalidate()
-        if self._swap_store is not None:
-            self._swap_store.invalidate()
-        with self._prefix_lock:
-            self._allocator = BlockAllocator(self.num_blocks, reserved=1)
-            self._tables = np.zeros((self.slots, self.max_blocks_per_slot),
-                                    np.int32)
-            for p in self._prefixes.values():
-                p.blocks = None
-        self._prefix_cache = (
-            PrefixCache(self._allocator, self.block_size,
-                        self.prefix_cache_blocks)
-            if self.prefix_cache_blocks else None)
-        self.metrics.kv_blocks_total.set(self._allocator.capacity)
-        self._update_block_gauges()
+        if self.paged:
+            self._block_waiter = None
+            if self._prefix_cache is not None:
+                self._prefix_cache.invalidate()
+            if self._swap_store is not None:
+                self._swap_store.invalidate()
+            with self._prefix_lock:
+                self._allocator = BlockAllocator(self.num_blocks, reserved=1)
+                self._tables = np.zeros(
+                    (self.slots, self.max_blocks_per_slot), np.int32)
+                for p in self._prefixes.values():
+                    p.blocks = None
+            self._prefix_cache = (
+                PrefixCache(self._allocator, self.block_size,
+                            self.prefix_cache_blocks)
+                if self.prefix_cache_blocks else None)
+            self.metrics.kv_blocks_total.set(self._allocator.capacity)
+            self._update_block_gauges()
+        if self._spec is not None:
+            self._reset_draft_cache()
+
+    def _reset_draft_cache(self):
+        """(Re)allocate the draft model's contiguous cache: at
+        construction, with every cache rebuild, and after a failed draft
+        call. Live slots become draft-cold; the caller marks them."""
+        self._draft_cache = init_draft_kv_cache(
+            self._draft_cfg, self.slots, self._draft_max_len,
+            device=self.device)
 
     @property
     def kv_block_bytes(self) -> int:
         """Device bytes of one KV block across all layers (int8 pools count
-        their 1-byte values plus fp32 scales)."""
+        their 1-byte values plus fp32 scales). Paged engines only."""
+        if not self.paged:
+            raise ValueError(
+                "kv_block_bytes is a paged-layout property (this engine "
+                "runs the contiguous cache: paged=False); a contiguous "
+                "stream's footprint is max_len * "
+                "paging.kv_bytes_per_token(...)")
         dt = self._cache_dtype if self._cache_dtype is not None \
             else self.cfg.dtype
         return self.block_size * kv_bytes_per_token(
@@ -712,8 +885,10 @@ class GenerationEngine:
         """Pool occupancy (blocks held, over capacity), prefix pins, the
         reservation slack (blocks mapped into a stream's table but not yet
         written: the worst-case tail ``reserve`` holds idle), and the
-        prefix-cache and swap-store occupancy."""
+        prefix-cache and swap-store occupancy. Paged engines only."""
         alloc = self._allocator
+        if alloc is None:
+            return
         B = self.block_size
         in_use = alloc.in_use
         with self._prefix_lock:
@@ -738,13 +913,16 @@ class GenerationEngine:
             if self._swap_store is not None else 0)
 
     def _loop(self):
+        # the step's staging arrays, allocated once for this thread and
+        # refilled in place every iteration
+        buf = self._make_step_buffers()
         try:
             while not self._stop.is_set():
                 self._drain_prefix_queue()
                 self._admit()
                 if self._live_count() and not self._stop.is_set():
                     try:
-                        self._decode_iteration()
+                        self._decode_iteration(buf)
                     except Exception as e:   # fail tenants, keep the thread
                         self._on_device_failure(e)
         finally:
@@ -779,12 +957,14 @@ class GenerationEngine:
                 if idle:
                     return
                 continue
-            verdict, prefix, cached = self._plan_blocks(req)
-            if verdict == "shed":
-                continue
-            if verdict == "wait":
-                self._admission.requeue_head(req)
-                return
+            prefix = cached = None
+            if self.paged:
+                verdict, prefix, cached = self._plan_blocks(req)
+                if verdict == "shed":
+                    continue
+                if verdict == "wait":
+                    self._admission.requeue_head(req)
+                    return
             greq: GenerationRequest = req.x
             resumed = greq.resume_tokens is not None
             if not req.future.running():
@@ -802,7 +982,7 @@ class GenerationEngine:
             if prefix is not None or cached is not None:
                 self._seat_stream(i, req, prefix, cached)
                 continue
-            if resumed and int(greq.prompt.size) \
+            if self.paged and resumed and int(greq.prompt.size) \
                     + int(greq.resume_tokens.size) > self.buckets[-1]:
                 # the recompute prompt outgrew the prefill ladder: rebuild
                 # the K/V through the decode-feed seat instead
@@ -1409,7 +1589,8 @@ class GenerationEngine:
         """Seat ``req`` in ``slot`` by a prefill. A resumed request's
         generated tokens ride the prompt (recompute-on-resume) and its
         sample is drawn at ``resume_step``; TTFT is observed only for a
-        stream's first token (``resume_step == 0``)."""
+        stream's first token (``resume_step == 0``). A speculative engine
+        then draft-prefills the same prompt (:meth:`_draft_seat`)."""
         greq: GenerationRequest = req.x
         resumed = greq.resume_tokens is not None
         toks = greq.prompt
@@ -1420,20 +1601,30 @@ class GenerationEngine:
         bucket = self._bucket_for(n)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = toks
-        alloc = self._allocator
-        nb_total = self._blocks_needed(greq, None, admit=True)
-        blocks = alloc.alloc(nb_total)
-        row = np.zeros(self.max_blocks_per_slot, np.int32)
-        row[:nb_total] = blocks
+        alloc = blocks = row = None
+        nb_total = 0
+        if self.paged:
+            alloc = self._allocator
+            nb_total = self._blocks_needed(greq, None, admit=True)
+            blocks = alloc.alloc(nb_total)
+            row = np.zeros(self.max_blocks_per_slot, np.int32)
+            row[:nb_total] = blocks
         t0 = time.perf_counter()
         try:
-            _, tok = self._prefill(
-                self.params, self._cache, padded,
-                row[:blocks_for_tokens(bucket, self.block_size)], n,
-                greq.key, greq.temperature, greq.top_k, greq.resume_step)
+            if self.paged:
+                _, tok = self._prefill(
+                    self.params, self._cache, padded,
+                    row[:blocks_for_tokens(bucket, self.block_size)], n,
+                    greq.key, greq.temperature, greq.top_k,
+                    greq.resume_step)
+            else:
+                _, tok = self._prefill(
+                    self.params, self._cache, padded, slot, n, greq.key,
+                    greq.temperature, greq.top_k, greq.resume_step)
             tok = int(tok)
         except Exception:
-            alloc.free(blocks)
+            if blocks is not None:
+                alloc.free(blocks)
             raise
         now = time.perf_counter()
         self.metrics.prefill_ms.observe((now - t0) * 1e3)
@@ -1452,29 +1643,80 @@ class GenerationEngine:
         elif self._maybe_retire(state, tok):
             self._release_blocks(state)   # retired at its first token
         else:
-            self._tables[slot] = row
+            if self.paged:
+                self._tables[slot] = row
             self._slots[slot] = state
+            if self._spec is not None:
+                self._draft_seat(slot, state, padded)
         self._update_block_gauges()
 
-    def _decode_iteration(self):
-        """One scheduler turn: a single decode step over ALL slots (dead
-        slots ride along on the scratch block), then stream/retire per
-        live slot. Under ``on_demand`` the slots crossing a block boundary
-        get their block first (preempting when the pool is dry). A feeding
-        slot's token is its next pending prompt token and its sample is
-        discarded until the feed ends; a pending copy-on-write goes out
-        once as ``cow_src``/``cow_dst``."""
+    def _draft_seat(self, slot: int, state: _Slot, padded: np.ndarray):
+        """Draft-prefill a just-seated stream's prompt into the draft cache
+        (speculative engines). Any failure takes the degrade path: the
+        draft cache is rebuilt, every live slot goes draft-cold, and the
+        stream itself goes on at plain speed — a failing draft never
+        sheds. A prompt bucket wider than the draft's positional table
+        leaves the slot cold."""
+        if padded.shape[1] > self._draft_cfg.max_seq:
+            return
+        try:
+            self._draft_prefill(self._draft_params, self._draft_cache,
+                                padded, slot)
+        except Exception:
+            self._draft_failed()
+            return
+        state.draft_len = state.length
+
+    def _draft_failed(self):
+        """The degrade path of a failed draft call: count it, open the
+        draft breaker's count, rebuild the draft cache (the call may have
+        written part of it) and make every live slot draft-cold."""
+        self._draft_breaker.record_failure()
+        self.metrics.spec_fallbacks_total.inc()
+        self._reset_draft_cache()
+        for st in self._slots:
+            if st is not None:
+                st.draft_len = -1
+
+    def _make_step_buffers(self) -> Dict[str, np.ndarray]:
+        """One scheduler thread's step staging arrays: every per-slot
+        argument of the decode (and verify) step, shaped by the engine's
+        configuration only, refilled in place each iteration."""
         S = self.slots
-        if self.allocate == "on_demand":
+        buf = {"tokens": np.zeros(S, np.int64),
+               "live": np.zeros(S, bool),
+               "keys": np.zeros((S, 2), np.uint32),
+               "steps": np.zeros(S, np.int64),
+               "temps": np.zeros(S, np.float32),
+               "top_ks": np.zeros(S, np.int64),
+               "lengths": np.zeros(S, np.int64),
+               "cow_src": np.zeros(S, np.int64),
+               "cow_dst": np.zeros(S, np.int64)}
+        if self._spec is not None:
+            buf["spec_tokens"] = np.zeros((S, self._spec.k + 1), np.int64)
+            buf["draft_feed"] = np.zeros(S, np.int64)
+        return buf
+
+    def _decode_iteration(self, buf: Dict[str, np.ndarray]):
+        """One scheduler turn: a single decode step over ALL slots (dead
+        slots ride along: on the scratch block, or on their own row of the
+        contiguous cache), then stream/retire per live slot. Under
+        ``on_demand`` the slots crossing a block boundary get their block
+        first (preempting when the pool is dry). A feeding slot's token is
+        its next pending prompt token and its sample is discarded until
+        the feed ends; a pending copy-on-write goes out once as
+        ``cow_src``/``cow_dst``. A speculative engine takes the turn
+        through :meth:`_spec_turn` when any slot can speculate."""
+        S = self.slots
+        if self.paged and self.allocate == "on_demand":
             self._grow_block_tables()
-        tokens = np.zeros(S, np.int64)
-        keys = np.zeros((S, 2), np.uint32)
-        steps = np.zeros(S, np.int64)
-        temps = np.zeros(S, np.float32)
-        top_ks = np.zeros(S, np.int64)
-        lengths = np.zeros(S, np.int64)
-        cow_src = np.zeros(S, np.int64)
-        cow_dst = np.zeros(S, np.int64)
+        tokens, live, keys = buf["tokens"], buf["live"], buf["keys"]
+        steps, temps, top_ks = buf["steps"], buf["temps"], buf["top_ks"]
+        lengths = buf["lengths"]
+        cow_src, cow_dst = buf["cow_src"], buf["cow_dst"]
+        for a in (tokens, live, keys, steps, temps, top_ks, lengths,
+                  cow_src, cow_dst):
+            a.fill(0)
         states = list(self._slots)
         n_live = 0
         for i, st in enumerate(states):
@@ -1482,6 +1724,7 @@ class GenerationEngine:
                 continue
             n_live += 1
             tokens[i] = st.pending[0] if st.pending else st.last_token
+            live[i] = True
             keys[i] = st.greq.key
             steps[i] = st.n_generated
             temps[i] = st.greq.temperature
@@ -1492,10 +1735,17 @@ class GenerationEngine:
         self.metrics.slot_occupancy.set(n_live / S)
         if not n_live:
             return   # growth preempted every stream: nothing to decode
+        if self._spec is not None and not self._spec_force_plain \
+                and self._spec_turn(buf, states):
+            return
         t0 = time.perf_counter()
-        _, toks = self._decode(self.params, self._cache, self._tables,
-                               lengths, tokens, keys, steps, temps, top_ks,
-                               cow_src, cow_dst)
+        if self.paged:
+            _, toks = self._decode(self.params, self._cache, self._tables,
+                                   lengths, tokens, keys, steps, temps,
+                                   top_ks, cow_src, cow_dst)
+        else:
+            _, toks = self._decode(self.params, self._cache, tokens, live,
+                                   keys, steps, temps, top_ks)
         toks = toks.cpu().numpy()
         dt_ms = (time.perf_counter() - t0) * 1e3
         now = time.perf_counter()
@@ -1510,6 +1760,93 @@ class GenerationEngine:
         self.metrics.generated_tokens_total.inc(emitted)
         self.metrics.slot_occupancy.set(self._live_count() / S)
         self._update_block_gauges()
+
+    def _spec_turn(self, buf: Dict[str, np.ndarray],
+                   states: List[Optional[_Slot]]) -> bool:
+        """One speculative turn: k draft steps, then ONE verify step over
+        all slots, committing each slot's accepted prefix. False hands the
+        turn back to the plain decode step: no slot can speculate, the
+        draft breaker is open, or a draft step failed (the degrade path).
+
+        A slot speculates when it is draft-warm (``draft_len == length``),
+        feeds no prompt and its tenant is not demoted. The others ride the
+        verify all the same and commit exactly one token, as in a plain
+        turn. Each slot commits ``c = min(accepted + 1, k, cap)`` samples
+        through :meth:`_commit_sampled`, ``cap`` the positions its mapped
+        blocks and ``max_seq`` still hold (writes past them went to
+        scratch); the verify counts as one decode step. A verify failure
+        propagates to the scheduler loop (fail the tenants, rebuild)."""
+        spec = self._spec
+        k = spec.k
+        elig = [st is not None and not st.pending
+                and st.draft_len == st.length
+                and not self._spec_governor.demoted(st.request.tenant)
+                for st in states]
+        if not any(elig):
+            return False
+        if not self._draft_breaker.allow():
+            self.metrics.spec_fallbacks_total.inc()
+            return False
+        dtoks = buf["spec_tokens"]
+        dtoks[:, 0] = buf["tokens"]
+        feed = buf["draft_feed"]
+        np.copyto(feed, buf["tokens"])
+        try:
+            for j in range(k):
+                _, props = self._draft_step(
+                    self._draft_params, self._draft_cache, feed,
+                    buf["lengths"] + j, buf["keys"], buf["steps"] + j,
+                    buf["temps"], buf["top_ks"])
+                props = props.cpu().numpy()
+                dtoks[:, j + 1] = props
+                np.copyto(feed, props)
+        except Exception:
+            self._draft_failed()
+            return False
+        self._draft_breaker.record_success()
+        t0 = time.perf_counter()
+        _, samples, accepted = self._verify(
+            self.params, self._cache, self._tables, buf["lengths"], dtoks,
+            buf["keys"], buf["steps"], buf["temps"], buf["top_ks"],
+            buf["cow_src"], buf["cow_dst"])
+        samples = samples.cpu().numpy()
+        accepted = accepted.cpu().numpy()
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        now = time.perf_counter()
+        self.metrics.decode_step_ms.observe(dt_ms)
+        self.metrics.decode_wall_ms.inc(dt_ms)
+        self.metrics.decode_steps_total.inc()
+        B = self.block_size
+        emitted = 0
+        for i, st in enumerate(states):
+            if st is None:
+                continue
+            if elig[i]:
+                cap = max(1, min(st.n_entries * B, self.cfg.max_seq)
+                          - st.length)
+                c = min(int(accepted[i]) + 1, k, cap)
+                self.metrics.record_spec_outcome(
+                    st.request.tenant, k, int(accepted[i]))
+                self._spec_governor.record(
+                    st.request.tenant, k, int(accepted[i]))
+            else:
+                c = 1   # cold, feeding or demoted: a plain turn
+            res = "ok"
+            for j in range(c):
+                res = self._commit_sampled(i, st, int(samples[i, j]), now)
+                if res != "fed":
+                    emitted += 1
+                if res in ("retired", "client_error"):
+                    break
+            if elig[i] and res == "ok" and self._slots[i] is st:
+                # the draft wrote positions length..length+k-1 and c <= k
+                # of them were committed: its cache is as long as the
+                # stream again
+                st.draft_len = st.length
+        self.metrics.generated_tokens_total.inc(emitted)
+        self.metrics.slot_occupancy.set(self._live_count() / self.slots)
+        self._update_block_gauges()
+        return True
 
     def _commit_sampled(self, i: int, st: _Slot, tok: int,
                         now: float) -> str:
@@ -1579,7 +1916,8 @@ class GenerationEngine:
         and writes where its row says, so a stale row would aim that write
         at blocks the next admission may hand to a new stream."""
         self._slots[i] = None
-        self._tables[i] = 0
+        if self.paged:
+            self._tables[i] = 0
         self._release_blocks(st)
 
     def _fail_live(self, exc: BaseException):
@@ -1619,7 +1957,8 @@ class GenerationEngine:
         live request does not pay one-time set-up: the kernels' build and
         load, the allocator's and libraries' first use. The prefix cache
         is bypassed meanwhile (a rung's probe must prefill) and its probe
-        entries are dropped after."""
+        entries are dropped after. A speculative engine also runs one
+        probe through the plain decode fallback."""
         prev = 0
         self._cache_bypass = True
         try:
@@ -1636,4 +1975,14 @@ class GenerationEngine:
             self._cache_bypass = False
             if self._prefix_cache is not None:
                 self._prefix_cache.release_all()
+        if self._spec is not None and self.max_len >= 2:
+            # the rungs ran the draft and verify steps; one forced-plain
+            # probe runs the plain decode fallback too
+            self._spec_force_plain = True
+            try:
+                self.generate(np.zeros(1, np.int32),
+                              max_new_tokens=min(2, self.max_len - 1),
+                              eos_id=None, timeout=300.0)
+            finally:
+                self._spec_force_plain = False
         return self

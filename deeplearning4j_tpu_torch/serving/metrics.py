@@ -172,6 +172,67 @@ class ServingMetrics:
         self.kv_swap_bytes_out = Counter("kv_swap_bytes_out")
         self.kv_swap_bytes_in = Counter("kv_swap_bytes_in")
         self.kv_swapped_blocks_held = Gauge("kv_swapped_blocks_held")
+        # ---- speculative decoding (draft + k-token verify) ---------------
+        # proposed counts draft tokens the verify step scored, accepted the
+        # prefix the target kept; the gauge is accepted / proposed over the
+        # engine's life. fallbacks are turns that degraded to plain decode
+        # (draft breaker open, a draft fault): a failing draft never sheds
+        # a stream, so this counter is where it shows.
+        self.spec_tokens_proposed = Counter("spec_tokens_proposed")
+        self.spec_tokens_accepted = Counter("spec_tokens_accepted")
+        self.spec_fallbacks_total = Counter("spec_fallbacks_total")
+        self.spec_acceptance_rate = Gauge("spec_acceptance_rate")
+        self._spec_lock = threading.Lock()
+        self._spec_proposed: Dict[str, int] = {}
+        self._spec_accepted: Dict[str, int] = {}
+
+    #: distinct tenant labels the per-tenant spec counts keep; the rest
+    #: fold into :data:`OVERFLOW_TENANT`
+    MAX_TRACKED_TENANTS = 1024
+    OVERFLOW_TENANT = "(other)"
+
+    def record_spec_outcome(self, tenant: str, proposed: int, accepted: int):
+        """One verify turn's outcome for one stream: the draft proposed
+        ``proposed`` tokens and the target accepted a prefix of
+        ``accepted``. Feeds the counters, the acceptance-rate gauge and the
+        tenant's own counts for :meth:`spec_snapshot`."""
+        if proposed <= 0:
+            return
+        self.spec_tokens_proposed.inc(proposed)
+        self.spec_tokens_accepted.inc(accepted)
+        p = self.spec_tokens_proposed.value
+        self.spec_acceptance_rate.set(
+            self.spec_tokens_accepted.value / p if p else 0.0)
+        with self._spec_lock:
+            t = tenant
+            if t not in self._spec_proposed and \
+                    len(self._spec_proposed) >= self.MAX_TRACKED_TENANTS:
+                t = self.OVERFLOW_TENANT
+            self._spec_proposed[t] = self._spec_proposed.get(t, 0) + proposed
+            self._spec_accepted[t] = self._spec_accepted.get(t, 0) + accepted
+
+    def spec_snapshot(self) -> dict:
+        """The speculative roll-up: the acceptance rate, the fallbacks and
+        each tenant's proposed, accepted and rate."""
+        with self._spec_lock:
+            tenants = {
+                t: {"proposed": p,
+                    "accepted": self._spec_accepted.get(t, 0),
+                    "acceptance_rate": self._spec_accepted.get(t, 0) / p
+                    if p else 0.0}
+                for t, p in self._spec_proposed.items()}
+        return {"acceptance_rate": self.spec_acceptance_rate.value,
+                "fallbacks_total": self.spec_fallbacks_total.value,
+                "tenants": tenants}
+
+    def snapshot(self) -> dict:
+        """Every counter and gauge by name, plus the ``"spec"`` roll-up of
+        :meth:`spec_snapshot` and ``decode_tokens_per_sec``."""
+        out = {name: m.value for name, m in vars(self).items()
+               if isinstance(m, (Counter, Gauge))}
+        out["decode_tokens_per_sec"] = self.decode_tokens_per_sec()
+        out["spec"] = self.spec_snapshot()
+        return out
 
     def record_rejection(self, reason: str):
         """Attribute one shed/rejection to its cause."""

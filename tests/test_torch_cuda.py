@@ -93,25 +93,35 @@ def test_packed_bf16_matches_plain(card, p_dtype):
 
 
 def test_packed_refuses_unbuilt_head_dim(card):
-    """Head dims past 256 (the kernels' shared-memory limit) refuse, and
-    the error names the shared memory that width would need."""
-    q = torch.zeros(1, 8, 2 * 264, device=card)
-    with pytest.raises(ValueError, match="head_dim") as ei:
+    """A zero-width head refuses on the card; every width from 1 up runs
+    (the widths past 256 in 256-wide chunks, within one CTA's shared
+    memory: ``test_packed_head_dims_match_plain``)."""
+    from deeplearning4j_tpu_torch.profiler import cuda_launches
+
+    q = torch.zeros(1, 8, 0, device=card)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
         ak.mha_packed_forward(q, q, q, 2)
-    assert f"{ak.backward_smem_bytes(264)} bytes" in str(ei.value)
+
+    def smem(d):   # shared memory per block, as the device tracer saw it
+        x = torch.randn(1, 64, 2 * d, device=card, dtype=torch.bfloat16)
+        return [g["shared_memory"] for g in cuda_launches(
+            lambda: ak.mha_packed_forward(x, x, x, 2))]
+
+    assert smem(512) == smem(256)
+    assert len(smem(256)) == 1 and smem(256)[0] <= ak.MAX_BLOCK_SMEM_BYTES
 
 
 def test_backward_kernels_refuse_unbuilt_head_dim(card):
-    """The backward kernels refuse head dims past 256, as the forward."""
-    q = torch.zeros(1, 8, 2 * 264, device=card)
+    """The backward kernels refuse a zero-width head, as the forward."""
+    q = torch.zeros(1, 8, 0, device=card)
     lse = torch.zeros(1, 2, 8, device=card)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="head_dim >= 1"):
         ak.mha_packed_backward(q, q, q, q, lse, 2)
-    q3, vec = torch.zeros(2, 8, 264, device=card), torch.zeros(2, 1, 8,
-                                                                device=card)
-    with pytest.raises(ValueError, match="head_dim"):
+    q3, vec = torch.zeros(2, 8, 0, device=card), torch.zeros(2, 1, 8,
+                                                              device=card)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
         ak.flash_bwd_dq(q3, q3, q3, q3, vec, vec)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="head_dim >= 1"):
         ak.flash_bwd_dkv(q3, q3, q3, q3, vec, vec)
 
 
@@ -128,8 +138,9 @@ def _check_head_dim(got, ref, d, dtype, floor, fp32_tol):
 # Head dims off the built widths run padded to the next one (16, 32, 64,
 # 128, 256): 8 and 48 and 96 and 160 pad, 16 and 256 are exact; bf16 at
 # these takes the FMA templates, forward and backward; 160 and 256 take the
-# 256-wide instances on opted-in dynamic shared memory
-@pytest.mark.parametrize("head_dim", [8, 16, 48, 96, 160, 256])
+# 256-wide instances on opted-in dynamic shared memory; 320 and 512 the
+# chunked kernels (two 256-wide chunks, the second of 320 mostly padding)
+@pytest.mark.parametrize("head_dim", [8, 16, 48, 96, 160, 256, 320, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_packed_head_dims_match_plain(card, head_dim, dtype, causal):
@@ -147,7 +158,7 @@ def test_packed_head_dims_match_plain(card, head_dim, dtype, causal):
     _check_head_dim(got, ref, head_dim, dtype, BWD_FLOOR, 1e-4)
 
 
-@pytest.mark.parametrize("head_dim", [8, 16, 48, 96, 160, 256])
+@pytest.mark.parametrize("head_dim", [8, 16, 48, 96, 160, 256, 320, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_streamed_head_dims_match_plain(card, head_dim, dtype, causal):
@@ -772,10 +783,12 @@ def _split_case(rng, block, nbmax, d, q_dtype, pool, device):
 # blocks at the serving shape; 16-block splits; block 64 at head_dim 128
 # (over the old kernel's 48 KB stage); padded head dims 48 and 8; heads
 # wider than 128 (several 16-byte slices a lane; 200 leaves int8 rows off
-# the 16-byte vector), up to the widest, 1024, in blocks of one position
+# the 16-byte vector), up to the widest instance, 1024, in blocks of one
+# position; 1280 on the wide kernel (two 1024-dim chunks), in one split and
+# in several
 SPLIT_CASES = [(16, 4, 64), (16, 32, 64), (4, 40, 32), (64, 8, 128),
                (8, 16, 48), (16, 8, 8), (16, 8, 256), (4, 40, 200),
-               (1, 70, 1024)]
+               (1, 70, 1024), (16, 4, 1280), (16, 8, 1280)]
 
 
 @pytest.mark.parametrize("block,nbmax,head_dim", SPLIT_CASES)
@@ -812,11 +825,13 @@ def test_paged_splits_match_plain(card, block, nbmax, head_dim, pool):
 
 
 def test_paged_refuses_heads_past_its_widest(card):
-    q = torch.zeros(2, 1, 1032, device=card)
-    pool = torch.zeros(3, 4, 1, 1032, device=card)
+    """Paged decode refuses only a zero-width head; 1280 runs
+    (``test_paged_splits_match_plain``)."""
+    q = torch.zeros(2, 1, 0, device=card)
+    pool = torch.zeros(3, 4, 1, 0, device=card)
     tables = torch.zeros(2, 1, dtype=torch.int32, device=card)
     pos = torch.zeros(2, dtype=torch.int32, device=card)
-    with pytest.raises(ValueError, match="head_dim from 1 to 1024"):
+    with pytest.raises(ValueError, match="head_dim >= 1"):
         ak.paged_decode_attention(q, pool, pool, tables, pos, block_size=4)
 
 
@@ -986,3 +1001,88 @@ def test_decode_feed_with_copy_on_write_matches_on_both_routes(card):
         assert (launched > 0) == (route == "fused")
         streams[route] = got
     assert streams["fused"] == streams["gather"]
+
+
+# ------------------------------ speculative decoding: the verify step (row 6)
+
+
+def test_verify_step_fused_matches_gather(card):
+    """The verify step's k+1 single-query reads through the paged kernel
+    (fused) against the gather route, fp32, on a pool with a copy-on-write
+    pair, a slot past its mapped blocks and a dead slot: the same samples
+    and ``accepted``, the pools within fp32 summation order."""
+    from deeplearning4j_tpu_torch.models import make_verify_step
+    cfg = TransformerConfig(**_LIFE_CFG, dtype=torch.float32,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=3, device=card)
+    rng = np.random.default_rng(41)
+    nb, block, k = 20, 8, 4
+    tables = np.zeros((4, 8), np.int32)
+    tables[0, :3] = [2, 4, 6]
+    tables[1, :8] = [1, 3, 5, 7, 8, 9, 10, 11]
+    tables[2, :2] = [12, 13]
+    lengths = np.array([18, 60, 14, 0])
+    cow_src = np.array([0, 14, 0, 0])
+    cow_dst = np.array([0, 11, 0, 0])
+    tokens = rng.integers(1, 64, (4, k + 1))
+    keys = np.stack([rng.integers(0, 2 ** 32, 2, dtype=np.uint32)
+                     for _ in range(4)])
+    out = {}
+    for route in ("gather", "fused"):
+        g = torch.Generator(device="cpu").manual_seed(9)
+        shape = (nb, block, cfg.heads, cfg.head_dim)
+        cache = {"layers": [{n: torch.randn(shape, generator=g).to(card)
+                             for n in ("k", "v")}
+                            for _ in range(cfg.layers)]}
+        fn = make_verify_step(cfg, block, k, paged_attention=route)
+        before = ak.paged_decode_attention.launches
+        _, samples, accepted = fn(params, cache, tables, lengths, tokens,
+                                  keys, [3, 7, 1, 0], [0.0, 0.8, 0.0, 0.0],
+                                  [0, 40, 0, 0], cow_src, cow_dst)
+        launched = ak.paged_decode_attention.launches - before
+        assert launched == (cfg.layers * (k + 1) if route == "fused" else 0)
+        out[route] = (samples.cpu(), accepted.cpu(), cache)
+    (gs, ga, gc), (fs, fa, fc) = out["gather"], out["fused"]
+    # slot 0 reads only mapped blocks; slot 1 up to its capacity (positions
+    # 60..63); slot 2 the first two positions (14, 15)
+    assert torch.equal(fs[0], gs[0])
+    assert torch.equal(fs[1, :4], gs[1, :4])
+    assert torch.equal(fs[2, :2], gs[2, :2])
+    assert torch.equal(fa[:2], ga[:2])
+    for lf, lg in zip(fc["layers"], gc["layers"]):
+        for name in ("k", "v"):
+            torch.testing.assert_close(lf[name][1:], lg[name][1:],
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_speculative_streams_match_plain(card):
+    """The speculative engine (fused, fp32, a smaller draft, k 3) gives the
+    plain engine's greedy and sampled streams; the verify step launches
+    the paged kernel."""
+    from deeplearning4j_tpu_torch.serving import SpecConfig
+    cfg = TransformerConfig(**_LIFE_CFG, dtype=torch.float32,
+                            attention_impl="flash")
+    dcfg = TransformerConfig(**dict(_LIFE_CFG, hidden=32, layers=1,
+                                    mlp_dim=64), dtype=torch.float32,
+                             attention_impl="flash")
+    params = init_params(cfg, seed=4, device=card)
+    dparams = init_params(dcfg, seed=5, device=card)
+    rng = np.random.default_rng(51)
+    reqs = [(rng.integers(0, 64, int(rng.integers(3, 20))).astype(np.int32),
+             dict(max_new_tokens=12, eos_id=None, seed=i,
+                  **({} if i % 2 else dict(temperature=0.8, top_k=40))))
+            for i in range(6)]
+    streams = {}
+    for spec in (None, SpecConfig(dparams, dcfg, k=3),
+                 SpecConfig(params, cfg, k=3)):
+        with GenerationEngine(params, cfg, slots=4, max_len=64,
+                              block_size=8, paged_attention="fused",
+                              speculative=spec, device=card) as eng:
+            hs = [eng.submit(p, **kw) for p, kw in reqs]
+            streams[spec is None, spec and spec.draft_cfg is cfg] = [
+                h.result(timeout=120) for h in hs]
+            if spec is not None and spec.draft_cfg is cfg:
+                assert eng.metrics.spec_acceptance_rate.value >= 0.9
+    plain = streams[True, None]
+    assert streams[False, False] == plain
+    assert streams[False, True] == plain

@@ -1,11 +1,14 @@
 """Head dims, the paged kernel's split plan and the fused AdamW's leaf table
 of the PyTorch port (deeplearning4j_tpu_torch), on the CPU.
 
-- The attention kernels take every head dim 1..256, as the JAX package's
-  packed route does (it asserts only that the packed width divides by the
-  heads); the port's flash route at the reference's TINY widths (head dim
-  8) and at head dim 48 gives the JAX package's loss and gradients, its
-  Pallas kernels in interpret mode.
+- The attention kernels take every head dim from 1 up, as the JAX
+  package's packed route does (it asserts only that the packed width
+  divides by the heads): widths past 256 (the card's chunked kernels) too,
+  against its packed kernel, forward and backward at 320, and paged decode
+  at 1280 against its paged kernel, all in interpret mode; only a head
+  dim below 1 refuses. The port's flash route at the reference's TINY
+  widths (head dim 8) and at head dim 48 gives the JAX package's loss and
+  gradients.
 - The paged kernel's split plan is a pure function of the table's width
   and the block size.
 - ``fused_adamw``'s leaf table rebuilds when the tree or a leaf changes,
@@ -23,7 +26,8 @@ import jax.numpy as jnp
 
 from deeplearning4j_tpu.models import bert as jbert
 from deeplearning4j_tpu.ops.pallas_kernels import (
-    _mha_packed_forward, mha_attention_packed as jax_mha_packed)
+    _mha_packed_forward, mha_attention_packed as jax_mha_packed,
+    paged_decode_attention as jax_paged_decode)
 from deeplearning4j_tpu_torch.models import bert as tbert
 from deeplearning4j_tpu_torch.ops import attention_kernels as ak
 from deeplearning4j_tpu_torch.ops import updaters
@@ -43,10 +47,11 @@ def _one_torch_thread():
 
 
 @pytest.mark.parametrize("d", [1, 8, 16, 24, 48, 64, 96, 100, 128, 160,
-                               256])
+                               256, 257, 264, 512])
 def test_predicate_takes_what_the_reference_packed_route_takes(d):
-    """Every head dim up to 256 that the reference's packed forward runs,
-    the port's kernels take; its result there is the port's plain
+    """Every head dim the reference's packed forward runs, the port's
+    kernels take (past 256 in 256-wide chunks on the card, within one
+    CTA's shared memory); its result there is the port's plain
     version's."""
     heads = 2
     rng = np.random.default_rng(d)
@@ -65,18 +70,42 @@ def test_predicate_takes_what_the_reference_packed_route_takes(d):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("d", [0, -1, 257, 264, 512])
+@pytest.mark.parametrize("d", [0, -1, -64])
 def test_predicate_refuses_past_the_limit(d):
-    """D > 256 is the kernels' shared-memory limit; the error names it,
-    and past it the bytes that width would need."""
+    """Only a head dim below 1 refuses, at the default scale as at a given
+    one; the error names the bound."""
     assert not ak.kernel_head_dim_ok(d)
-    with pytest.raises(ValueError, match=f"1 to {ak.MAX_KERNEL_HEAD_DIM}") \
-            as ei:
-        ak._check_kernel_operands("mha_packed_fwd", d)
-    if d > ak.MAX_KERNEL_HEAD_DIM:
-        need = ak.backward_smem_bytes(d)
-        assert need > ak.MAX_BLOCK_SMEM_BYTES
-        assert f"{need} bytes" in str(ei.value)
+    for scale in (None, 1.0):
+        with pytest.raises(ValueError, match="head_dim >= 1"):
+            ak._scale("mha_packed_fwd", d, scale)
+
+
+def _zero_width_calls():
+    q, lse = torch.zeros(1, 8, 0), torch.zeros(1, 2, 8)
+    q3, vec = torch.zeros(2, 8, 0), torch.zeros(2, 1, 8)
+    pool = torch.zeros(3, 4, 1, 0)
+    tables = torch.zeros(2, 1, dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    return {
+        "mha_packed_forward": lambda: ak.mha_packed_forward(q, q, q, 2),
+        "mha_packed_backward": lambda: ak.mha_packed_backward(
+            q, q, q, q, lse, 2),
+        "mha_attention_packed": lambda: ak.mha_attention_packed(q, q, q, 2),
+        "flash_forward": lambda: ak.flash_forward(q3, q3, q3),
+        "flash_bwd_dq": lambda: ak.flash_bwd_dq(q3, q3, q3, q3, vec, vec),
+        "flash_bwd_dkv": lambda: ak.flash_bwd_dkv(q3, q3, q3, q3, vec, vec),
+        "flash_attention": lambda: ak.flash_attention(q3, q3, q3),
+        "paged_decode_attention": lambda: ak.paged_decode_attention(
+            torch.zeros(2, 1, 0), pool, pool, tables, pos, block_size=4),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_zero_width_calls()))
+def test_wrapper_refuses_zero_width_head_at_default_scale(name):
+    """Every attention wrapper called without a scale refuses a zero-width
+    head with the bound named, before it takes 1/sqrt(d)."""
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        _zero_width_calls()[name]()
 
 
 def _packed_vjp_inputs(seed, t, heads, d):
@@ -85,11 +114,12 @@ def _packed_vjp_inputs(seed, t, heads, d):
             for _ in range(4)]
 
 
-@pytest.mark.parametrize("d", [8, 48])
+@pytest.mark.parametrize("d", [8, 48, 320])
 @pytest.mark.parametrize("causal", [True, False])
 def test_packed_forward_and_backward_at_head_dim(d, causal):
-    """The packed forward and backward at the head dims the padded kernels
-    now run, against the JAX package's custom-VJP kernel."""
+    """The packed forward and backward at head dims the padded kernels run
+    (8, 48) and one the chunked kernels run (320), against the JAX
+    package's custom-VJP kernel."""
     heads = 4 if d == 8 else 2
     q, k, v, g = _packed_vjp_inputs(60 + d, 24, heads, d)
 
@@ -109,6 +139,43 @@ def test_packed_forward_and_backward_at_head_dim(d, causal):
     for name, a, b in zip("qkv", grads, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5,
                                    atol=2e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+def test_paged_decode_wide_head_matches_jax(quantized):
+    """Paged decode at head dim 1280 (two 1024-wide chunks on the card)
+    against the JAX package's paged kernel in interpret mode: two splits'
+    worth of positions, a dead slot on the scratch block."""
+    from deeplearning4j_tpu_torch.models import quantize_kv
+    rng = np.random.default_rng(1280)
+    S, H, D, B, nbmax = 3, 1, 1280, 16, 6
+    NB = S * nbmax + 1
+    q = rng.standard_normal((S, H, D)).astype(np.float32)
+    kf = rng.standard_normal((NB, B, H, D)).astype(np.float32)
+    vf = rng.standard_normal((NB, B, H, D)).astype(np.float32)
+    tables = np.zeros((S, nbmax), np.int32)
+    tables[0] = np.arange(1, 1 + nbmax)
+    tables[1, :3] = [9, 11, 13]
+    pos = np.array([nbmax * B - 1, 40, 0], np.int32)   # slot 2: dead
+    scales = {}
+    if quantized:
+        kq, ks = quantize_kv(torch.from_numpy(kf))
+        vq, vs = quantize_kv(torch.from_numpy(vf))
+        kp, vp = kq.numpy(), vq.numpy()
+        scales = dict(k_scale=ks.numpy(), v_scale=vs.numpy())
+    else:
+        kp, vp = kf, vf
+    ref = jax_paged_decode(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(pos), block_size=B,
+        interpret=True, **{n: jnp.asarray(a) for n, a in scales.items()})
+    got = ak.paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(pos), block_size=B,
+        **{n: torch.from_numpy(a) for n, a in scales.items()})
+    # fp32 both sides; the softmax sums in another order
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
 
 
 # tests/test_models.py's TINY (head dim 32 / 4 = 8), and a head dim of 48
