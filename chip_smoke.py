@@ -37,7 +37,8 @@ seconds:
    widths; 160 and 256 on the 256-wide instances, in opted-in dynamic
    shared memory; 320 and 512 on the chunked kernels, 256 dims a CTA),
    fp32 and bf16, causal and not, with their CUDA launches per call and
-   shared memory per block (read from the profiler's kernel records)
+   shared memory per block (read from a captured CUDA graph's kernel
+   nodes)
    and, in bf16, their times at 256, 320 and 512; paged decode at head
    dim 1280 (the wide kernel) on a bf16 and an int8 pool; head dim 0
    must refuse at the default scale;
@@ -86,6 +87,19 @@ seconds:
    in every k > 0 cell), acceptance, best speedup, row 6's launches
    (layers x (k + 1) per verify turn); then a self-draft with real logits
    at k 4, token-equal to the engine phase;
+   resilience and qos — the engine phase's model, pool and mix under the
+   serving resilience layer: the tracer off, an empty fault plan and the
+   tracer on (decode tokens/s of each, every request's events);
+   transient prefill and decode faults absorbed by retries (token-equal,
+   retries == faults fired, success rate, p99 latency); a poisoned
+   decode step failing typed; the engine breaker's open, typed shed and
+   half-open probe; a watchdog restart whose stale step leaves the
+   replacement's streams untouched; the QoS ratios (weights 3:1 over a
+   preloaded queue, an interactive request overtaking a batch flood, a
+   quota shed, a ``preemptible=False`` tenant never preempted on a tight
+   on-demand pool); every engine's ledger and shutdown law, the thread
+   count and ``torch.cuda.memory_allocated()`` back to their values
+   before the phase; a merged Chrome trace to ``chiprun_out/``;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -124,6 +138,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -924,8 +939,8 @@ def head_dim_phase():
                 worst[label] = share
         smem[d] = head_dim_launches(rng, d)
         log(f"head dims: D{d} bf16: CUDA launches per call and shared "
-            f"memory per block (bytes), from the profiler's kernel "
-            f"records: {json.dumps(smem[d])}; "
+            f"memory per block (bytes), from the captured graph's kernel "
+            f"nodes: {json.dumps(smem[d])}; "
             f"{-(-d // ak.ATTENTION_CHUNK)} CTA(s) per (row tile, head), "
             f"one per {ak.ATTENTION_CHUNK}-dim chunk")
     for d in (320, 512):
@@ -972,9 +987,9 @@ def head_dim_phase():
 
 def head_dim_launches(rng, d):
     """Each attention wrapper called once at head dim ``d`` (bf16,
-    non-causal, the phase's shapes) under the profiler: per call, the
-    shared memory per block of each CUDA launch, in launch order, as the
-    device tracer recorded it. Fails unless the forward and each
+    non-causal, the phase's shapes), captured in a CUDA graph: per call,
+    the shared memory per block of each kernel launch, in launch order,
+    as the driver holds it. Fails unless the forward and each
     streamed pass launch once, the packed backward twice (dq, then
     dk/dv), and every block fits the card's shared memory."""
     import torch
@@ -1090,8 +1105,8 @@ def wide_paged_cases(rng):
         log(f"head dims: paged D{D} {kv} pool: max_abs_err {err:.3e} (tol "
             f"{tol:.3e}; {share:.3f} of {rule}), two calls bit-equal; "
             f"splits {n_splits} of {per} blocks, CUDA launches per call "
-            f"and shared memory per block (bytes), from the profiler's "
-            f"kernel records: {launched}; "
+            f"and shared memory per block (bytes), from the captured "
+            f"graph's kernel nodes: {launched}; "
             f"{-(-D // ak.PAGED_CHUNK)} CTA(s) per (split, head); kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.5f} ms "
             f"({b_by})")
@@ -2475,6 +2490,455 @@ def report_profile(prof, wall_ms, label):
     return kernels
 
 
+def timed_mix(eng, prompts, max_new, **kw):
+    """Submit every prompt; (streams or exceptions, per-request submit to
+    terminal ms, wall s). A failed request's entry is its exception."""
+    t0 = time.perf_counter()
+    subs, done = [], {}
+    hs = []
+    for i, p in enumerate(prompts):
+        subs.append(time.perf_counter())
+        h = eng.submit(p, max_new_tokens=max_new, **kw)
+        h.future.add_done_callback(
+            lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
+        hs.append(h)
+    outs = []
+    for h in hs:
+        try:
+            outs.append(h.result(timeout=600))
+        except Exception as e:
+            outs.append(e)
+    wall = time.perf_counter() - t0
+    lat = [(done[i] - subs[i]) * 1e3 for i in range(len(hs))]
+    return outs, lat, wall
+
+
+def held_order(eng, holder, specs):
+    """Hold the scheduler in ``holder``'s first token, queue every
+    ``(prompt, kwargs)`` of ``specs`` behind it, release it, and return
+    the specs' indices in the order they were seated (their first tokens,
+    which come from the prefills in the queue's pop order) with the
+    streams."""
+    gate, entered = threading.Event(), threading.Event()
+    order = []
+    lock = threading.Lock()
+
+    def hold(_tok):
+        if not entered.is_set():
+            entered.set()
+            gate.wait(120)
+
+    p, kw = holder
+    hs = [eng.submit(p, on_token=hold, **kw)]
+    try:
+        check(entered.wait(120), "qos: the holder never started")
+        for i, (p, kw) in enumerate(specs):
+            seen = []
+
+            def first(_tok, i=i, seen=seen):
+                if not seen:
+                    seen.append(1)
+                    with lock:
+                        order.append(i)
+            hs.append(eng.submit(p, on_token=first, **kw))
+    finally:
+        gate.set()
+    outs = [h.result(timeout=600) for h in hs]
+    return order, outs
+
+
+def resilience_qos_phase(cfg, params, prompts, plain_streams,
+                         engine_tok_s, device="cuda", max_new=64):
+    """The serving engine's resilience, QoS, tracing and ledger at full
+    width: the engine phase's BERT-base causal LM (bf16, 16 slots, max_len
+    512, 16-token blocks, fused route) on the seeded 32-request chat mix,
+    64 new tokens. Every check fails the run.
+
+    1-2. The mix in turns, two rounds: the tracer off, an installed empty
+       plan, ``Tracer(sample_rate=1.0)`` on (every request's events run
+       ``submit`` ... ``stream.finish``, ``retire``), and transient faults
+       (``FaultPlan(seed=0)``: ``generation.decode_step`` at rate 0.05
+       and at 1, 3, 7; ``generation.prefill`` at 0, 2) under
+       ``RetryPolicy(max_attempts=4, seed=0)`` (retries == faults fired,
+       no request fails). Every stream token-equal to the engine phase's;
+       each run's decode tokens/s, ms a decode step and tokens a step
+       beside the engine phase's; the faulted runs' p50 and p99 latency.
+    3. Poison: an out-of-vocab id at one decode step fails that iteration's
+       streams with ``PoisonedResultError``; the engine serves on.
+    4. Breaker: a persistent prefill fault opens the engine breaker after 3
+       failures; ``submit`` sheds typed ``circuit_open``; after the 0.5 s
+       cooldown one half-open probe closes it; later streams token-equal.
+    5. Watchdog: ``arm_watchdog(500)``, a 2000 ms delay at one decode step:
+       the live streams fail typed ``watchdog``, exactly one restart, and
+       the mix submitted after the restart (pass after pass, until one was
+       in flight when the stale thread woke and wrote its late step into
+       the abandoned pool) is token-equal.
+    6. QoS (the JAX package's ``fairness_leg``, ``bench.py:864-1000``,
+       through the generation engine): two batch tenants at weights 3:1
+       draining a preloaded queue (the first-40 split of seats), an
+       interactive request overtaking a batch flood, a quota shed typed
+       ``quota_exceeded``; under ``allocate="on_demand"`` on a tight pool
+       that swaps its victims to host memory, a ``preemptible=False``
+       tenant is never preempted while others are, and every stream
+       resumed by swap-in or never preempted is token-equal.
+    7. Ledger: ``ResourceLedger`` per engine after its scenarios,
+       ``check_shutdown`` after each ``shutdown()``, the thread count back
+       to its value before the phase, and ``torch.cuda.memory_allocated()``
+       back to its value before the phase once the engines are collected.
+    The Chrome trace of step 1's traced run, merged with the engine's
+    ``OpProfiler`` spans, goes to ``chiprun_out/resilience_trace.json``.
+    """
+    import gc
+
+    import torch
+
+    from deeplearning4j_tpu_torch.serving.ledger import (
+        process_thread_counts)
+    from deeplearning4j_tpu_torch.util import crash_reporting
+
+    def allocated():
+        """Bytes of live tensors on the card, without cuBLAS's per-handle
+        workspaces: a restart's new scheduler thread may take a new
+        handle, and its workspace is cached for the process's life."""
+        gc.collect()
+        torch.cuda.synchronize()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return torch.cuda.memory_allocated()
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    crash_reporting.crashDumpOutputDirectory("chiprun_out")
+    mem_before = allocated()
+    threads_before = process_thread_counts()[0]
+    reset_launches()
+    base = dict(slots=16, max_len=cfg.max_seq, paged_attention="fused",
+                device=device)
+
+    def same(outs, label, idx=None):
+        want = plain_streams if idx is None else [plain_streams[i]
+                                                  for i in idx]
+        bad = [i for i, (a, b) in enumerate(zip(outs, want)) if a != b]
+        check(not bad, f"resilience: {label}: streams {bad} differ from "
+              "the engine phase's")
+
+    # each part returns numbers only: its engines, handles and exceptions
+    # (whose tracebacks hold the engine's frames) die with its frame
+    stats = resilience_scenarios(cfg, params, prompts, engine_tok_s,
+                                 max_new, base, same)
+    stats.update(qos_scenarios(cfg, params, prompts, max_new, base, same))
+
+    # ---- 7: the process after the phase ---------------------------------
+    n = read_launches()
+    stats.update(packed_launches=n["mha_attention_packed"],
+                 paged_launches=n["paged_decode_attention"])
+    check(n["mha_attention_packed"] > 0 and n["paged_decode_attention"] > 0,
+          "resilience: the phase launched no packed or paged kernel")
+    deadline = time.monotonic() + 10.0
+    while process_thread_counts()[0] > threads_before \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    threads_after = process_thread_counts()[0]
+    check(threads_after <= threads_before,
+          f"ledger: {threads_after} threads after the phase, "
+          f"{threads_before} before")
+    mem_after = allocated()
+    # the caching allocator rounds each block to 512 bytes; allow 1 MiB
+    check(abs(mem_after - mem_before) <= 1 << 20,
+          f"ledger: {mem_after - mem_before} bytes still allocated after "
+          "the phase's engines were collected")
+    crash_reporting.crashDumpOutputDirectory(None)
+    stats.update(threads_before=threads_before, threads_after=threads_after,
+                 memory_allocated_before=mem_before,
+                 memory_allocated_after=mem_after)
+    log(f"resilience and qos ({CARD}): " + json.dumps(stats, default=str))
+    return stats
+
+
+def resilience_scenarios(cfg, params, prompts, engine_tok_s, max_new, base,
+                         same):
+    """Parts 1-5 of :func:`resilience_qos_phase` on one engine."""
+    from deeplearning4j_tpu_torch.profiler import OpProfiler
+    from deeplearning4j_tpu_torch.serving import (
+        CircuitBreaker, CircuitOpenError, FaultPlan, GenerationEngine,
+        PoisonedResultError, ResourceLedger, RetryPolicy, Tracer,
+        WatchdogTimeoutError, check_shutdown)
+
+    stats = {}
+    V = cfg.vocab_size
+    tracer = Tracer(sample_rate=1.0, capacity=512, enabled=False)
+    prof = OpProfiler()
+    eng = GenerationEngine(
+        params, cfg, queue_capacity=2 * len(prompts) + 16,
+        retry_policy=RetryPolicy(max_attempts=4, seed=0),
+        breaker=CircuitBreaker(failure_threshold=3, cooldown_s=0.5),
+        tracer=tracer, profiler=prof, name="resilience", **base)
+    eng.warmup()
+    ledger = ResourceLedger(engines=[eng])
+    ledger.baseline()
+    m = eng.metrics
+
+    def mix(label, **kw):
+        """The mix once; its streams and latencies, and its decode
+        tokens/s split into ms a decode step and tokens a step."""
+        w0, t0, n0 = m.decode_wall_ms.value, m.generated_tokens_total.value \
+            - m.prefills_total.value, m.decode_steps_total.value
+        outs, lat, _wall = timed_mix(eng, prompts, max_new, **kw)
+        same(outs, label)
+        wall = (m.decode_wall_ms.value - w0) / 1e3
+        toks = m.generated_tokens_total.value - m.prefills_total.value - t0
+        steps = m.decode_steps_total.value - n0
+        runs.setdefault(label, []).append(
+            {"decode_tokens_per_sec": toks / wall,
+             "decode_step_ms": wall * 1e3 / steps,
+             "tokens_per_step": toks / steps})
+        return outs, lat
+
+    def transient_plan():
+        return (FaultPlan(seed=0)
+                .fail("generation.decode_step", rate=0.05, at=(1, 3, 7))
+                .fail("generation.prefill", at=(0, 2)))
+
+    # 1-2. the mix in turns, two rounds: tracer off, an installed empty
+    # plan, the tracer on, the 5% transient plan (retried)
+    runs, lats, fired, retries = {}, [], [], []
+    for _round in range(2):
+        mix("tracer_off")
+        with FaultPlan(seed=0):
+            mix("empty_plan")
+        tracer.clear()
+        tracer.enabled = True
+        mix("tracer_on")
+        tracer.enabled = False
+        traces = [t for t in tracer.traces() if t.reason == "ok"]
+        check(len(traces) == len(prompts), f"tracing: {len(traces)} "
+              f"traces retained for {len(prompts)} requests")
+        for t in traces:
+            n = t.event_names()
+            check(n[:5] == ["submit", "queue.admit", "queue.wait",
+                            "slot.assign", "prefill"]
+                  and n[-2:] == ["stream.finish", "retire"]
+                  and n.count("decode.step") == max_new - 1,
+                  f"tracing: event names {n[:6]} ... {n[-3:]}")
+        r0 = m.retries_total.value
+        with transient_plan() as plan:
+            outs, lat = mix("transient_plan")
+        failed = [o for o in outs if isinstance(o, Exception)]
+        check(not failed, f"transient: {len(failed)} requests failed: "
+              f"{failed[:1]}")
+        fired.append(len(plan.fired()))
+        retries.append(m.retries_total.value - r0)
+        check(fired[-1] > 0 and retries[-1] == fired[-1],
+              f"transient: {retries[-1]} retries for {fired[-1]} faults")
+        lats += lat
+    path = prof.export_chrome_trace("chiprun_out/resilience_trace.json",
+                                    tracer=tracer)
+    spans = prof.summary()
+    check({"serving.prefill", "serving.decode_step"} <= set(spans),
+          f"tracing: spans {sorted(spans)}")
+    stats["chrome_trace"] = path
+    stats["chrome_trace_events"] = len(
+        json.load(open(path))["traceEvents"])
+    stats["decode_tokens_per_sec_engine_phase"] = engine_tok_s
+    for label, rs in runs.items():
+        stats[f"decode_tokens_per_sec_{label}"] = [
+            r["decode_tokens_per_sec"] for r in rs]
+        stats[f"decode_step_ms_{label}"] = [r["decode_step_ms"] for r in rs]
+        stats[f"tokens_per_step_{label}"] = [r["tokens_per_step"]
+                                             for r in rs]
+    stats.update(transient_faults_fired=fired, transient_retries=retries,
+                 transient_success_rate=1.0,
+                 transient_latency_ms_p99=float(np.percentile(lats, 99)),
+                 transient_latency_ms_p50=float(np.percentile(lats, 50)))
+
+    # 3. poison: an out-of-vocab id at the 4th decode step under the plan
+    p0 = m.poisoned_results_total.value
+    poison = FaultPlan(seed=0).poison(
+        "generation.decode_step",
+        lambda out: (out[0], np.full(16, V + 7, np.int64)), at=(3,))
+    with poison:
+        outs, _lat, _w = timed_mix(eng, prompts[:4], 8)
+    failed = [o for o in outs if isinstance(o, Exception)]
+    check(failed and all(isinstance(o, PoisonedResultError)
+                         and o.reason == "poisoned" for o in failed)
+          and all(len(o) == 8 for o in outs if not isinstance(o, Exception)),
+          f"poison: terminals {[type(o).__name__ for o in outs]}")
+    check(m.poisoned_results_total.value - p0 == 1,
+          "poison: one poisoned iteration expected")
+    stats["poison_failed_streams"] = len(failed)
+    outs, _lat, _w = timed_mix(eng, prompts[:8], max_new)
+    same(outs, "after poison", idx=range(8))
+
+    # 4. breaker
+    opened0 = m.breaker_opened_total.value
+    # a prefill fault: a request that fails at its prefill records no
+    # success between the failures, so they are consecutive
+    persistent = FaultPlan(seed=0).fail("generation.prefill", rate=1.0)
+    with persistent:
+        for _ in range(3):
+            outs, _lat, _w = timed_mix(eng, prompts[:1], 4)
+            check(type(outs[0]).__name__ == "FaultInjectedError",
+                  f"breaker: {outs[0]!r}")
+        check(eng.breaker.state == "OPEN",
+              f"breaker: {eng.breaker.state} after 3 failures")
+        try:
+            eng.submit(prompts[0], max_new_tokens=4)
+            check(False, "breaker: submit was not shed while OPEN")
+        except CircuitOpenError as e:
+            check(e.reason == "circuit_open", f"breaker: {e.reason}")
+    time.sleep(0.6)
+    outs, _lat, _w = timed_mix(eng, prompts[:1], max_new)   # the probe
+    check(eng.breaker.state == "CLOSED", "breaker: the probe did not close")
+    outs2, _lat, _w = timed_mix(eng, prompts[:8], max_new)
+    same(outs + outs2[1:], "after breaker", idx=[0] + list(range(1, 8)))
+    check((m.breaker_opened_total.value - opened0,
+           m.rejections_by_reason.get("circuit_open")) == (1, 1),
+          "breaker: one open and one circuit_open shed expected")
+    stats["breaker_cycle"] = [m.breaker_opened_total.value,
+                              m.breaker_half_open_total.value,
+                              m.breaker_closed_total.value]
+
+    # 5. watchdog: a 2000 ms stall at a decode step, 500 ms watchdog
+    eng.arm_watchdog(500)
+    stale = eng._thread
+    stall = FaultPlan(seed=0).delay("generation.decode_step", ms=2000,
+                                    at=(5,))
+    t_stall = time.perf_counter()
+    with stall:
+        outs, _lat, _w = timed_mix(eng, prompts[:4], max_new)
+        check(all(isinstance(o, WatchdogTimeoutError)
+                  and o.reason == "watchdog" for o in outs),
+              f"watchdog: terminals {[type(o).__name__ for o in outs]}")
+        t_restart = time.perf_counter() - t_stall
+        # the mix again and again while the stale thread sleeps, until one
+        # pass was in flight when it woke, ran its late step against the
+        # abandoned pool and ended
+        passes, overlap = 0, False
+        while not overlap and passes < 20:
+            alive = stale.is_alive()
+            outs, _lat, wall = timed_mix(eng, prompts, max_new)
+            same(outs, f"after watchdog (pass {passes})")
+            overlap = alive and not stale.is_alive()
+            passes += 1
+    stale.join(timeout=30)
+    check(not stale.is_alive(), "watchdog: the stale thread never ended")
+    check(overlap, "watchdog: no post-restart pass was in flight when the "
+          "stale step woke")
+    check(eng.watchdog_restarts == 1 and m.watchdog_restarts.value == 1,
+          f"watchdog: {eng.watchdog_restarts} restarts")
+    stats.update(watchdog_restart_s=t_restart,
+                 watchdog_post_restart_passes=passes)
+    bad = ledger.check(timeout_s=10.0)
+    check(not bad, f"resilience: ledger {bad}")
+    eng.shutdown()
+    bad = check_shutdown(eng)
+    check(not bad, f"resilience: shutdown law {bad}")
+    stats["resilience_rejections"] = m.rejections_by_reason.to_dict()
+    return stats
+
+
+def qos_scenarios(cfg, params, prompts, max_new, base, same):
+    """Part 6 of :func:`resilience_qos_phase`: the policy engine, then a
+    ``preemptible=False`` tenant on a tight on-demand pool."""
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, QosPolicy, QuotaExceededError, ResourceLedger,
+        Tracer, check_shutdown)
+
+    stats = {}
+    V = cfg.vocab_size
+    # ---- 6: QoS ---------------------------------------------------------
+    clock = [0.0]
+    pol = QosPolicy({
+        "heavy": {"weight": 3.0, "priority": "batch"},
+        "light": {"weight": 1.0, "priority": "batch"},
+        "batcher": {"priority": "batch"},
+        "user": {"priority": "interactive"},
+        "q": {"quota": 1.0, "quota_burst": 1.0}}, clock=lambda: clock[0])
+    rng = np.random.default_rng(1)
+    short = [rng.integers(0, V, 8).astype(np.int32) for _ in range(120)]
+    with GenerationEngine(params, cfg, qos=pol, queue_capacity=256,
+                          name="qos", **base) as qeng:
+        qeng.warmup()
+        qledger = ResourceLedger(engines=[qeng])
+        qledger.baseline()
+        holder = (short[0], dict(max_new_tokens=4, tenant="light"))
+        specs = [(short[k], dict(max_new_tokens=8, tenant=t))
+                 for k in range(60) for t in ("heavy", "light")]
+        order, outs = held_order(qeng, holder, specs)
+        head = [specs[i][1]["tenant"] for i in order[:40]]
+        n_h, n_l = head.count("heavy"), head.count("light")
+        check(all(len(o) == 8 for o in outs[1:]), "qos: short streams")
+        check(n_h == 30 and n_l == 10,
+              f"qos: first-40 seats {n_h} heavy : {n_l} light, want 30:10")
+        specs = [(short[k], dict(max_new_tokens=8, tenant="batcher"))
+                 for k in range(40)]
+        specs.append((short[40], dict(max_new_tokens=8, tenant="user")))
+        order, _outs = held_order(qeng, (short[1], dict(
+            max_new_tokens=4, tenant="batcher")), specs)
+        check(order[0] == 40, f"qos: the interactive request was seated "
+              f"{order.index(40) + 1}th")
+        qeng.submit(short[2], max_new_tokens=2, tenant="q").result(
+            timeout=600)
+        try:
+            qeng.submit(short[3], max_new_tokens=2, tenant="q")
+            check(False, "qos: the quota did not shed")
+        except QuotaExceededError as e:
+            check(e.reason == "quota_exceeded", f"qos: {e.reason}")
+        qm = qeng.metrics
+        check(qm.rejections_by_reason.get("quota_exceeded") == 1,
+              "qos: one quota shed expected")
+        stats.update(
+            qos_first40_heavy_light=[n_h, n_l],
+            qos_goodput_ratio=n_h / max(n_l, 1),
+            qos_interactive_seat=order.index(40) + 1,
+            qos_interactive_queue_wait_ms_mean=qm.queue_wait_by_class[
+                "interactive"].mean,
+            qos_batch_queue_wait_ms_mean=qm.queue_wait_by_class[
+                "batch"].mean,
+            qos_served=qm.qos_snapshot()["tenants"])
+        bad = qledger.check(timeout_s=10.0)
+        check(not bad, f"qos: ledger {bad}")
+    check(not check_shutdown(qeng), f"qos: {check_shutdown(qeng)}")
+
+    # a preemptible=False tenant on a tight on-demand pool. Every victim
+    # parks its blocks in host memory and resumes by swap-in, token-equal
+    # to the engine phase's streams (a recompute prefill would round the
+    # bf16 K/V unlike the decode steps that first wrote them)
+    ppol = QosPolicy({"pinned": {"priority": "batch", "preemptible": False},
+                      "bulk": {"priority": "batch"}})
+    ptracer = Tracer(sample_rate=1.0, capacity=256)
+    with GenerationEngine(params, cfg, qos=ppol, allocate="on_demand",
+                          num_blocks=96, swap_threshold_blocks=0,
+                          swap_capacity_blocks=512, tracer=ptracer,
+                          queue_capacity=len(prompts) + 16, name="pinned",
+                          **base) as peng:
+        # 4 pinned streams fit the pool together (4 x 12 blocks at most),
+        # so a pinned stream always finds a bulk victim or room
+        tenants = ["pinned" if i % 8 == 0 else "bulk"
+                   for i in range(len(prompts))]
+        hs = [peng.submit(p, max_new_tokens=max_new, tenant=t)
+              for p, t in zip(prompts, tenants)]
+        outs = [h.result(timeout=600) for h in hs]
+        evictions = [[a for name, _t, a in h._req.trace.events
+                      if name == "preempt"] for h in hs]
+        held = [i for i, ev in enumerate(evictions)
+                if all(a["swapped"] for a in ev)]
+        check(len(held) == len(prompts), f"qos: {len(prompts) - len(held)} "
+              "preempted stream(s) resumed by recompute, not by swap-in")
+        same(outs, "preemptible=False")
+        pre = peng.metrics.preemptions_total.value
+        pinned_pre = sum(len(ev) for ev, t in zip(evictions, tenants)
+                         if t == "pinned")
+        check(pre > 0 and pinned_pre == 0,
+              f"qos: {pre} preemptions, {pinned_pre} of the pinned tenant")
+        stats.update(qos_preemptions=pre, qos_pinned_preemptions=pinned_pre,
+                     qos_preempted_streams=sum(1 for ev in evictions if ev),
+                     qos_streams_token_equal=len(held),
+                     qos_swapped_blocks=peng.metrics.kv_swapped_blocks.value)
+    check(not check_shutdown(peng), f"pinned: {check_shutdown(peng)}")
+    return stats
+
+
 def timed_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2545,6 +3009,9 @@ def main() -> int:
     timed_phase("speculative fp32", speculative_fp32_phase, cfg, prompts)
     spec = timed_phase("speculative", speculative_phase, cfg, params,
                        prompts, engine["float32"]["streams"])
+    resil = timed_phase("resilience and qos", resilience_qos_phase, cfg,
+                        params, prompts, engine["float32"]["streams"],
+                        engine["float32"]["decode_tokens_per_sec"])
     del params
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
@@ -2605,6 +3072,10 @@ def main() -> int:
         if name == "fused_adamw":
             kernels[-1].update(kernel_ms=main["kernel_ms"],
                                host_ms=main["host_ms"])
+        if name == "mha_attention_packed":
+            kernels[-1]["launches_resilience_qos"] = resil["packed_launches"]
+        if name == "paged_decode_attention":
+            kernels[-1]["launches_resilience_qos"] = resil["paged_launches"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

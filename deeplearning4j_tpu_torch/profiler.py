@@ -6,15 +6,26 @@
 TPU's, and no peak is assumed here. For an NVIDIA H100 SXM the data
 sheet's dense bf16 tensor-core rate is 989e12 FLOP/s at 700 W.
 
-``cuda_launches`` reads what a call launched on the card from the
-profiler's own record of each kernel: its name, grid, block and shared
-memory per block (static and dynamic, as the device reported them).
+``cuda_launches`` reads what a call launches on the card from the CUDA
+driver: the call is captured into a CUDA graph and each kernel node gives
+its function's name, grid, block and shared memory per block (static and
+dynamic).
+
+``OpProfiler`` is the port of the reference's span collector (``getInstance``,
+``span``, ``summary``, ``export_chrome_trace``): named wall-clock spans,
+nestable, exported as a Chrome trace, optionally merged with a serving
+``Tracer``'s request lanes on one clock. The serving engine opens its
+``serving.*`` spans on it.
 """
 from __future__ import annotations
 
+import ctypes
 import json
-import os
-import tempfile
+import threading
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import List, Optional
 
 MFU_BASIS = "analytic_model_flops: 6*N_nonemb + 12*L*H*T per token"
 
@@ -50,26 +61,169 @@ def non_embedding_params(params, cfg) -> int:
         - cfg.max_seq * cfg.hidden
 
 
-def cuda_launches(fn) -> list:
-    """Run ``fn()`` once under ``torch.profiler`` and return the CUDA
-    kernels it launched, in launch order: ``[{"name", "grid", "block",
-    "shared_memory"}]``, ``shared_memory`` the bytes one block holds as
-    the device tracer (CUPTI) recorded them. Needs a card."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+# CUDA driver API values (cuda.h)
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+_CU_FUNC_ATTRIBUTE_SHARED_SIZE_BYTES = 1
 
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` (cuda.h), with room to spare."""
+    _fields_ = [("func", ctypes.c_void_p),
+                ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p),
+                ("_spare", ctypes.c_byte * 64)]
+
+
+def _graph_kernels(graph: int, device: int) -> list:
+    """The kernel nodes of CUDA graph ``graph``, in the order they were
+    captured, as the driver holds them."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        rc = getattr(cu, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} failed: CUresult {rc}")
+
+    g = ctypes.c_void_p(graph)
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", g, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+    out = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        p = _KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+             ctypes.byref(p))
+        static = ctypes.c_int(0)
+        name = ctypes.c_char_p()
+        if p.func:   # a CUfunction, else a context-free CUkernel
+            call("cuFuncGetAttribute", ctypes.byref(static),
+                 _CU_FUNC_ATTRIBUTE_SHARED_SIZE_BYTES,
+                 ctypes.c_void_p(p.func))
+            call("cuFuncGetName", ctypes.byref(name),
+                 ctypes.c_void_p(p.func))
+        else:
+            call("cuKernelGetAttribute", ctypes.byref(static),
+                 _CU_FUNC_ATTRIBUTE_SHARED_SIZE_BYTES,
+                 ctypes.c_void_p(p.kern), device)
+            call("cuKernelGetName", ctypes.byref(name),
+                 ctypes.c_void_p(p.kern))
+        out.append({"name": (name.value or b"").decode(),
+                    "grid": list(p.grid), "block": list(p.block),
+                    "shared_memory": static.value + p.shared_mem_bytes})
+    return out
+
+
+def cuda_launches(fn) -> list:
+    """The CUDA kernels one call of ``fn()`` launches, in launch order:
+    ``[{"name", "grid", "block", "shared_memory"}]``. ``fn`` runs once to
+    warm up, then once captured into a CUDA graph, and each kernel node is
+    read from the driver: the function's (mangled) name, the grid, the
+    block, and the shared memory one block holds, the function's static
+    bytes plus the launch's dynamic bytes. Memory copies and sets are not
+    kernels and are left out. Needs a card; ``fn`` must be capturable (no
+    host sync) and launch the same kernels each call. (The profiler's
+    kernel records drop launches: ``tools/cuda_trace_drops.py``.)"""
+    import torch
+
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
-                     key=lambda e: e["ts"])
-    return [{"name": e["name"], "grid": e["args"]["grid"],
-             "block": e["args"]["block"],
-             "shared_memory": e["args"]["shared memory"]} for e in kernels]
+    try:
+        return _graph_kernels(graph.raw_cuda_graph(),
+                              torch.cuda.current_device())
+    finally:
+        graph.reset()
+
+
+@dataclass
+class _Span:
+    name: str
+    start_us: float
+    dur_us: float
+    tid: int
+    args: Optional[dict] = None
+
+
+class OpProfiler:
+    """Span collector with Chrome-trace export (counterpart:
+    ``deeplearning4j_tpu/profiler/profiler.py`` ``OpProfiler``; its
+    ``ProfilerConfig`` panic modes come with ``ProfilingListener``). Use
+    ``with profiler.span("train_step"):`` around anything; nesting shows
+    as Chrome trace's duration-event stacking per thread."""
+
+    _instance: Optional["OpProfiler"] = None
+
+    def __init__(self):
+        self._spans: List[_Span] = []
+        self._lock = threading.Lock()
+        self._t0 = time.perf_counter()
+
+    @classmethod
+    def getInstance(cls) -> "OpProfiler":
+        if cls._instance is None:
+            cls._instance = OpProfiler()
+        return cls._instance
+
+    def reset(self):
+        with self._lock:
+            self._spans = []
+            self._t0 = time.perf_counter()
+
+    @contextmanager
+    def span(self, name: str, **args):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            end = time.perf_counter()
+            with self._lock:
+                self._spans.append(_Span(
+                    name=name, start_us=(start - self._t0) * 1e6,
+                    dur_us=(end - start) * 1e6,
+                    tid=threading.get_ident() % 100000,
+                    args=args or None))
+
+    @property
+    def spans(self) -> List[_Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def summary(self) -> dict:
+        """name -> {count, total_ms, mean_ms} (ref: printOutDashboard)."""
+        agg: dict = {}
+        for s in self.spans:
+            d = agg.setdefault(s.name, {"count": 0, "total_ms": 0.0})
+            d["count"] += 1
+            d["total_ms"] += s.dur_us / 1000.0
+        for d in agg.values():
+            d["mean_ms"] = d["total_ms"] / d["count"]
+        return agg
+
+    def export_chrome_trace(self, path: str, tracer=None) -> str:
+        """Chrome-trace JSON of the collected spans (pid 1). Pass a
+        ``serving.tracing.Tracer`` to merge its retained request traces
+        into the same file on the same perf_counter clock: one lane per
+        engine, one thread lane per request, beside the spans."""
+        events = [{"name": s.name, "ph": "X", "ts": s.start_us,
+                   "dur": s.dur_us, "pid": 1, "tid": s.tid,
+                   **({"args": s.args} if s.args else {})}
+                  for s in self.spans]
+        if tracer is not None:
+            events.append({"ph": "M", "name": "process_name", "pid": 1,
+                           "args": {"name": "training"}})
+            events.extend(tracer.chrome_events(t0=self._t0))
+        with open(path, "w") as f:
+            json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
+        return path

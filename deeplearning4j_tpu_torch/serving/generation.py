@@ -41,15 +41,41 @@ each stream commits the prefix of the draft's proposals that matches the
 target's own samples, plus the target's next sample. The tokens are the
 plain engine's at any k; only the steps per token change.
 
-Ported: the paged cache and the contiguous one (``paged=False``),
-``kv_dtype`` ``float32``/``int8``, the ``gather``/``fused`` decode
-attention routes, greedy/temperature/top-k sampling, EOS and max-token
-retirement, bounded FIFO admission with deadlines, shared prefixes,
-on-demand allocation with preemption and recompute- or swap-on-resume,
-the automatic prefix cache, drain, speculative decoding with its draft
-breaker and acceptance governor, one device. QoS policies, resilience
-(retries, watchdog, epochs), tracing, page migration, the model registry
-and meshes are not ported yet. The reference's ``compiled_signatures`` and
+Resilience, as the reference's: the target model's steps run through
+seeded fault points (``generation.prefill``, ``generation.decode_step``,
+``generation.verify_step``; :mod:`.faults`) and a :class:`~.resilience.
+RetryPolicy` that retries only failures tagged transient that raised
+before the step launched anything; an engine-wide
+:class:`~.resilience.CircuitBreaker` sheds submits typed
+``circuit_open`` while open; a :class:`~.resilience.Watchdog`
+(``watchdog_timeout_ms`` / :meth:`arm_watchdog`) replaces a scheduler
+that stops heartbeating. The steps write K/V into the pool in place, so
+every replacement builds a NEW pool (the KV cache and its slots; paged,
+the allocator, block tables and prefix cache with them) and swaps it in
+with the epoch bump in one locked step. Each scheduler turn binds the
+current pool at its top and reaches no other: a stale thread's late
+writes land in the pool it bound and its results are dropped. The
+watchdog covers host stalls: a thread blocked inside a CUDA call on a
+hung kernel cannot be replaced, since the new thread's launches queue
+behind it on the same stream. Sampled ids are screened (out of vocab,
+non-finite) on the host copy the step already makes; a poisoned
+iteration fails typed ``poisoned``. The draft points and the swap copies
+(``kv.swap_out``, ``kv.swap_in``) degrade instead of failing a stream.
+
+Multi-tenant QoS (``qos=QosPolicy``; :mod:`.qos`): weighted-fair queues
+with strict priority classes, quotas, an SLO-burn governor and the
+``preemptible=False`` exemption. Tracing (``tracer=Tracer``; :mod:`.tracing`)
+records each request's events (``submit``, ``queue.admit``,
+``queue.wait``, ``slot.assign``, ``prefill``, ``decode.step``,
+``retry.attempt``, ``preempt``, ``kv.swap``, ``watchdog.restart``,
+``stream.finish``, ``retire``); the engine opens ``serving.*`` spans on
+its :class:`~deeplearning4j_tpu_torch.profiler.OpProfiler` and registers
+with the resource ledger (:mod:`.ledger`, :meth:`ledger_stats`). With no
+policy, no fault plan and the default (disabled) tracer, streams are the
+plain engine's.
+
+Not ported yet: page migration, the model registry, the RPC data plane
+and meshes. The reference's ``compiled_signatures`` and
 ``draft_compiled_signatures`` count XLA executables; the port runs
 eagerly and has none to count.
 """
@@ -75,20 +101,33 @@ from deeplearning4j_tpu_torch.models.bert import (
     make_paged_decode_step, make_paged_prefill, make_prefill,
     make_verify_step, validate_block_size, validate_kv_dtype)
 from deeplearning4j_tpu_torch.models.random import prng_key
+from deeplearning4j_tpu_torch.profiler import OpProfiler
 from deeplearning4j_tpu_torch.serving.admission import (
     AdmissionController, HostDrainingError, KVBlocksExhaustedError,
     PreemptedError, RejectedError, Request)
 from deeplearning4j_tpu_torch.serving.engine import bucket_ladder
+from deeplearning4j_tpu_torch.serving.faults import inject
+from deeplearning4j_tpu_torch.serving.ledger import track_engine
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.paging import (
     BlockAllocator, BlockSwapStore, PrefixCache, SharedPrefix, SwapEntry,
     blocks_for_tokens, kv_bytes_per_token)
 from deeplearning4j_tpu_torch.serving.qos import (
-    PRIORITIES, SpecAcceptanceGovernor, resolve_qos)
-from deeplearning4j_tpu_torch.serving.resilience import CircuitBreaker
+    PRIORITIES, SloBurnGovernor, SpecAcceptanceGovernor, resolve_qos)
+from deeplearning4j_tpu_torch.serving.resilience import (
+    CircuitBreaker, ResilientEngineMixin, RetryPolicy, WatchdogTimeoutError)
+from deeplearning4j_tpu_torch.serving.tracing import terminal_reason
 
 _DONE = object()
 _UNSET = object()   # submit()'s "use the engine default" eos sentinel
+
+
+def _host(x) -> np.ndarray:
+    """A step result's host copy: the one device-to-host copy a step
+    makes (a poison rule may already have replaced it by a host array)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def prefill_buckets(max_len: int, min_bucket: int = 8) -> Tuple[int, ...]:
@@ -264,7 +303,38 @@ class _Slot:
     draft_len: int = -1
 
 
-class GenerationEngine:
+@dataclasses.dataclass(eq=False)
+class _Pool:
+    """Everything a scheduler turn writes, built new and replaced whole:
+    the KV cache (the steps write K/V into its tensors in place), the
+    slots seated in it, and for a paged engine the block tables, the
+    allocator their ids come from, the automatic prefix cache (it holds
+    that allocator's references) and the block waiter; a speculative
+    engine's draft cache. A scheduler thread binds the engine's current
+    pool at the top of each turn and reaches no other, so a thread staled
+    by a watchdog restart can only write into the pool it bound. The
+    engine swaps ``_pool`` under ``_wd_lock``; ``engine._pool is pool``,
+    read under that lock, decides whether a thread's work still counts."""
+
+    epoch: int
+    cache: Dict[str, Any]
+    slots: List[Optional[_Slot]]
+    allocator: Optional[BlockAllocator] = None
+    tables: Optional[np.ndarray] = None
+    prefix_cache: Optional[PrefixCache] = None
+    draft_cache: Optional[Dict[str, Any]] = None
+    # the dequeued request waiting for KV blocks: (request, demand,
+    # priority); freed blocks accumulate toward it instead of being taken
+    # by same-or-lower-class requests behind it
+    block_waiter: Optional[Tuple[Request, int, str]] = None
+    # the request in prefill: a restart fails it with the live slots
+    inflight_prefill: Optional[Request] = None
+
+    def live_count(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+
+class GenerationEngine(ResilientEngineMixin):
     """Iteration-level scheduler over one causal LM and one KV cache on one
     device.
 
@@ -315,9 +385,27 @@ class GenerationEngine:
     policy); cached blocks are reclaimed on demand and never gate
     admission.
 
+    ``qos`` (a :class:`~deeplearning4j_tpu_torch.serving.qos.QosPolicy`)
+    orders the queue by priority class and weighted fair share, meters
+    tenant quotas and queue bounds, sheds batch traffic while the SLO
+    burns, and exempts ``preemptible=False`` tenants from being another
+    stream's preemption victim. ``retry_policy`` (default: 3 attempts,
+    transient-tagged failures only), ``breaker`` (default: opens after 5
+    consecutive failures) and ``retry_budget`` (default: unmetered) shape
+    the resilience layer; ``watchdog_timeout_ms`` arms the scheduler
+    watchdog (arm it after warm-up: a first use reads like a stall).
+    ``tracer`` (default: the process tracer, disabled) records request
+    traces, ``recorder`` (default: the process flight recorder) the
+    noteworthy events, ``profiler`` (default: ``OpProfiler.getInstance()``)
+    the ``serving.*`` spans; ``screen_outputs`` fails an iteration whose
+    sampled ids are out of vocab or non-finite.
+
     The engine keeps one compute-dtype copy of the weights on ``device``,
     made once here (:func:`~deeplearning4j_tpu_torch.models.bert.
     compute_params`); ``device`` defaults to ``"cuda"``."""
+
+    _COMPONENT = "serving.GenerationEngine"
+    _FAILURE_NOUN = "prefill/decode"
 
     def __init__(self, params, cfg, *, slots: int = 8,
                  max_len: Optional[int] = None,
@@ -336,7 +424,13 @@ class GenerationEngine:
                  default_timeout_ms: Optional[float] = None,
                  eos_id: Optional[int] = None,
                  metrics: Optional[ServingMetrics] = None,
+                 profiler: Optional[OpProfiler] = None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 breaker: Optional[CircuitBreaker] = None,
+                 retry_budget=None, qos=None,
                  speculative: Optional[SpecConfig] = None,
+                 watchdog_timeout_ms: Optional[float] = None,
+                 tracer=None, recorder=None, screen_outputs: bool = True,
                  device=None, name: str = "generation"):
         if not cfg.causal:
             raise ValueError(
@@ -356,6 +450,7 @@ class GenerationEngine:
         self.eos_id = eos_id
         self.name = name
         self.metrics = metrics or ServingMetrics()
+        self.profiler = profiler or OpProfiler.getInstance()
         self.paged = paged
         if paged:
             if allocate not in ("reserve", "on_demand"):
@@ -448,16 +543,8 @@ class GenerationEngine:
         self._pending_prefix: Deque[Tuple[str, Optional[Future]]] = deque()
         self._prefix_ids = itertools.count()
         self._prefix_busy = False
-        self._allocator: Optional[BlockAllocator] = None
-        self._tables: Optional[np.ndarray] = None
-        # the automatic prefix cache, rebuilt with the pool; warmup sets
-        # _cache_bypass so every rung's probe really prefills
-        self._prefix_cache: Optional[PrefixCache] = None
+        # warmup sets _cache_bypass so every rung's probe really prefills
         self._cache_bypass = False
-        # the dequeued request waiting for KV blocks: (request, demand,
-        # priority); freed blocks accumulate toward it instead of being
-        # taken by same-or-lower-class requests behind it
-        self._block_waiter: Optional[Tuple[Request, int, str]] = None
         # speculative decoding: the draft's steps and THE verify step, the
         # draft's own breaker (a failing draft degrades turns to plain
         # decode, never sheds) and the per-tenant acceptance governor
@@ -500,22 +587,36 @@ class GenerationEngine:
             self._draft_breaker = CircuitBreaker(name=f"{name}.draft")
             self._spec_governor = SpecAcceptanceGovernor(
                 speculative.min_acceptance, speculative.min_proposed)
-        self._slots: List[Optional[_Slot]] = [None] * slots
-        self._reset_cache()
+        # multi-tenant QoS: weighted-fair queues, quotas and the SLO-burn
+        # governor; None keeps the plain FIFO path
+        self.qos = qos
+        self._qos_governor = SloBurnGovernor(qos, self.metrics) \
+            if qos is not None else None
         self._admission = AdmissionController(
             capacity_rows=queue_capacity,
-            default_timeout_ms=default_timeout_ms, unit="requests")
+            default_timeout_ms=default_timeout_ms, unit="requests",
+            policy=qos)
         self._admission.on_shed = self._count_shed
         self._admission.on_close_reject = self._count_close_reject
+        self._admission.on_cancelled = self._count_cancelled
         # requests admitted and not yet terminal (drain's exit condition)
         self._outstanding = 0
         self._outstanding_lock = threading.Lock()
         self._draining = False
         self._stop = threading.Event()
+        self.screen_outputs = screen_outputs
+        self._init_resilience(retry_policy=retry_policy, breaker=breaker,
+                              retry_budget=retry_budget,
+                              tracer=tracer, recorder=recorder)
+        self._pool = self._new_pool()
+        self._pool_gauges()
         self._thread = threading.Thread(
-            target=self._loop, name=f"generation-scheduler[{self.name}]",
-            daemon=True)
+            target=self._loop, args=(0,),
+            name=f"generation-scheduler[{self.name}]", daemon=True)
         self._thread.start()
+        if watchdog_timeout_ms is not None:
+            self.arm_watchdog(watchdog_timeout_ms)
+        track_engine(self)   # weak: the resource ledger's registry
 
     # ------------------------------------------------------------ lifecycle
     def __enter__(self) -> "GenerationEngine":
@@ -528,7 +629,9 @@ class GenerationEngine:
         """Idempotent: stop the scheduler; queued and in-flight requests
         are rejected ('shutdown') — partial streams keep what they have in
         :meth:`GenerationHandle.tokens_so_far`; waiting
-        :meth:`register_prefix` callers are rejected too."""
+        :meth:`register_prefix` callers are rejected too. The watchdog
+        stops and the engine's listeners leave its breaker first."""
+        self._shutdown_resilience()
         self._stop.set()
         self._admission.close()
         with self._prefix_lock:
@@ -542,6 +645,7 @@ class GenerationEngine:
                     "shutdown"))
             except InvalidStateError:
                 pass
+        self._recorder.record("engine.shutdown", engine=self.name)
         if wait and self._thread.is_alive():
             self._thread.join(timeout=30.0)
 
@@ -565,14 +669,7 @@ class GenerationEngine:
         to force ``shutdown()``). The automatic prefix cache is released
         on both exits: admission is closed, so nothing can match it
         again."""
-        self._draining = True
-        deadline = None if timeout is None else time.monotonic() + timeout
-        ok = True
-        while not self.drained:
-            if deadline is not None and time.monotonic() >= deadline:
-                ok = False
-                break
-            time.sleep(0.005)
+        ok = self._drain_wait(timeout)
         if release_prefixes and self._prefix_cache is not None:
             before = len(self._prefix_cache)
             self._prefix_cache.release_all()
@@ -609,10 +706,13 @@ class GenerationEngine:
         ``prefix_id`` names a :meth:`register_prefix` prefix: the stream's
         sequence is ``prefix + prompt``, the prefix's pinned blocks are
         referenced (its prefill happened once) and only the prompt rides
-        the decode step. ``tenant`` and ``priority`` (``"interactive"``,
-        the default, or ``"batch"``) attribute the request; without a QoS
-        policy the queue stays FIFO, and preemption never evicts a stream
-        of a higher class than the one that needs the blocks.
+        the decode step. ``tenant`` and ``priority`` (``"interactive"``
+        or ``"batch"``; by default the tenant's configured class, else
+        ``"interactive"``) attribute the request: under the engine's
+        ``qos`` policy they order the queue (a configured tenant may not
+        escalate above its class), without one the queue stays FIFO; and
+        preemption never evicts a stream of a higher class than the one
+        that needs the blocks.
 
         ``resume_tokens``/``resume_step`` seat the stream at a resume
         point: the delivered tokens ride the prompt through one recompute
@@ -620,7 +720,7 @@ class GenerationEngine:
         (which must equal ``len(resume_tokens)``). ``swap_key`` names
         parked blocks to re-seat from instead (it needs
         ``resume_tokens``, the fallback on a miss)."""
-        tenant, priority = resolve_qos(tenant, priority)
+        tenant, priority = resolve_qos(self.qos, tenant, priority)
         toks = np.ascontiguousarray(np.asarray(prompt, np.int32).ravel())
         if toks.size == 0:
             raise ValueError("prompt must contain at least one token")
@@ -679,14 +779,29 @@ class GenerationEngine:
             key=prng_key(seed), prefix_id=prefix_id,
             resume_tokens=resume_tokens, resume_step=int(resume_step),
             swap_key=swap_key)
-        req = Request(x=greq, rows=1, tenant=tenant, priority=priority)
+        trace = self._tracer.begin(self.name, "generate",
+                                   prompt_len=int(toks.size),
+                                   max_new_tokens=max_new_tokens,
+                                   tenant=tenant)
+        if resume_tokens is not None:
+            self.metrics.stream_resumes_total.inc()
+            trace.event("stream.resume", resume_step=int(resume_step))
+        req = Request(x=greq, rows=1, trace=trace, tenant=tenant,
+                      priority=priority)
         greq.handle = GenerationHandle(req, toks.size, on_token=on_token)
-        self.metrics.requests_total.inc()
+        self._count_request()
         if self._draining:
+            # drain outranks every other gate: the host is leaving
             e = HostDrainingError(
                 f"engine[{self.name}] is draining — admission is closed")
-            self.metrics.record_rejection(e.reason)
+            self._reject_submit(trace, e, tenant=tenant)
             raise e
+        self._breaker_gate(trace, tenant=tenant)
+        if self._qos_governor is not None:
+            e = self._qos_governor.gate(priority)
+            if e is not None:
+                self._reject_submit(trace, e, tenant=tenant)
+                raise e
         # structural shed: a footprint the pool can never hold (capacity
         # minus prefix pins) fails typed now, not after a queue wait that
         # cannot end another way
@@ -703,7 +818,7 @@ class GenerationEngine:
                 "excluded) — shrink the request or grow num_blocks",
                 needed=needed, usable=usable,
                 capacity=self._allocator.capacity)
-            self.metrics.record_rejection(e.reason)
+            self._reject_submit(trace, e, tenant=tenant)
             raise e
         with self._outstanding_lock:
             self._outstanding += 1
@@ -712,7 +827,7 @@ class GenerationEngine:
         except RejectedError as e:
             with self._outstanding_lock:
                 self._outstanding -= 1
-            self.metrics.record_rejection(e.reason)
+            self._reject_submit(trace, e, tenant=tenant)
             raise
         req.future.add_done_callback(self._terminal)
         self.metrics.queue_depth.set(self._admission.depth_requests)
@@ -806,6 +921,8 @@ class GenerationEngine:
             blocks, prefix.blocks = prefix.blocks, None
             if blocks:
                 self._allocator.free(blocks)
+        self._recorder.record("prefix.release", engine=self.name,
+                              prefix_id=prefix_id)
         return True
 
     def _usable_blocks(self, excluding: Optional[str] = None) -> int:
@@ -821,49 +938,93 @@ class GenerationEngine:
 
     # ------------------------------------------------------------ scheduler
     def _live_count(self) -> int:
-        return sum(s is not None for s in self._slots)
+        return self._pool.live_count()
 
-    def _reset_cache(self):
-        """(Re)allocate the cache as one consistent empty state — at
-        construction and after a failed prefill or decode step, whose
-        partial writes may have left it inconsistent. Paged: the block
-        pool, allocator and block tables together; every registered prefix
-        loses its blocks (it re-prefills on its next use); cached and
-        swapped blocks are dropped without freeing: their references
-        belong to the old allocator. A speculative engine's draft cache is
-        rebuilt with it."""
-        self._cache = init_kv_cache(
-            self.cfg, self.slots, self.max_len, dtype=self._cache_dtype,
-            block_size=self.block_size, num_blocks=self.num_blocks,
-            kv_dtype=self.kv_dtype, device=self.device)
+    # the current pool's parts, for readers outside the scheduler thread;
+    # the scheduler's own code reaches only the pool it bound
+    @property
+    def _cache(self) -> Dict[str, Any]:
+        return self._pool.cache
+
+    @property
+    def _allocator(self) -> Optional[BlockAllocator]:
+        return self._pool.allocator
+
+    @property
+    def _prefix_cache(self) -> Optional[PrefixCache]:
+        return self._pool.prefix_cache
+
+    def _new_pool(self) -> _Pool:
+        """Allocate a pool that shares nothing with any earlier one: the
+        KV cache, empty slots and, paged, a fresh allocator, zeroed block
+        tables and an empty prefix cache; a speculative engine's draft
+        cache."""
+        pool = _Pool(epoch=self._epoch, slots=[None] * self.slots,
+                     cache=init_kv_cache(
+                         self.cfg, self.slots, self.max_len,
+                         dtype=self._cache_dtype, block_size=self.block_size,
+                         num_blocks=self.num_blocks, kv_dtype=self.kv_dtype,
+                         device=self.device))
         if self.paged:
-            self._block_waiter = None
-            if self._prefix_cache is not None:
-                self._prefix_cache.invalidate()
-            if self._swap_store is not None:
-                self._swap_store.invalidate()
-            with self._prefix_lock:
-                self._allocator = BlockAllocator(self.num_blocks, reserved=1)
-                self._tables = np.zeros(
-                    (self.slots, self.max_blocks_per_slot), np.int32)
-                for p in self._prefixes.values():
-                    p.blocks = None
-            self._prefix_cache = (
-                PrefixCache(self._allocator, self.block_size,
-                            self.prefix_cache_blocks)
-                if self.prefix_cache_blocks else None)
-            self.metrics.kv_blocks_total.set(self._allocator.capacity)
-            self._update_block_gauges()
+            pool.allocator = BlockAllocator(self.num_blocks, reserved=1)
+            pool.tables = np.zeros((self.slots, self.max_blocks_per_slot),
+                                   np.int32)
+            if self.prefix_cache_blocks:
+                pool.prefix_cache = PrefixCache(
+                    pool.allocator, self.block_size, self.prefix_cache_blocks)
         if self._spec is not None:
-            self._reset_draft_cache()
+            pool.draft_cache = self._new_draft_cache()
+        return pool
 
-    def _reset_draft_cache(self):
-        """(Re)allocate the draft model's contiguous cache: at
-        construction, with every cache rebuild, and after a failed draft
-        call. Live slots become draft-cold; the caller marks them."""
-        self._draft_cache = init_draft_kv_cache(
-            self._draft_cfg, self.slots, self._draft_max_len,
-            device=self.device)
+    def _swap_pool(self, pool: _Pool, restart: bool = False) -> _Pool:
+        """Make ``pool`` current and return the one it replaces; the
+        caller holds ``_wd_lock``. ``restart`` bumps the epoch in the same
+        step. Every registered prefix loses its blocks at once (under
+        ``_prefix_lock``, so a prefix's blocks are always the current
+        allocator's; it re-prefills on its next use) and the swap store's
+        entries go (parked from the replaced pool)."""
+        with self._prefix_lock:
+            old = self._pool
+            if restart:
+                self._epoch += 1
+            pool.epoch = self._epoch
+            self._pool = pool
+            for p in self._prefixes.values():
+                p.blocks = None
+        if self._swap_store is not None:
+            self._swap_store.invalidate()
+        return old
+
+    def _reset_cache(self, stale: Optional[_Pool] = None) -> bool:
+        """Replace the pool by a NEW one in one consistent empty state,
+        after a failed step whose partial writes may have left the old one
+        inconsistent. ``stale`` is the failing thread's pool: when a
+        watchdog restart replaced it first, nothing is replaced (False).
+        Cached and swapped blocks go with the old pool, unfreed: their
+        references are the old allocator's."""
+        pool = self._new_pool()
+        with self._wd_lock:
+            if stale is not None and self._pool is not stale:
+                return False
+            self._swap_pool(pool)
+        self._pool_gauges()
+        return True
+
+    def _pool_gauges(self):
+        if not self.paged:
+            return
+        self.metrics.kv_blocks_total.set(self._allocator.capacity)
+        self.metrics.kv_block_bytes.set(self.kv_block_bytes)
+        self.metrics.kv_pool_hbm_bytes.set(
+            self.num_blocks * self.kv_block_bytes)
+        self._update_block_gauges()
+
+    def _new_draft_cache(self) -> Dict[str, Any]:
+        """A new draft-model contiguous cache: with every pool, and after
+        a failed draft call. Live slots become draft-cold; the caller
+        marks them."""
+        return init_draft_kv_cache(self._draft_cfg, self.slots,
+                                   self._draft_max_len, device=self.device)
 
     @property
     def kv_block_bytes(self) -> int:
@@ -883,61 +1044,114 @@ class GenerationEngine:
 
     def _update_block_gauges(self):
         """Pool occupancy (blocks held, over capacity), prefix pins, the
-        reservation slack (blocks mapped into a stream's table but not yet
-        written: the worst-case tail ``reserve`` holds idle), and the
-        prefix-cache and swap-store occupancy. Paged engines only."""
-        alloc = self._allocator
+        fragmentation (the share of touched block capacity holding no
+        token), the reservation slack (blocks mapped into a stream's table
+        but not yet written: the worst-case tail ``reserve`` holds idle),
+        and the prefix-cache and swap-store occupancy. Paged engines
+        only."""
+        pool = self._pool
+        alloc = pool.allocator
         if alloc is None:
             return
         B = self.block_size
         in_use = alloc.in_use
         with self._prefix_lock:
-            pinned = sum(len(p.blocks) for p in self._prefixes.values()
-                         if p.blocks)
+            ready = [p for p in self._prefixes.values() if p.blocks]
+            pinned = sum(len(p.blocks) for p in ready)
+            tokens = sum(p.length for p in ready)
+            touched = sum(blocks_for_tokens(p.length, B) for p in ready)
         slack = 0
-        for st in list(self._slots):
+        for st in list(pool.slots):
             if st is not None:
                 local = max(0, st.length - (st.prefix_len // B) * B)
+                tokens += local
+                touched += blocks_for_tokens(local, B)
                 slack += max(0, (st.n_entries - st.prefix_len // B)
                              - blocks_for_tokens(local, B))
         cap = alloc.capacity
         self.metrics.kv_blocks_in_use.set(in_use)
         self.metrics.kv_blocks_pinned.set(pinned)
+        self.metrics.kv_hbm_bytes_in_use.set(in_use * self.kv_block_bytes)
         self.metrics.kv_block_occupancy.set(in_use / cap if cap else 0.0)
+        self.metrics.kv_fragmentation.set(
+            max(0.0, 1.0 - tokens / (touched * B)) if touched else 0.0)
         self.metrics.kv_reservation_slack.set(slack)
         self.metrics.prefix_cache_blocks.set(
-            self._prefix_cache.total_blocks
-            if self._prefix_cache is not None else 0)
+            pool.prefix_cache.total_blocks
+            if pool.prefix_cache is not None else 0)
         self.metrics.kv_swapped_blocks_held.set(
             self._swap_store.blocks_held
             if self._swap_store is not None else 0)
 
-    def _loop(self):
-        # the step's staging arrays, allocated once for this thread and
-        # refilled in place every iteration
+    def _loop(self, epoch: int):
+        """Scheduler loop for one epoch. Each turn binds the current pool
+        and works on it alone. A watchdog restart bumps the epoch and
+        swaps in a new pool: this (possibly wedged) thread exits at its
+        next bind, and whatever it computes meanwhile lands in its own
+        pool and is dropped at its next ``self._pool is pool`` check."""
+        # the step's staging arrays, allocated once for THIS thread and
+        # refilled in place every iteration: a replacement scheduler runs
+        # its own _loop and so its own buffers
         buf = self._make_step_buffers()
         try:
             while not self._stop.is_set():
-                self._drain_prefix_queue()
-                self._admit()
-                if self._live_count() and not self._stop.is_set():
+                pool = self._pool
+                if pool.epoch != epoch:
+                    break
+                if self._watchdog is not None:
+                    self._watchdog.beat()
+                if self.paged:
+                    self._drain_prefix_queue(pool)
+                self._admit(pool)
+                if pool.live_count() and self._pool is pool:
                     try:
-                        self._decode_iteration(buf)
+                        self._decode_iteration(pool, buf)
                     except Exception as e:   # fail tenants, keep the thread
-                        self._on_device_failure(e)
+                        # a verify failure stamps its own fault point
+                        self._on_device_failure(
+                            e, pool,
+                            point=getattr(e, "fault_point",
+                                          "generation.decode_step"))
         finally:
-            if self._stop.is_set():
+            # queued requests are failed by _admission.close() itself; a
+            # stale thread must not fail its replacement's tenants
+            pool = self._pool
+            if self._stop.is_set() and pool.epoch == epoch:
                 self._fail_live(RejectedError(
-                    "engine shut down mid-generation", "shutdown"))
+                    "engine shut down mid-generation", "shutdown"), pool)
 
-    def _on_device_failure(self, exc: BaseException):
-        """A failed prefill/decode may have written part of its K/V: fail
-        every live tenant and rebuild the pool."""
-        self.metrics.failed_total.inc()
-        self._fail_live(exc)
-        self._reset_cache()
+    def _on_device_failure(self, exc: BaseException, pool: _Pool,
+                           point: str):
+        """The failure tail of a prefill, decode or verify step: it may
+        have written part of its K/V, so every live tenant fails and the
+        pool is rebuilt. The breaker counts the failure; the first real
+        (not injected, not typed) failure writes a crash dump. A stale
+        thread's failure (``pool`` no longer current) touches nothing of
+        its replacement's. When no new pool can be built (a CUDA error
+        that poisoned the context), the engine stops: the live streams
+        hold the step's error, queued requests are rejected ``shutdown``
+        and the flight recorder notes ``engine.lost``."""
+        self._breaker.record_failure()
+        if not getattr(exc, "injected", False) \
+                and not isinstance(exc, RejectedError):
+            # recorded before the dump, so the dump's snapshot has it
+            self._recorder.record("device.failure", engine=self.name,
+                                  point=point, error=type(exc).__name__)
+        self._maybe_crash_dump(exc, point=point)
+        with self._wd_lock:
+            current = self._pool is pool
+        if not current:
+            return
+        self._fail_live(exc, pool)
+        try:
+            self._reset_cache(stale=pool)
+        except Exception as lost:
+            self._recorder.record("engine.lost", engine=self.name,
+                                  error=f"{type(lost).__name__}: {lost}")
+            self._stop.set()
+            self._admission.close()
 
-    def _admit(self):
+    def _admit(self, pool: _Pool):
         """Fill free slots from the queue. Waits briefly only when the
         engine is idle; with live tenants admission is opportunistic so
         decode cadence never stalls on an empty queue. Each head is
@@ -946,20 +1160,25 @@ class GenerationEngine:
         decode-feed seat or a prefill."""
         self._admission.expire_queued()
         for i in range(self.slots):
-            if self._stop.is_set():
+            if self._stop.is_set() or self._pool is not pool:
                 return
-            if self._slots[i] is not None:
+            if pool.slots[i] is not None:
                 continue
-            idle = self._live_count() == 0
+            idle = pool.live_count() == 0
             req = self._admission.take(1, timeout=0.05 if idle else 0.0)
             self.metrics.queue_depth.set(self._admission.depth_requests)
             if req is None:
                 if idle:
                     return
                 continue
+            if self._pool is not pool:
+                # the pool was replaced while this turn waited: the turn
+                # that binds the new one takes the request
+                self._admission.requeue_head(req)
+                return
             prefix = cached = None
             if self.paged:
-                verdict, prefix, cached = self._plan_blocks(req)
+                verdict, prefix, cached = self._plan_blocks(pool, req)
                 if verdict == "shed":
                     continue
                 if verdict == "wait":
@@ -971,29 +1190,47 @@ class GenerationEngine:
                 if not req.future.set_running_or_notify_cancel():
                     if cached is not None:
                         # the plan's match references must not outlive it
-                        self._allocator.free(cached[2])
+                        pool.allocator.free(cached[2])
                     self._discard_swap(greq)
+                    self._finish_request(req.trace, "cancelled",
+                                         tenant=req.tenant)
                     continue     # caller cancelled while queued
             if not resumed:
-                self.metrics.queue_wait_ms.observe(
-                    (time.perf_counter() - req.submit_t) * 1e3)
-            if greq.swap_key is not None and self._swap_in_seat(i, req):
+                qw = (time.perf_counter() - req.submit_t) * 1e3
+                self.metrics.queue_wait_ms.observe(qw)
+                self.metrics.observe_queue_wait_class(req.priority, qw)
+                req.trace.event("queue.wait", queue_wait_ms=round(qw, 3))
+            if greq.swap_key is not None and self.paged \
+                    and self._swap_in_seat(pool, i, req):
                 continue
             if prefix is not None or cached is not None:
-                self._seat_stream(i, req, prefix, cached)
+                self._seat_stream(pool, i, req, prefix, cached)
                 continue
             if self.paged and resumed and int(greq.prompt.size) \
                     + int(greq.resume_tokens.size) > self.buckets[-1]:
                 # the recompute prompt outgrew the prefill ladder: rebuild
                 # the K/V through the decode-feed seat instead
-                self._seat_stream(i, req, None, None)
+                self._seat_stream(pool, i, req, None, None)
                 continue
+            with self._wd_lock:   # the watchdog sees the in-flight prefill
+                pool.inflight_prefill = req
             try:
-                self._prefill_into(i, req)
+                self._prefill_into(pool, i, req)
             except Exception as e:
+                self.metrics.failed_total.inc()
+                req.trace.event("prefill.failed", error=type(e).__name__)
+                # the outcome is recorded by the terminal's winner only:
+                # a watchdog that failed this request first keeps its own
                 if greq.handle._fail(e):
-                    self.metrics.record_rejection("model_error")
-                self._on_device_failure(e)
+                    self._finish_request(
+                        req.trace, terminal_reason(e),
+                        latency_ms=(time.perf_counter() - req.submit_t)
+                        * 1e3, tenant=req.tenant)
+                self._on_device_failure(e, pool,
+                                        point="generation.prefill")
+            finally:
+                with self._wd_lock:
+                    pool.inflight_prefill = None
 
     # ------------------------------------------------- paged block planning
     def _fresh_blocks_needed(self, prefix_len: int, n_prompt: int,
@@ -1025,15 +1262,7 @@ class GenerationEngine:
             prefix.length if prefix is not None else 0,
             n, greq.max_new_tokens - greq.resume_step, admit=admit)
 
-    def _shed_typed(self, req: Request, exc: RejectedError):
-        """Fail a dequeued request with a typed serving error."""
-        try:
-            req.future.set_exception(exc)
-        except InvalidStateError:
-            return   # the caller cancelled it first
-        self.metrics.record_rejection(exc.reason)
-
-    def _plan_blocks(self, req: Request):
+    def _plan_blocks(self, pool: _Pool, req: Request):
         """Dispose of the dequeued head: ``("ok", prefix, cached)`` when its
         seat demand fits the free pool (``cached`` the prefix cache's hit
         ``(entry, m, blocks)``, its block references this planner's),
@@ -1052,7 +1281,8 @@ class GenerationEngine:
                     f"shared prefix {greq.prefix_id!r} was released while "
                     "this request was queued")
                 if greq.handle._fail(e):
-                    self.metrics.record_rejection("client_error")
+                    self._finish_request(req.trace, "client_error",
+                                         tenant=req.tenant)
                 return "shed", None, None
             if not prefix.ready:
                 # K/V lost to a cache rebuild: re-prefill, wait our turn
@@ -1060,10 +1290,10 @@ class GenerationEngine:
                 return "wait", None, None
         needed_worst = self._blocks_needed(greq, prefix)
         usable = self._usable_blocks()
-        waiter = self._block_waiter
+        waiter = pool.block_waiter
         if waiter is not None and (waiter[0] is req
                                    or waiter[0].future.done()):
-            self._block_waiter = waiter = None
+            pool.block_waiter = waiter = None
         if needed_worst > usable:
             if greq.resume_tokens is not None:
                 # a preemption victim whose footprint can never fit again
@@ -1073,24 +1303,24 @@ class GenerationEngine:
                     f"stream was preempted after {greq.resume_step} "
                     f"token(s) and its resume needs {needed_worst} KV "
                     f"blocks but the pool can free at most {usable} of "
-                    f"{self._allocator.capacity} — resubmit",
+                    f"{pool.allocator.capacity} — resubmit",
                     tokens_generated=greq.resume_step))
                 return "shed", None, None
             self._shed_typed(req, KVBlocksExhaustedError(
                 f"request needs {needed_worst} KV blocks but the pool "
                 f"can free at most {usable} of "
-                f"{self._allocator.capacity} (shared-prefix pins "
+                f"{pool.allocator.capacity} (shared-prefix pins "
                 "excluded)",
                 needed=needed_worst, usable=usable,
-                capacity=self._allocator.capacity))
+                capacity=pool.allocator.capacity))
             return "shed", None, None
         # the automatic prefix cache's longest block-aligned match (its
         # references taken with the match); resumed streams skip it, their
         # recompute rebuilds the state through the same prefill route
         cached = None
-        if (self._prefix_cache is not None and prefix is None
+        if (pool.prefix_cache is not None and prefix is None
                 and greq.resume_tokens is None and not self._cache_bypass):
-            cached = self._prefix_cache.match_and_ref(greq.prompt)
+            cached = pool.prefix_cache.match_and_ref(greq.prompt)
         if cached is not None:
             m = cached[1]
             needed = self._fresh_blocks_needed(
@@ -1106,20 +1336,20 @@ class GenerationEngine:
         reserved = 0
         if waiter is not None and rank >= PRIORITIES.index(waiter[2]):
             reserved = waiter[1]
-        avail = self._allocator.free_count \
+        avail = pool.allocator.free_count \
             - self._pending_prefix_demand() - reserved
-        if needed > avail and self._prefix_cache is not None \
-                and len(self._prefix_cache):
+        if needed > avail and pool.prefix_cache is not None \
+                and len(pool.prefix_cache):
             # cached blocks are reclaimable: evict LRU entries (never the
             # one just matched) before making anyone wait
-            self._cache_evict(needed - avail,
+            self._cache_evict(pool, needed - avail,
                               protect=cached[0] if cached else None)
-            avail = self._allocator.free_count \
+            avail = pool.allocator.free_count \
                 - self._pending_prefix_demand() - reserved
         if needed > avail:
             if cached is not None:
-                self._allocator.free(cached[2])
-            self._block_waiter = (req, needed, req.priority)
+                pool.allocator.free(cached[2])
+            pool.block_waiter = (req, needed, req.priority)
             return "wait", None, None
         return "ok", prefix, cached
 
@@ -1139,12 +1369,12 @@ class GenerationEngine:
                 return
             self._pending_prefix.append((prefix_id, None))
 
-    def _drain_prefix_queue(self):
+    def _drain_prefix_queue(self, pool: _Pool):
         """Prefill the pending shared prefixes (scheduler thread). A prefix
         whose blocks are not free yet stays at the head until retirements
         free them; one that can never fit is unregistered and failed
         typed."""
-        while not self._stop.is_set():
+        while not self._stop.is_set() and self._pool is pool:
             with self._prefix_lock:
                 if not self._pending_prefix:
                     return
@@ -1165,14 +1395,15 @@ class GenerationEngine:
                                     "the pool can never free (pinned by "
                                     "other prefixes)", needed=nb,
                                     usable=self._usable_blocks(),
-                                    capacity=self._allocator.capacity))
+                                    capacity=pool.allocator.capacity))
                             except InvalidStateError:
                                 pass
                         continue
-                    if nb > self._allocator.free_count:
+                    if nb > pool.allocator.free_count:
                         return   # wait for retirements to free blocks
                     try:
-                        self._prefill_prefix(prefix)
+                        if not self._prefill_prefix(pool, prefix):
+                            return   # stale: the new epoch owns the queue
                     except Exception as e:
                         self._pop_prefix_head(pid)
                         if fut is not None:
@@ -1180,7 +1411,8 @@ class GenerationEngine:
                                 fut.set_exception(e)
                             except InvalidStateError:
                                 pass
-                        self._on_device_failure(e)
+                        self._on_device_failure(e, pool,
+                                                point="generation.prefill")
                         return
                 self._pop_prefix_head(pid)
                 if fut is None:
@@ -1203,11 +1435,14 @@ class GenerationEngine:
             if self._pending_prefix and self._pending_prefix[0][0] == pid:
                 self._pending_prefix.popleft()
 
-    def _prefill_prefix(self, prefix: SharedPrefix):
+    def _prefill_prefix(self, pool: _Pool, prefix: SharedPrefix) -> bool:
         """The one prefill a shared prefix gets per pool: allocate its
         blocks, write its K/V through the bucketed prefill (its sampled
-        token discarded), publish ``prefix.blocks``."""
-        alloc = self._allocator
+        token discarded), publish ``prefix.blocks``. False when a watchdog
+        restart replaced the pool meanwhile: the write went to the old
+        pool and the replacement's drain prefills again."""
+        alloc = pool.allocator
+        cache = pool.cache
         n = prefix.length
         nb = blocks_for_tokens(n, self.block_size)
         blocks = alloc.alloc(nb)
@@ -1218,23 +1453,36 @@ class GenerationEngine:
         padded[0, :n] = prefix.tokens
         t0 = time.perf_counter()
         try:
-            self._prefill(self.params, self._cache, padded, row, n,
-                          prng_key(0), 0.0, 0, 0)
+            with self.profiler.span("serving.prefix_prefill",
+                                    engine=self.name,
+                                    prefix=prefix.prefix_id, tokens=n):
+                self._retry_call(lambda: self._donated_call(
+                    "generation.prefill", self._prefill, self.params, cache,
+                    padded, row, n, prng_key(0), 0.0, 0, 0))
         except Exception:
-            alloc.free(blocks)
+            alloc.free(blocks)   # the bound allocator: a stale one is inert
             raise
-        with self._prefix_lock:
-            registered = self._prefixes.get(prefix.prefix_id) is prefix
+        with self._prefix_lock:   # held by the pool swap too
+            current = self._pool is pool
+            registered = current and \
+                self._prefixes.get(prefix.prefix_id) is prefix
             if registered:
                 prefix.blocks = blocks
+        if not current:
+            return False
+        self._breaker.record_success()
         if not registered:      # released while it was prefilling
             alloc.free(blocks)
-            return
+            return True
         self.metrics.prefix_prefills_total.inc()
         self.metrics.prefill_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._recorder.record("prefix.prefill", engine=self.name,
+                              prefix_id=prefix.prefix_id, tokens=n,
+                              blocks=nb)
         self._update_block_gauges()
+        return True
 
-    def _seat_stream(self, i: int, req: Request,
+    def _seat_stream(self, pool: _Pool, i: int, req: Request,
                      prefix: Optional[SharedPrefix], cached):
         """Seat a stream without a prefill — the decode-feed seat, in three
         flavours:
@@ -1255,7 +1503,7 @@ class GenerationEngine:
         a fresh stream), the index the request key folds."""
         greq: GenerationRequest = req.x
         B = self.block_size
-        alloc = self._allocator
+        alloc = pool.allocator
         resumed = greq.resume_tokens is not None
         feed = [int(t) for t in greq.prompt]
         if resumed:
@@ -1265,7 +1513,8 @@ class GenerationEngine:
         try:
             if prefix is not None:
                 P = prefix.length
-                pblocks = prefix.blocks
+                with self._prefix_lock:   # the pool swap holds it too
+                    pblocks = prefix.blocks if self._pool is pool else None
                 if pblocks is None:
                     raise RuntimeError(
                         f"shared prefix {greq.prefix_id!r} was "
@@ -1307,20 +1556,31 @@ class GenerationEngine:
         except Exception as e:
             if owned:
                 alloc.free(owned)   # the match references must not leak
-            if greq.handle._fail(e):
-                self.metrics.record_rejection("client_error")
+            if self._pool is not pool:
+                self._seat_restarted(req)
+            # release_prefix racing the seat: a client lifecycle mistake
+            elif greq.handle._fail(e):
+                self._finish_request(req.trace, "client_error",
+                                     tenant=req.tenant)
             return
         n_shared = len(shared)
         n_entries = n_shared + len(fresh)
         row = np.zeros(self.max_blocks_per_slot, np.int32)
         row[:n_shared] = shared
         row[n_shared:n_entries] = fresh
-        self._tables[i] = row
-        self._slots[i] = _Slot(greq=greq, request=req,
-                               n_generated=greq.resume_step, last_token=0,
-                               length=P, blocks=held, prefix_len=P,
-                               pending=deque(feed), cow=cow,
-                               n_entries=n_entries, resumed=resumed)
+        st = _Slot(greq=greq, request=req, n_generated=greq.resume_step,
+                   last_token=0, length=P, blocks=held, prefix_len=P,
+                   pending=deque(feed), cow=cow, n_entries=n_entries,
+                   resumed=resumed)
+        with self._wd_lock:
+            seated = self._pool is pool and not self._stop.is_set()
+            if seated:
+                pool.tables[i] = row
+                pool.slots[i] = st
+        if not seated:
+            alloc.free(held)     # the bound allocator: a stale one is inert
+            self._seat_restarted(req)
+            return
         if prefix is not None and not resumed:
             prefix.hits += 1
             self.metrics.prefix_hits_total.inc()
@@ -1328,23 +1588,38 @@ class GenerationEngine:
             self.metrics.prefix_cache_hits_total.inc()
         if cow is not None:
             self.metrics.kv_cow_copies_total.inc()
+        req.trace.event("slot.assign", slot=i, prefix_id=greq.prefix_id,
+                        shared_blocks=n_shared + (1 if cow else 0),
+                        fresh_blocks=len(fresh),
+                        cached_tokens=P if cached is not None else 0,
+                        resumed=resumed)
         self._update_block_gauges()
 
-    def _swap_in_seat(self, i: int, req: Request) -> bool:
+    def _seat_restarted(self, req: Request):
+        """A restart (or shutdown) replaced the pool while ``req`` was
+        being seated without a prefill: fail it typed ``watchdog``."""
+        if req.x.handle._fail(WatchdogTimeoutError(
+                f"engine[{self.name}] restarted while this prompt was "
+                "being seated; resubmit")):
+            self._finish_request(req.trace, "watchdog", tenant=req.tenant)
+
+    def _swap_in_seat(self, pool: _Pool, i: int, req: Request) -> bool:
         """Re-seat a swapped-out preemption victim by copying its parked
         blocks into freshly allocated ones and rebuilding its table row:
         no prefill, no feed — the slot resumes where the eviction froze it
         and the next decode step continues the stream. The copy is queued
         on the decode step's stream, so that step sees the blocks. False on
-        any miss (entry evicted from the store, pool refusal): the caller
-        falls through to the recompute path."""
+        any miss (entry evicted from the store or dropped with a replaced
+        pool, pool refusal, a ``kv.swap_in`` fault): the caller falls
+        through to the recompute path; a swap failure never sheds."""
         greq: GenerationRequest = req.x
         key, greq.swap_key = greq.swap_key, None   # one shot either way
         store = self._swap_store
         entry = store.take(key) if store is not None else None
         if entry is None:
             return False
-        alloc = self._allocator
+        self.metrics.kv_swapped_blocks_held.set(store.blocks_held)
+        alloc = pool.allocator
         # the demand _plan_blocks just verified (swapped victims hold no
         # prefix); it covers the parked blocks
         nfresh = self._blocks_needed(greq, None, admit=True)
@@ -1352,69 +1627,105 @@ class GenerationEngine:
             blocks = alloc.alloc(nfresh)
         except KVBlocksExhaustedError:
             return False
-        self._blocks_from_host(blocks[:entry.used_blocks], entry.payload)
+        used = entry.used_blocks
+        try:
+            inject("kv.swap_in", self._blocks_from_host, blocks[:used],
+                   entry.payload, pool.cache)
+        except Exception as e:
+            alloc.free(blocks)
+            req.trace.event("kv.swap", direction="in", slot=i,
+                            failed=type(e).__name__)
+            return False
         row = np.zeros(self.max_blocks_per_slot, np.int32)
         row[:nfresh] = blocks
-        self._tables[i] = row
-        self._slots[i] = _Slot(greq=greq, request=req,
-                               n_generated=entry.n_generated,
-                               last_token=entry.last_token,
-                               length=entry.length, blocks=blocks,
-                               prefix_len=0, n_entries=nfresh, resumed=True)
+        st = _Slot(greq=greq, request=req, n_generated=entry.n_generated,
+                   last_token=entry.last_token, length=entry.length,
+                   blocks=blocks, prefix_len=0, n_entries=nfresh,
+                   resumed=True)
+        with self._wd_lock:
+            seated = self._pool is pool and not self._stop.is_set()
+            if seated:
+                pool.tables[i] = row
+                pool.slots[i] = st
+        if not seated:
+            alloc.free(blocks)   # the bound allocator: a stale one is inert
+            return False         # the recompute path owns the terminal
         greq.swap_ins += 1
         self.metrics.kv_swap_bytes_in.inc(entry.nbytes)
+        req.trace.event("kv.swap", direction="in", slot=i, blocks=used,
+                        bytes=entry.nbytes)
+        req.trace.event("slot.assign", slot=i, swapped_in=True,
+                        resumed=True)
         self._update_block_gauges()
         return True
 
     # ---------------------------------------- on-demand growth + preemption
-    def _grow_block_tables(self):
+    def _grow_block_tables(self, pool: _Pool) -> bool:
         """Map a fresh block into every live slot whose next write (at
         position ``st.length``) falls past its mapped entries — the
         on-demand allocator's per-iteration work. Host-side only: the
         fixed-width table row gains an entry, so the decode step's shapes
-        (and the paged kernel's split plan) never change."""
+        (and the paged kernel's split plan) never change. False when a
+        watchdog restart replaced the pool (the caller abandons the
+        iteration)."""
         B = self.block_size
         while True:
             needy = None
-            for i, st in enumerate(self._slots):
-                if st is not None \
-                        and blocks_for_tokens(st.length + 1, B) > st.n_entries:
-                    needy = (i, st)
-                    break
+            with self._wd_lock:
+                if self._pool is not pool or self._stop.is_set():
+                    return False
+                for i, st in enumerate(pool.slots):
+                    if st is not None and \
+                            blocks_for_tokens(st.length + 1, B) > st.n_entries:
+                        needy = (i, st)
+                        break
             if needy is None:
-                return
-            self._grow_slot(*needy)
+                return True
+            if not self._grow_slot(pool, needy[0], needy[1]):
+                return False
 
-    def _grow_slot(self, i: int, st: _Slot):
+    def _grow_slot(self, pool: _Pool, i: int, st: _Slot) -> bool:
         """Allocate one block for slot ``i``'s boundary crossing; when the
-        pool is dry, evict prefix-cache entries first, then preempt. A
-        self-preempted slot is gone when this returns (the caller's re-scan
-        finds it)."""
+        pool is dry, evict prefix-cache entries first, then preempt.
+        False only when the pool was replaced; a self-preempted slot
+        returns True and the caller's re-scan finds it gone."""
+        alloc = pool.allocator
         while True:
             try:
-                block = self._allocator.alloc(1)[0]
+                block = alloc.alloc(1)[0]
             except KVBlocksExhaustedError:
                 block = None
             if block is not None:
-                st.n_entries = grow_block_table(self._tables, i,
-                                                st.n_entries, block)
-                st.blocks.append(block)
-                return
-            if self._prefix_cache is not None and len(self._prefix_cache):
-                if self._cache_evict(1):
+                with self._wd_lock:
+                    current = self._pool is pool
+                    seated = current and pool.slots[i] is st
+                    if seated:
+                        st.n_entries = grow_block_table(
+                            pool.tables, i, st.n_entries, block)
+                        st.blocks.append(block)
+                if not seated:
+                    alloc.free([block])   # the stream is gone
+                return current
+            if pool.prefix_cache is not None and len(pool.prefix_cache):
+                if self._cache_evict(pool, 1):
                     continue
-            if self._preempt_for(i, st) == "self":
-                return
+            outcome = self._preempt_for(pool, i, st)
+            if outcome == "stale":
+                return False
+            if outcome == "self":
+                return True
 
-    def _try_swap_out(self, j: int, vst: _Slot):
+    def _try_swap_out(self, pool: _Pool, j: int, vst: _Slot):
         """Copy victim slot ``j``'s written blocks (values and int8 scales)
-        to host memory. Called before the victim's blocks are freed, and
-        the copy completes before this returns: once ``free_batch`` runs
-        the pool may hand the blocks to another stream. Returns ``(key,
+        to host memory. The caller holds ``_wd_lock`` with ``pool``
+        current and has not freed the victim's blocks yet: the copy
+        completes before this returns, and once ``free_batch`` runs the
+        pool may hand the blocks to another stream. Returns ``(key,
         blocks, bytes)``, or ``(None, 0, 0)`` when the victim is at or
         below the threshold, holds shared blocks, has a pending
-        copy-on-write or feed (its K/V is not complete), or the store
-        cannot take it — every miss resumes by recompute."""
+        copy-on-write or feed (its K/V is not complete), the store cannot
+        take it, or the copy fails (a ``kv.swap_out`` fault) — every miss
+        resumes by recompute."""
         store = self._swap_store
         if store is None or vst.blocks is None:
             return None, 0, 0
@@ -1429,7 +1740,11 @@ class GenerationEngine:
         used = blocks_for_tokens(vst.length, self.block_size)
         if used <= 0 or used > vst.n_entries:
             return None, 0, 0
-        payload, nbytes = self._blocks_to_host(self._tables[j][:used])
+        try:
+            payload, nbytes = inject("kv.swap_out", self._blocks_to_host,
+                                     pool.tables[j][:used], pool.cache)
+        except Exception:
+            return None, 0, 0
         key = store.put(SwapEntry(
             payload=payload, used_blocks=used, length=vst.length,
             n_generated=vst.n_generated, last_token=int(vst.last_token),
@@ -1438,16 +1753,19 @@ class GenerationEngine:
             return None, 0, 0
         return key, used, nbytes
 
-    def _blocks_to_host(self, blocks) -> Tuple[List[Dict[str, Any]], int]:
-        """Copy ``blocks`` of every pool leaf (K and V values, and an int8
-        pool's scales) into host buffers, pinned on the card; returns the
+    def _blocks_to_host(self, blocks, cache=None
+                        ) -> Tuple[List[Dict[str, Any]], int]:
+        """Copy ``blocks`` of every leaf of ``cache`` (the pool the caller
+        bound; by default the current one) — K and V values, and an int8
+        pool's scales — into host buffers, pinned on the card; returns the
         per-layer buffers and their bytes. The copies are complete when
         this returns, so the blocks may be freed right after."""
+        cache = self._cache if cache is None else cache
         rows = torch.as_tensor(np.asarray(blocks, np.int64),
                                device=self.device)
         pin = self.device.type == "cuda"
         payload, nbytes = [], 0
-        for lc in self._cache["layers"]:
+        for lc in cache["layers"]:
             parked = {}
             for name, leaf in lc.items():
                 src = leaf.index_select(0, rows)
@@ -1461,13 +1779,16 @@ class GenerationEngine:
             torch.cuda.current_stream(self.device).synchronize()
         return payload, nbytes
 
-    def _blocks_from_host(self, blocks, payload: List[Dict[str, Any]]):
-        """Write :meth:`_blocks_to_host` buffers into ``blocks`` of the
-        pool. The copies are queued on the current stream, the one the
-        decode step runs on, so the next step reads the restored blocks."""
+    def _blocks_from_host(self, blocks, payload: List[Dict[str, Any]],
+                          cache=None):
+        """Write :meth:`_blocks_to_host` buffers into ``blocks`` of
+        ``cache`` (the pool the caller bound; by default the current one).
+        The copies are queued on the current stream, the one the decode
+        step runs on, so the next step reads the restored blocks."""
+        cache = self._cache if cache is None else cache
         rows = torch.as_tensor(np.asarray(blocks, np.int64),
                                device=self.device)
-        for lc, parked in zip(self._cache["layers"], payload):
+        for lc, parked in zip(cache["layers"], payload):
             for name, leaf in lc.items():
                 leaf[rows] = parked[name].to(self.device, non_blocking=True)
 
@@ -1481,36 +1802,49 @@ class GenerationEngine:
                     self._swap_store.blocks_held)
             greq.swap_key = None
 
-    def _preempt_for(self, needy_i: int, needy_st: _Slot) -> str:
+    def _preempt_for(self, pool: _Pool, needy_i: int,
+                     needy_st: _Slot) -> str:
         """The pool cannot serve slot ``needy_i``'s next block: evict ONE
         resident stream and requeue it at the queue head — its written
         blocks swapped to host memory when its footprint exceeds
         ``swap_threshold_blocks``, else for recompute-on-resume. Victims
-        are of the needy stream's class or lower; among them the lowest
+        are of the needy stream's class or lower, never of a tenant the
+        QoS policy marks ``preemptible=False``; among them the lowest
         class, then the largest footprint, then the latest arrival goes
         first. With no eligible victim the needy stream preempts itself.
-        Returns ``"freed"`` or ``"self"``."""
+        Returns ``"freed"``, ``"self"`` or ``"stale"`` (a watchdog
+        restart replaced the pool)."""
         needy_rank = PRIORITIES.index(needy_st.request.priority)
-        best = None
-        for j, st in enumerate(self._slots):
-            if st is None or st is needy_st:
-                continue
-            if st.request.future.done():
-                continue   # terminal delivered; its retire owns it
-            rank = PRIORITIES.index(st.request.priority)
-            if rank < needy_rank:
-                continue   # never evict a higher class
-            key = (rank, len(st.blocks or ()), st.request.submit_t)
-            if best is None or key > best[0]:
-                best = (key, j, st)
-        j, vst = (best[1], best[2]) if best is not None \
-            else (needy_i, needy_st)
-        swap_key, swap_blocks, swap_bytes = self._try_swap_out(j, vst)
-        self._slots[j] = None
-        self._tables[j] = 0
-        blocks, vst.blocks = vst.blocks, None
-        if blocks:
-            self._allocator.free_batch([blocks])
+        with self._wd_lock:
+            if self._pool is not pool:
+                return "stale"
+            best = None
+            for j, st in enumerate(pool.slots):
+                if st is None or st is needy_st:
+                    continue
+                if st.request.future.done():
+                    continue   # terminal delivered; its retire owns it
+                rank = PRIORITIES.index(st.request.priority)
+                if rank < needy_rank:
+                    continue   # never evict a higher class
+                if self.qos is not None and not self.qos.tenant(
+                        st.request.tenant).preemptible:
+                    continue
+                key = (rank, len(st.blocks or ()), st.request.submit_t)
+                if best is None or key > best[0]:
+                    best = (key, j, st)
+            j, vst = (best[1], best[2]) if best is not None \
+                else (needy_i, needy_st)
+            # the copy to host must finish before free_batch hands these
+            # blocks to another stream; under the lock, so a restart's
+            # swap-store reset comes before or after it, never mid-way
+            swap_key, swap_blocks, swap_bytes = self._try_swap_out(
+                pool, j, vst)
+            pool.slots[j] = None
+            pool.tables[j] = 0
+            blocks, vst.blocks = vst.blocks, None
+            if blocks:
+                pool.allocator.free_batch([blocks])
         greq = vst.greq
         req = vst.request
         greq.resume_tokens = np.asarray(greq.handle.tokens_so_far(),
@@ -1524,6 +1858,17 @@ class GenerationEngine:
             self.metrics.kv_swap_bytes_out.inc(swap_bytes)
             self.metrics.kv_swapped_blocks_held.set(
                 self._swap_store.blocks_held)
+            req.trace.event("kv.swap", direction="out", slot=j,
+                            blocks=swap_blocks, bytes=swap_bytes)
+        req.trace.event("preempt", slot=j,
+                        tokens_generated=vst.n_generated,
+                        blocks_freed=len(blocks or ()),
+                        swapped=swap_key is not None,
+                        self_preempted=vst is needy_st)
+        self._recorder.record("stream.preempt", engine=self.name,
+                              slot=j, tenant=req.tenant,
+                              tokens_generated=vst.n_generated,
+                              blocks=len(blocks or ()))
         # the deadline bounded queue time, which this stream already
         # served: its requeue must not turn into a 'deadline' shed
         req.deadline_t = None
@@ -1538,14 +1883,14 @@ class GenerationEngine:
             self.metrics.queue_depth.set(self._admission.depth_requests)
         return "self" if vst is needy_st else "freed"
 
-    def _maybe_cache_retired(self, i: int, st: _Slot):
+    def _maybe_cache_retired(self, pool: _Pool, i: int, st: _Slot):
         """Offer a normally retired stream's full blocks to the automatic
         prefix cache instead of freeing them: the block-aligned span of
         the ``st.length`` written positions (the retiring token's own K/V
         was never written), covered by its prompt and generated tokens.
         Explicit-prefix streams are skipped (their pin owns the shared
         span)."""
-        cache = self._prefix_cache
+        cache = pool.prefix_cache
         if cache is None or st.greq.prefix_id is not None \
                 or st.blocks is None:
             return
@@ -1558,8 +1903,8 @@ class GenerationEngine:
             np.asarray(st.greq.handle.tokens_so_far(), np.int32)])
         if seq.size < m * B:
             return
-        row = [int(b) for b in self._tables[i][:m]]
-        self._allocator.incref(row)   # the cache's own reference
+        row = [int(b) for b in pool.tables[i][:m]]
+        pool.allocator.incref(row)   # the cache's own reference
         before = len(cache)
         kept = cache.insert(seq[:m * B], row)
         if kept:
@@ -1567,11 +1912,15 @@ class GenerationEngine:
         evicted = before + (1 if kept else 0) - len(cache)
         if evicted > 0:
             self.metrics.prefix_cache_evictions_total.inc(evicted)
+        # set before the stream's terminal is delivered, so a caller that
+        # reads the gauge after result() sees its blocks
+        self.metrics.prefix_cache_blocks.set(cache.total_blocks)
 
-    def _cache_evict(self, need_blocks: int, protect=None) -> int:
+    def _cache_evict(self, pool: _Pool, need_blocks: int,
+                     protect=None) -> int:
         """Evict LRU prefix-cache entries, counted into the metrics;
         returns the references released."""
-        cache = self._prefix_cache
+        cache = pool.prefix_cache
         before = len(cache)
         released = cache.evict(need_blocks, protect=protect)
         evicted = before - len(cache)
@@ -1585,12 +1934,60 @@ class GenerationEngine:
                 return b
         return self.buckets[-1]
 
-    def _prefill_into(self, slot: int, req: Request):
+    def _donated_call(self, point: str, fn, *args):
+        """Run a step under the ``point`` fault hook, and stamp an
+        exception that escapes after the step started with
+        ``donated_state_consumed=True``: an injected fault raises before
+        the step launches anything (the pool is untouched, a retry is
+        safe), but a real failure from the step itself may have written
+        part of the pool, so the retry classifier refuses it and the
+        fail-tenants-and-rebuild path takes over."""
+        started = False
+
+        def run(*a):
+            nonlocal started
+            started = True
+            return fn(*a)
+
+        try:
+            return inject(point, run, *args)
+        except BaseException as e:
+            if started:
+                try:
+                    e.donated_state_consumed = True
+                except Exception:
+                    pass   # an exception with __slots__: stays refused
+            raise
+
+    def _screen_token_ids(self, toks: np.ndarray, point: str, live=None):
+        """The poisoned-result screen on a step's host copy of its sampled
+        ids (no extra device sync): non-finite values (a poison rule may
+        rewrite the copy to float) or ids outside [0, vocab) fail the
+        iteration typed. Dead slots sample masked garbage by design, so
+        only ``live`` entries are screened."""
+        a = np.asarray(toks)
+        if live is not None:
+            a = a[np.asarray(live)]
+        if a.size == 0:
+            return
+        if np.issubdtype(a.dtype, np.inexact) \
+                and not bool(np.all(np.isfinite(a))):
+            self._poisoned(point, "non-finite sampled token values")
+        bad = (a < 0) | (a >= self.cfg.vocab_size)
+        if bool(np.any(bad)):
+            self._poisoned(
+                point, f"{int(np.count_nonzero(bad))} sampled token id(s) "
+                       f"outside [0, {self.cfg.vocab_size})")
+
+    def _prefill_into(self, pool: _Pool, slot: int, req: Request):
         """Seat ``req`` in ``slot`` by a prefill. A resumed request's
         generated tokens ride the prompt (recompute-on-resume) and its
         sample is drawn at ``resume_step``; TTFT is observed only for a
-        stream's first token (``resume_step == 0``). A speculative engine
-        then draft-prefills the same prompt (:meth:`_draft_seat`)."""
+        stream's first token (``resume_step == 0``). The prefill writes
+        the bound ``pool``; when a watchdog restart replaced it
+        meanwhile, the write went to the old pool and the request fails
+        typed ``watchdog``. A speculative
+        engine then draft-prefills the same prompt (:meth:`_draft_seat`)."""
         greq: GenerationRequest = req.x
         resumed = greq.resume_tokens is not None
         toks = greq.prompt
@@ -1601,32 +1998,60 @@ class GenerationEngine:
         bucket = self._bucket_for(n)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = toks
+        req.trace.event("slot.assign", slot=slot, bucket=bucket,
+                        resumed=resumed)
         alloc = blocks = row = None
         nb_total = 0
         if self.paged:
-            alloc = self._allocator
+            alloc = pool.allocator
             nb_total = self._blocks_needed(greq, None, admit=True)
             blocks = alloc.alloc(nb_total)
             row = np.zeros(self.max_blocks_per_slot, np.int32)
             row[:nb_total] = blocks
+        cache = pool.cache
         t0 = time.perf_counter()
         try:
-            if self.paged:
-                _, tok = self._prefill(
-                    self.params, self._cache, padded,
-                    row[:blocks_for_tokens(bucket, self.block_size)], n,
-                    greq.key, greq.temperature, greq.top_k,
-                    greq.resume_step)
-            else:
-                _, tok = self._prefill(
-                    self.params, self._cache, padded, slot, n, greq.key,
-                    greq.temperature, greq.top_k, greq.resume_step)
-            tok = int(tok)
+            with self.profiler.span("serving.prefill", engine=self.name,
+                                    slot=slot, bucket=bucket, prompt=n):
+                def call():
+                    if self.paged:
+                        return self._donated_call(
+                            "generation.prefill", self._prefill,
+                            self.params, cache, padded,
+                            row[:blocks_for_tokens(bucket, self.block_size)],
+                            n, greq.key, greq.temperature, greq.top_k,
+                            greq.resume_step)
+                    return self._donated_call(
+                        "generation.prefill", self._prefill, self.params,
+                        cache, padded, slot, n, greq.key, greq.temperature,
+                        greq.top_k, greq.resume_step)
+
+                tok_host = _host(self._retry_call(call)[1]).reshape(-1)
+                if self.screen_outputs:
+                    self._screen_token_ids(tok_host, "generation.prefill")
+                tok = int(tok_host[0])
         except Exception:
             if blocks is not None:
-                alloc.free(blocks)
+                alloc.free(blocks)   # the bound allocator: stale is inert
             raise
+        with self._wd_lock:
+            current = self._pool is pool
+        if not current:
+            # a restart replaced the pool while this (stale) prefill ran:
+            # fail the request typed rather than leave its future hanging
+            if blocks is not None:
+                alloc.free(blocks)
+            req.trace.event("watchdog.restart", stale=True)
+            if greq.handle._fail(WatchdogTimeoutError(
+                    f"engine[{self.name}] restarted while this prompt was "
+                    "in prefill; resubmit")):
+                self._finish_request(req.trace, "watchdog",
+                                     tenant=req.tenant)
+            return
+        self._breaker.record_success()
         now = time.perf_counter()
+        req.trace.event("prefill", dur_ms=round((now - t0) * 1e3, 3),
+                        slot=slot, bucket=bucket, prompt=n)
         self.metrics.prefill_ms.observe((now - t0) * 1e3)
         if greq.resume_step == 0:
             self.metrics.ttft_ms.observe((now - req.submit_t) * 1e3)
@@ -1636,52 +2061,70 @@ class GenerationEngine:
                       n_generated=greq.resume_step + 1, last_token=tok,
                       length=n, blocks=blocks, n_entries=nb_total,
                       resumed=resumed)
-        if greq.handle._push(tok) is not None:
+        err = greq.handle._push(tok)
+        if err is not None:
             # a broken on_token consumer failed its own stream
-            self.metrics.record_rejection("client_error")
-            self._release_blocks(state)
+            req.trace.event("on_token.failed", error=type(err).__name__)
+            self._finish_request(req.trace, "client_error",
+                                 tenant=req.tenant)
+            self._release_blocks(pool, state)
         elif self._maybe_retire(state, tok):
-            self._release_blocks(state)   # retired at its first token
+            self._release_blocks(pool, state)   # retired at its first token
         else:
-            if self.paged:
-                self._tables[slot] = row
-            self._slots[slot] = state
-            if self._spec is not None:
-                self._draft_seat(slot, state, padded)
-        self._update_block_gauges()
+            with self._wd_lock:
+                # a restart after the check above swapped in a pool
+                # without this stream's K/V: do not seat it
+                registered = self._pool is pool
+                if registered:
+                    if self.paged:
+                        pool.tables[slot] = row
+                    pool.slots[slot] = state
+            if not registered:
+                self._release_blocks(pool, state)
+            elif self._spec is not None:
+                self._draft_seat(pool, slot, state, padded)
+        if self.paged:
+            self._update_block_gauges()
 
-    def _draft_seat(self, slot: int, state: _Slot, padded: np.ndarray):
+    def _draft_seat(self, pool: _Pool, slot: int, state: _Slot,
+                    padded: np.ndarray):
         """Draft-prefill a just-seated stream's prompt into the draft cache
-        (speculative engines). Any failure takes the degrade path: the
-        draft cache is rebuilt, every live slot goes draft-cold, and the
-        stream itself goes on at plain speed — a failing draft never
-        sheds. A prompt bucket wider than the draft's positional table
-        leaves the slot cold."""
+        (speculative engines). Any failure, a ``generation.draft_prefill``
+        fault included, takes the degrade path: the draft cache is
+        rebuilt, every live slot goes draft-cold, and the stream itself
+        goes on at plain speed — a failing draft never sheds. A prompt
+        bucket wider than the draft's positional table leaves the slot
+        cold."""
         if padded.shape[1] > self._draft_cfg.max_seq:
             return
         try:
-            self._draft_prefill(self._draft_params, self._draft_cache,
-                                padded, slot)
-        except Exception:
-            self._draft_failed()
+            self._donated_call("generation.draft_prefill",
+                               self._draft_prefill, self._draft_params,
+                               pool.draft_cache, padded, slot)
+        except Exception as e:
+            self._draft_failed(pool, "generation.draft_prefill", e)
             return
         state.draft_len = state.length
 
-    def _draft_failed(self):
-        """The degrade path of a failed draft call: count it, open the
-        draft breaker's count, rebuild the draft cache (the call may have
-        written part of it) and make every live slot draft-cold."""
+    def _draft_failed(self, pool: _Pool, point: str, exc: BaseException):
+        """The degrade path of a failed draft call: count it, feed the
+        draft breaker, rebuild the pool's draft cache (the call may have
+        written part of it) and make its live slots draft-cold."""
         self._draft_breaker.record_failure()
         self.metrics.spec_fallbacks_total.inc()
-        self._reset_draft_cache()
-        for st in self._slots:
-            if st is not None:
-                st.draft_len = -1
+        self._recorder.record("spec.draft_failure", engine=self.name,
+                              point=point, error=type(exc).__name__)
+        if self._pool is pool:   # a replaced pool is dropped whole
+            pool.draft_cache = self._new_draft_cache()
+            for st in pool.slots:
+                if st is not None:
+                    st.draft_len = -1
 
     def _make_step_buffers(self) -> Dict[str, np.ndarray]:
         """One scheduler thread's step staging arrays: every per-slot
-        argument of the decode (and verify) step, shaped by the engine's
-        configuration only, refilled in place each iteration."""
+        argument of the decode (and verify) step but the block tables
+        (the pool's own), shaped by the engine's configuration only,
+        refilled in place each iteration."""
         S = self.slots
         buf = {"tokens": np.zeros(S, np.int64),
                "live": np.zeros(S, bool),
@@ -1697,7 +2140,7 @@ class GenerationEngine:
             buf["draft_feed"] = np.zeros(S, np.int64)
         return buf
 
-    def _decode_iteration(self, buf: Dict[str, np.ndarray]):
+    def _decode_iteration(self, pool: _Pool, buf: Dict[str, np.ndarray]):
         """One scheduler turn: a single decode step over ALL slots (dead
         slots ride along: on the scratch block, or on their own row of the
         contiguous cache), then stream/retire per live slot. Under
@@ -1706,10 +2149,15 @@ class GenerationEngine:
         its next pending prompt token and its sample is discarded until
         the feed ends; a pending copy-on-write goes out once as
         ``cow_src``/``cow_dst``. A speculative engine takes the turn
-        through :meth:`_spec_turn` when any slot can speculate."""
+        through :meth:`_spec_turn` when any slot can speculate.
+
+        Everything the step reads and writes is the bound ``pool``'s:
+        after a watchdog restart a stale step writes into the abandoned
+        pool and its tokens are dropped."""
         S = self.slots
         if self.paged and self.allocate == "on_demand":
-            self._grow_block_tables()
+            if not self._grow_block_tables(pool):
+                return   # the pool was replaced mid-growth
         tokens, live, keys = buf["tokens"], buf["live"], buf["keys"]
         steps, temps, top_ks = buf["steps"], buf["temps"], buf["top_ks"]
         lengths = buf["lengths"]
@@ -1717,7 +2165,7 @@ class GenerationEngine:
         for a in (tokens, live, keys, steps, temps, top_ks, lengths,
                   cow_src, cow_dst):
             a.fill(0)
-        states = list(self._slots)
+        states = list(pool.slots)
         n_live = 0
         for i, st in enumerate(states):
             if st is None:
@@ -1736,17 +2184,33 @@ class GenerationEngine:
         if not n_live:
             return   # growth preempted every stream: nothing to decode
         if self._spec is not None and not self._spec_force_plain \
-                and self._spec_turn(buf, states):
+                and self._spec_turn(pool, buf, states, n_live):
             return
         t0 = time.perf_counter()
-        if self.paged:
-            _, toks = self._decode(self.params, self._cache, self._tables,
-                                   lengths, tokens, keys, steps, temps,
-                                   top_ks, cow_src, cow_dst)
-        else:
-            _, toks = self._decode(self.params, self._cache, tokens, live,
-                                   keys, steps, temps, top_ks)
-        toks = toks.cpu().numpy()
+        cache, tables = pool.cache, pool.tables
+        with self.profiler.span("serving.decode_step", engine=self.name,
+                                live=n_live, slots=S):
+            def call():
+                if self.paged:
+                    return self._donated_call(
+                        "generation.decode_step", self._decode,
+                        self.params, cache, tables, lengths, tokens, keys,
+                        steps, temps, top_ks, cow_src, cow_dst)
+                return self._donated_call(
+                    "generation.decode_step", self._decode, self.params,
+                    cache, tokens, live, keys, steps, temps, top_ks)
+
+            toks = _host(self._retry_call(call)[1])
+            if self.screen_outputs:
+                # before any commit: a poisoned iteration takes the
+                # fail-tenants and rebuild path
+                self._screen_token_ids(toks, "generation.decode_step",
+                                       live=live)
+        with self._wd_lock:
+            current = self._pool is pool
+        if not current:
+            return   # stale: the restart failed these tenants typed
+        self._breaker.record_success()
         dt_ms = (time.perf_counter() - t0) * 1e3
         now = time.perf_counter()
         self.metrics.decode_step_ms.observe(dt_ms)
@@ -1754,19 +2218,26 @@ class GenerationEngine:
         self.metrics.decode_steps_total.inc()
         emitted = 0
         for i, st in enumerate(states):
-            if st is not None and \
-                    self._commit_sampled(i, st, int(toks[i]), now) != "fed":
+            if st is None:
+                continue
+            res = self._commit_sampled(pool, i, st, int(toks[i]), dt_ms,
+                                       now)
+            if res == "stale":
+                return
+            if res != "fed":
                 emitted += 1
         self.metrics.generated_tokens_total.inc(emitted)
-        self.metrics.slot_occupancy.set(self._live_count() / S)
-        self._update_block_gauges()
+        self.metrics.slot_occupancy.set(pool.live_count() / S)
+        if self.paged:
+            self._update_block_gauges()
 
-    def _spec_turn(self, buf: Dict[str, np.ndarray],
-                   states: List[Optional[_Slot]]) -> bool:
+    def _spec_turn(self, pool: _Pool, buf: Dict[str, np.ndarray],
+                   states: List[Optional[_Slot]], n_live: int) -> bool:
         """One speculative turn: k draft steps, then ONE verify step over
         all slots, committing each slot's accepted prefix. False hands the
         turn back to the plain decode step: no slot can speculate, the
-        draft breaker is open, or a draft step failed (the degrade path).
+        draft breaker is open, or a draft step failed (the degrade path;
+        the draft is not retried).
 
         A slot speculates when it is draft-warm (``draft_len == length``),
         feeds no prompt and its tenant is not demoted. The others ride the
@@ -1774,8 +2245,10 @@ class GenerationEngine:
         turn. Each slot commits ``c = min(accepted + 1, k, cap)`` samples
         through :meth:`_commit_sampled`, ``cap`` the positions its mapped
         blocks and ``max_seq`` still hold (writes past them went to
-        scratch); the verify counts as one decode step. A verify failure
-        propagates to the scheduler loop (fail the tenants, rebuild)."""
+        scratch); the verify counts as one decode step. The verify is
+        retried like the decode step; a real verify failure propagates to
+        the scheduler loop stamped ``fault_point='generation.verify_step'``
+        (fail the tenants, rebuild)."""
         spec = self._spec
         k = spec.k
         elig = [st is not None and not st.pending
@@ -1791,26 +2264,58 @@ class GenerationEngine:
         dtoks[:, 0] = buf["tokens"]
         feed = buf["draft_feed"]
         np.copyto(feed, buf["tokens"])
+        dcache = pool.draft_cache
         try:
-            for j in range(k):
-                _, props = self._draft_step(
-                    self._draft_params, self._draft_cache, feed,
-                    buf["lengths"] + j, buf["keys"], buf["steps"] + j,
-                    buf["temps"], buf["top_ks"])
-                props = props.cpu().numpy()
-                dtoks[:, j + 1] = props
-                np.copyto(feed, props)
-        except Exception:
-            self._draft_failed()
+            with self.profiler.span("serving.draft_step", engine=self.name,
+                                    live=n_live, k=k):
+                for j in range(k):
+                    props = _host(self._donated_call(
+                        "generation.draft_step", self._draft_step,
+                        self._draft_params, dcache, feed,
+                        buf["lengths"] + j, buf["keys"], buf["steps"] + j,
+                        buf["temps"], buf["top_ks"])[1])
+                    if self.screen_outputs:
+                        self._screen_token_ids(
+                            props, "generation.draft_step",
+                            live=np.asarray(elig))
+                    dtoks[:, j + 1] = props
+                    np.copyto(feed, props)
+        except Exception as e:
+            self._draft_failed(pool, "generation.draft_step", e)
             return False
+        with self._wd_lock:
+            if self._pool is not pool:
+                return True   # stale: the restart failed these tenants
         self._draft_breaker.record_success()
         t0 = time.perf_counter()
-        _, samples, accepted = self._verify(
-            self.params, self._cache, self._tables, buf["lengths"], dtoks,
-            buf["keys"], buf["steps"], buf["temps"], buf["top_ks"],
-            buf["cow_src"], buf["cow_dst"])
-        samples = samples.cpu().numpy()
-        accepted = accepted.cpu().numpy()
+        cache, tables = pool.cache, pool.tables
+        try:
+            with self.profiler.span("serving.verify_step", engine=self.name,
+                                    live=n_live, slots=self.slots, k=k):
+                def call():
+                    return self._donated_call(
+                        "generation.verify_step", self._verify, self.params,
+                        cache, tables, buf["lengths"], dtoks, buf["keys"],
+                        buf["steps"], buf["temps"], buf["top_ks"],
+                        buf["cow_src"], buf["cow_dst"])
+
+                _, samples, accepted = self._retry_call(call)
+                samples = _host(samples)
+                accepted = _host(accepted)
+                if self.screen_outputs:
+                    self._screen_token_ids(samples, "generation.verify_step",
+                                           live=buf["live"])
+        except Exception as e:
+            try:
+                e.fault_point = "generation.verify_step"
+            except Exception:
+                pass   # an exception with __slots__: the generic label
+            raise
+        with self._wd_lock:
+            current = self._pool is pool
+        if not current:
+            return True   # stale: the restart failed these tenants
+        self._breaker.record_success()
         dt_ms = (time.perf_counter() - t0) * 1e3
         now = time.perf_counter()
         self.metrics.decode_step_ms.observe(dt_ms)
@@ -1833,50 +2338,75 @@ class GenerationEngine:
                 c = 1   # cold, feeding or demoted: a plain turn
             res = "ok"
             for j in range(c):
-                res = self._commit_sampled(i, st, int(samples[i, j]), now)
+                res = self._commit_sampled(pool, i, st, int(samples[i, j]),
+                                           dt_ms, now)
+                if res == "stale":
+                    return True
                 if res != "fed":
                     emitted += 1
                 if res in ("retired", "client_error"):
                     break
-            if elig[i] and res == "ok" and self._slots[i] is st:
+            if elig[i] and res == "ok":
                 # the draft wrote positions length..length+k-1 and c <= k
                 # of them were committed: its cache is as long as the
                 # stream again
-                st.draft_len = st.length
+                if pool.slots[i] is st:
+                    st.draft_len = st.length
         self.metrics.generated_tokens_total.inc(emitted)
-        self.metrics.slot_occupancy.set(self._live_count() / self.slots)
+        self.metrics.slot_occupancy.set(pool.live_count() / self.slots)
         self._update_block_gauges()
         return True
 
-    def _commit_sampled(self, i: int, st: _Slot, tok: int,
-                        now: float) -> str:
+    def _commit_sampled(self, pool: _Pool, i: int, st: _Slot, tok: int,
+                        dt_ms: float, now: float) -> str:
         """Commit one sampled token to slot ``i``: advance the stream (a
         mid-feed sample is discarded: ``"fed"``), retire it on EOS/budget
         (its full blocks offered to the prefix cache, its slot freed for
-        the next admission), deliver the token. Returns ``"fed"``,
-        ``"ok"``, ``"retired"`` or ``"client_error"``."""
-        st.length += 1
-        st.cow = None          # the copy landed with this step
-        first_token = False
-        if st.pending:
-            st.pending.popleft()
+        the next admission), deliver the token. Returns ``"stale"`` (the
+        pool was replaced: the caller abandons the iteration), ``"fed"``,
+        ``"ok"``, ``"retired"`` or ``"client_error"``. The stream is
+        touched under ``_wd_lock`` with ``pool`` current, so a stale
+        step's token never reaches a caller."""
+        reason = None
+        fed_only = first_token = False
+        with self._wd_lock:
+            if self._pool is not pool:
+                return "stale"
+            st.length += 1
+            st.cow = None          # the copy landed with this step
             if st.pending:
-                return "fed"
-            first_token = True
-        st.n_generated += 1
-        st.last_token = tok
-        reason = self._retire_reason(st, tok)
-        if reason is not None:
-            self._maybe_cache_retired(i, st)
-            self._clear_slot(i, st)
+                st.pending.popleft()
+                if st.pending:
+                    fed_only = True
+                else:
+                    first_token = True
+            if not fed_only:
+                st.n_generated += 1
+                st.last_token = tok
+                reason = self._retire_reason(st, tok)
+                if reason is not None:
+                    self._maybe_cache_retired(pool, i, st)
+                    self._clear_slot(pool, i, st)
+        if fed_only:
+            st.request.trace.event("prompt.feed", slot=i,
+                                   remaining=len(st.pending))
+            return "fed"
         if first_token and st.greq.resume_step == 0:
             # a feed stream's first token lands here, never again on resume
             self.metrics.ttft_ms.observe((now - st.request.submit_t) * 1e3)
-        if st.greq.handle._push(tok) is not None:
+        st.request.trace.event("decode.step", step=st.n_generated - 1,
+                               dur_ms=round(dt_ms, 3), slot=i, token=tok)
+        err = st.greq.handle._push(tok)
+        if err is not None:
             # a broken on_token consumer: its handle holds the terminal
+            st.request.trace.event("on_token.failed",
+                                   error=type(err).__name__)
             if reason is None:
-                self._clear_slot(i, st)
-            self.metrics.record_rejection("client_error")
+                with self._wd_lock:
+                    if self._pool is pool and pool.slots[i] is st:
+                        self._clear_slot(pool, i, st)
+            self._finish_request(st.request.trace, "client_error",
+                                 tenant=st.request.tenant)
             return "client_error"
         if reason is not None:
             self._finish_stream(st, reason)
@@ -1891,10 +2421,25 @@ class GenerationEngine:
         return None
 
     def _finish_stream(self, st: _Slot, reason: str):
-        st.greq.handle._finish(reason)
+        delivered = st.greq.handle._finish(reason)
         self.metrics.generations_completed.inc()
-        self.metrics.latency_ms.observe(
-            (time.perf_counter() - st.request.submit_t) * 1e3)
+        lat = (time.perf_counter() - st.request.submit_t) * 1e3
+        self.metrics.latency_ms.observe(lat)
+        st.request.trace.event("stream.finish", finish_reason=reason,
+                               tokens=st.n_generated)
+        if delivered:
+            self._finish_request(st.request.trace, "ok", latency_ms=lat,
+                                 tenant=st.request.tenant)
+        else:
+            # the terminal was delivered elsewhere (a watchdog, a broken
+            # on_token) and counted there: close the trace with it
+            try:
+                exc = st.request.future.exception(timeout=0)
+            except BaseException:
+                exc = None   # a cancelled future: exception() raises
+            st.request.trace.finish(
+                "cancelled" if exc is None else terminal_reason(exc),
+                latency_ms=lat)
 
     def _maybe_retire(self, st: _Slot, tok: int) -> bool:
         reason = self._retire_reason(st, tok)
@@ -1903,44 +2448,136 @@ class GenerationEngine:
         self._finish_stream(st, reason)
         return True
 
-    def _release_blocks(self, st: _Slot):
-        """Drop a stream's block references (idempotent)."""
+    def _release_blocks(self, pool: _Pool, st: _Slot):
+        """Drop a stream's block references into the allocator of the
+        pool it was seated in (idempotent)."""
         if st.blocks is None:
             return
         blocks, st.blocks = st.blocks, None
-        self._allocator.free(blocks)
+        pool.allocator.free(blocks)
 
-    def _clear_slot(self, i: int, st: _Slot):
+    def _clear_slot(self, pool: _Pool, i: int, st: _Slot):
         """Vacate slot ``i`` and point its block-table row back at the
         scratch block: a dead slot still takes part in every decode step
         and writes where its row says, so a stale row would aim that write
         at blocks the next admission may hand to a new stream."""
-        self._slots[i] = None
+        pool.slots[i] = None
         if self.paged:
-            self._tables[i] = 0
-        self._release_blocks(st)
+            pool.tables[i] = 0
+        self._release_blocks(pool, st)
 
-    def _fail_live(self, exc: BaseException):
-        """Fail every live tenant and vacate its slot."""
-        victims = []
-        for i, st in enumerate(self._slots):
-            if st is not None:
-                self._clear_slot(i, st)
-                victims.append(st)
+    def _fail_live(self, exc: BaseException, pool: _Pool):
+        """Fail every live tenant of ``pool`` and vacate its slot, each
+        under ``_wd_lock`` while ``pool`` is current: a restart that
+        replaced it failed them itself. Futures resolve outside the
+        lock."""
+        reason = terminal_reason(exc)
+        victims: List[_Slot] = []
+        for i in range(self.slots):
+            with self._wd_lock:
+                if self._pool is not pool:
+                    break
+                st = pool.slots[i]
+                if st is None:
+                    continue
+                self._clear_slot(pool, i, st)
+            victims.append(st)
         for st in victims:
             if st.greq.handle._fail(exc):
-                self.metrics.record_rejection(
-                    getattr(exc, "reason", "model_error"))
+                self._finish_request(st.request.trace, reason,
+                                     tenant=st.request.tenant)
 
     # a preempted stream requeued with parked blocks can die in the queue
-    # (deadline, shutdown): its host memory comes back with it
+    # (deadline, shutdown, a caller's cancel): its host memory comes back
+    # with it
     def _count_shed(self, req: Request):
         self._discard_swap(req.x)
-        self.metrics.record_rejection("deadline")
+        super()._count_shed(req)
 
     def _count_close_reject(self, req: Request):
         self._discard_swap(req.x)
-        self.metrics.record_rejection("shutdown")
+        super()._count_close_reject(req)
+
+    def _count_cancelled(self, req: Request):
+        self._discard_swap(req.x)
+        super()._count_cancelled(req)
+
+    # ---------------------------------------------- resilience mixin hooks
+    def _retry_traces(self):
+        pool = self._pool
+        with self._wd_lock:
+            if pool.inflight_prefill is not None:
+                return (pool.inflight_prefill.trace,)
+        return tuple(s.request.trace for s in list(pool.slots)
+                     if s is not None)
+
+    def _crash_dump_model(self):
+        return self.params
+
+    def _crash_dump_context(self) -> dict:
+        pool = self._pool
+        ctx = {"slots": self.slots, "live_slots": pool.live_count()}
+        if self.paged:
+            ctx.update(kv_blocks=pool.allocator.num_blocks,
+                       kv_blocks_free=pool.allocator.free_count,
+                       block_size=self.block_size)
+        return ctx
+
+    def _watchdog_busy(self) -> bool:
+        pool = self._pool
+        with self._wd_lock:
+            if pool.inflight_prefill is not None or self._prefix_busy:
+                return True
+        with self._prefix_lock:
+            if self._pending_prefix:
+                return True
+        return pool.live_count() > 0 or self._admission.depth_requests > 0
+
+    def _watchdog_stall(self):
+        """The watchdog's recovery hook: the scheduler stopped
+        heartbeating with work outstanding. Swap in a NEW pool and bump
+        the epoch in one locked step (the stale thread keeps the pool it
+        bound and writes only there if it wakes), fail the old pool's
+        in-prefill request and live streams typed ``watchdog``, and start
+        a fresh scheduler over the kept queue."""
+        pool = self._new_pool()
+        with self._wd_lock:
+            old = self._swap_pool(pool, restart=True)
+            epoch = pool.epoch
+            pre = old.inflight_prefill
+        exc = WatchdogTimeoutError(
+            f"engine[{self.name}] scheduler missed its heartbeat for "
+            f">{self._watchdog.timeout_s * 1e3:.0f} ms; live generations "
+            f"failed, scheduler restarted")
+        failed = 0
+        if pre is not None:
+            pre.trace.event("watchdog.restart", epoch=epoch, in_prefill=True)
+            if pre.x.handle._fail(exc):
+                self._finish_request(pre.trace, "watchdog",
+                                     tenant=pre.tenant)
+            failed += 1
+        # the old pool's slots stay as they are: the stale thread owns them
+        for i, st in enumerate(list(old.slots)):
+            if st is not None:
+                st.request.trace.event("watchdog.restart", epoch=epoch,
+                                       slot=i)
+                if st.greq.handle._fail(exc):
+                    self._finish_request(st.request.trace, "watchdog",
+                                         tenant=st.request.tenant)
+                failed += 1
+        if failed:
+            self.metrics.failed_total.inc(failed)
+        self.metrics.watchdog_restarts.inc()
+        self.metrics.record_rejection("watchdog")
+        self._recorder.record("watchdog.restart", engine=self.name,
+                              epoch=epoch, victims=failed)
+        self.metrics.slot_occupancy.set(0.0)
+        self._breaker.record_failure()
+        self._pool_gauges()
+        self._thread = threading.Thread(
+            target=self._loop, args=(epoch,),
+            name=f"generation-scheduler[{self.name}]#{epoch}", daemon=True)
+        self._thread.start()
 
     # -------------------------------------------------------------- insight
     @property
@@ -1950,6 +2587,32 @@ class GenerationEngine:
     @property
     def queue_depth(self) -> int:
         return self._admission.depth_requests
+
+    def ledger_stats(self) -> dict:
+        """Point-in-time resource accounting for the resource ledger
+        (:mod:`.ledger`): resident slots, queued requests, KV blocks by
+        attribution (free / explicit pins / automatic cache) and swap-store
+        residency. Reads only; each lock is taken briefly on its own."""
+        stats = {"name": self.name,
+                 "live_slots": self._live_count(),
+                 "queue_depth": self._admission.depth_requests}
+        pool = self._pool
+        alloc, store, cache = (pool.allocator, self._swap_store,
+                               pool.prefix_cache)
+        if alloc is not None:
+            stats["kv_capacity_blocks"] = alloc.capacity
+            stats["kv_free_blocks"] = alloc.free_count
+            stats["kv_blocks_in_use"] = alloc.in_use
+        if store is not None:
+            stats["swap_entries"] = len(store)
+            stats["swap_blocks_held"] = store.blocks_held
+        if cache is not None:
+            stats["kv_prefix_cache_blocks"] = cache.total_blocks
+        with self._prefix_lock:
+            stats["pinned_prefixes"] = len(self._prefixes)
+            stats["kv_pinned_blocks"] = sum(
+                len(p.blocks) for p in self._prefixes.values() if p.blocks)
+        return stats
 
     def warmup(self) -> "GenerationEngine":
         """Run one short throwaway stream per prefill bucket (token-0

@@ -7,6 +7,8 @@ on a machine with a GPU and no JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -102,7 +104,7 @@ def test_packed_refuses_unbuilt_head_dim(card):
     with pytest.raises(ValueError, match="head_dim >= 1"):
         ak.mha_packed_forward(q, q, q, 2)
 
-    def smem(d):   # shared memory per block, as the device tracer saw it
+    def smem(d):   # shared memory per block, as the driver holds it
         x = torch.randn(1, 64, 2 * d, device=card, dtype=torch.bfloat16)
         return [g["shared_memory"] for g in cuda_launches(
             lambda: ak.mha_packed_forward(x, x, x, 2))]
@@ -1086,3 +1088,112 @@ def test_speculative_streams_match_plain(card):
     plain = streams[True, None]
     assert streams[False, False] == plain
     assert streams[False, True] == plain
+
+
+# ------------------- the engine's resilience layer on the card (rows 1, 6)
+
+def test_retried_faults_leave_streams_clean(card):
+    """Transient faults at the prefill and at decode steps, absorbed by
+    retries, re-run the same kernels: bf16 streams on the fused route are
+    token-equal to a clean run, retries == faults fired."""
+    from deeplearning4j_tpu_torch.serving import FaultPlan, RetryPolicy
+    cfg = TransformerConfig(**_LIFE_CFG, dtype=torch.bfloat16,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=6, device=card)
+    rng = np.random.default_rng(61)
+    ps = [rng.integers(0, 64, int(rng.integers(3, 30))).astype(np.int32)
+          for _ in range(6)]
+    kw = dict(slots=4, max_len=64, block_size=8, paged_attention="fused",
+              device=card)
+    with GenerationEngine(params, cfg, **kw) as eng:
+        clean = [h.result(timeout=120) for h in
+                 [eng.submit(p, max_new_tokens=16) for p in ps]]
+    plan = (FaultPlan(seed=3).fail("generation.prefill", at=(0, 3))
+            .fail("generation.decode_step", rate=0.2, at=(1,)))
+    with GenerationEngine(params, cfg, retry_policy=RetryPolicy(
+            max_attempts=4, seed=0), **kw) as eng:
+        before = ak.paged_decode_attention.launches
+        with plan:
+            got = [h.result(timeout=120) for h in
+                   [eng.submit(p, max_new_tokens=16) for p in ps]]
+        assert got == clean
+        assert eng.metrics.retries_total.value == len(plan.fired()) >= 3
+        assert eng.metrics.failed_total.value == 0
+        assert ak.paged_decode_attention.launches > before
+
+
+def test_watchdog_restart_on_the_card(card):
+    """A decode step held past the watchdog: the live stream fails typed,
+    the restart builds a new pool on the card, and a stream served while
+    the stale thread's late step writes into the old pool is clean."""
+    from deeplearning4j_tpu_torch.serving import (
+        FaultPlan, WatchdogTimeoutError)
+    cfg = TransformerConfig(**_LIFE_CFG, dtype=torch.bfloat16,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=7, device=card)
+    rng = np.random.default_rng(71)
+    p0, p1 = (rng.integers(0, 64, 9).astype(np.int32) for _ in range(2))
+    with GenerationEngine(params, cfg, slots=2, max_len=64, block_size=8,
+                          paged_attention="fused", device=card) as eng:
+        clean = eng.generate(p1, max_new_tokens=40, timeout=120)
+        eng.arm_watchdog(300)
+        stale, old_pool = eng._thread, eng._cache
+        plan = FaultPlan(seed=0).delay("generation.decode_step", ms=1200,
+                                       at=(1,))
+        with plan:
+            h = eng.submit(p0, max_new_tokens=8)
+            with pytest.raises(WatchdogTimeoutError):
+                h.result(timeout=60)
+            late = eng.submit(p1, max_new_tokens=40,
+                              on_token=lambda _t: time.sleep(0.03))
+            got = late.result(timeout=120)
+        stale.join(timeout=10)
+        assert not stale.is_alive()
+        assert got == clean
+        assert eng.watchdog_restarts == 1 and eng._cache is not old_pool
+
+
+def test_watchdog_restart_held_before_the_launch_on_the_card(card):
+    """The scheduler held past the watchdog at the top of a turn, before
+    its decode step launches: the restart swaps in a new pool on the
+    card, the stale thread's late step launches into the pool it bound
+    (never the new one), and a stream served meanwhile is clean."""
+    import threading
+
+    from deeplearning4j_tpu_torch.serving import WatchdogTimeoutError
+    cfg = TransformerConfig(**_LIFE_CFG, dtype=torch.bfloat16,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=7, device=card)
+    rng = np.random.default_rng(72)
+    p0, p1 = (rng.integers(0, 64, 9).astype(np.int32) for _ in range(2))
+    with GenerationEngine(params, cfg, slots=2, max_len=64, block_size=8,
+                          paged_attention="fused", device=card) as eng:
+        clean = eng.generate(p1, max_new_tokens=40, timeout=120)
+        eng.arm_watchdog(300)
+        stale, old_pool = eng._thread, eng._cache
+        held = threading.Event()
+        turn, decode, launches = eng._decode_iteration, eng._decode, []
+
+        def holding(*a):
+            if threading.current_thread() is stale and not held.is_set():
+                held.set()
+                time.sleep(1.2)
+            return turn(*a)
+
+        def spy(params, cache, *a):
+            launches.append((threading.current_thread(), cache))
+            return decode(params, cache, *a)
+
+        eng._decode_iteration, eng._decode = holding, spy
+        h = eng.submit(p0, max_new_tokens=8)
+        with pytest.raises(WatchdogTimeoutError):
+            h.result(timeout=60)
+        got = eng.submit(p1, max_new_tokens=40,
+                         on_token=lambda _t: time.sleep(0.03)).result(
+                             timeout=120)
+        stale.join(timeout=10)
+        assert not stale.is_alive()
+        assert got == clean
+        assert eng.watchdog_restarts == 1 and eng._cache is not old_pool
+        assert any(t is stale and c is old_pool for t, c in launches)
+        assert all(c is not eng._cache for t, c in launches if t is stale)
