@@ -100,6 +100,19 @@ seconds:
    on-demand pool); every engine's ledger and shutdown law, the thread
    count and ``torch.cuda.memory_allocated()`` back to their values
    before the phase; a merged Chrome trace to ``chiprun_out/``;
+   front door — a ``ModelRegistry`` deployment of the same model behind
+   the batching ``InferenceEngine`` (64 client threads of 1-4 128-token
+   rows; every bucket batch bit-equal to a direct call, each request's
+   rows its batch's rows, unpadded rows within 2^-5 of the row's largest
+   logit; rows/s and latency), then two generation hosts on the card,
+   each a process of its own (``--serve-host``) behind a
+   ``HostRpcServer``, a directory fed by ``RemoteHost`` heartbeats and a
+   hedging ``ClusterFrontDoor``: the mix replayed by ``LoadGenerator``
+   token-equal to the engine phase on both hosts, again under seeded RPC
+   faults (typed sheds only, none stuck; a stream resumed from its
+   watermark equal to host 0's engine seated at its resume points) and
+   with one host drained
+   mid-replay (nothing shed); the shutdown law and the ledger at zero;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -2939,6 +2952,537 @@ def qos_scenarios(cfg, params, prompts, max_new, base, same):
     return stats
 
 
+def front_door_phase(cfg, params, prompts, plain_streams, engine_tok_s,
+                     device="cuda", max_new=64):
+    """The serving front door at full width, on the engine phase's model
+    (BERT-base causal LM, bf16, ``attention_impl="flash"``, seeded
+    weights) and chat mix. Every check fails the run.
+
+    a. Registry and ``InferenceEngine``: ``ModelRegistry().deploy("bert",
+       CausalLMAdapter(params, cfg), buckets=(1, 2, 4, 8, 16, 32),
+       warmup_example=<one 128-token row>)``, then ``registry.engine``;
+       64 client threads submit 1-4 seeded 128-token rows each. Every
+       dispatched bucket batch's logits are bit-equal to a direct
+       ``make_infer_last_logits`` call on the same padded batch, and each
+       request's output is its rows of that batch; against a direct call
+       on the request's own unpadded rows (other GEMM shapes, so possibly
+       another summation order in bf16) each logit is within 2^-5 of its
+       row's largest |logit| (4 to 8 bf16 ulps at that magnitude). Row 1
+       launches layers x dispatches; ``compiled_signatures() <=
+       len(buckets)``; rows/s and p50/p99 latency.
+    b. The fleet over HTTP: two hosts on the card, each a process of its
+       own (:func:`serve_host`: ``registry.generation_engine`` with 16
+       slots, max_len 512, 16-token blocks, the engine phase's pool and
+       fused route, behind ``LoopbackHost`` + ``HostRpcServer`` on
+       127.0.0.1); here a ``ClusterDirectory`` fed by ``RemoteHost``
+       heartbeat pumps and a hedging ``ClusterFrontDoor``;
+       ``LoadGenerator`` replays the 32 prompts (64 new tokens, greedy,
+       one arrival every 20 ms, so each dispatch has landed and counts
+       in the front door's routing before the next arrives) through
+       ``front_door_submitter``. Every stream equals the engine phase's;
+       both hosts serve; on each host rows 1 and 6 launch layers x
+       prefills and layers x decode steps.
+    c. Chaos and drain: the replay under a seeded ``FaultPlan`` on
+       ``rpc.dispatch``, ``rpc.stream`` and ``rpc.response``: every
+       request ends in a typed shed or in its reference stream, none
+       stuck. The reference is (b)'s stream, except for a stream the
+       front door resumed from its delivery watermark (the resume
+       points read from its front-door trace): up to its first resume
+       point r (b)'s stream, then what host 0's engine generates seated
+       at r on that prefix through the same recompute prefill, and so
+       on at each later resume point. The fired schedule, the resume
+       points and each request's path over the hosts go to
+       ``chiprun_out/``. Then the replay with ``drain_host`` of host 1
+       started at 0.3 s (nothing shed, host 1 leaves). After shutdown,
+       ``check_shutdown`` of the ``InferenceEngine`` here and of each
+       host's engine and server there reads clean, and
+       ``ResourceLedger`` over them and the front door reads zero open
+       ops, outstanding dispatches, live slots, queued and in-flight
+       rows."""
+    from deeplearning4j_tpu_torch.serving import (
+        ModelRegistry, ResourceLedger, check_shutdown)
+
+    reg = ModelRegistry()
+    try:
+        stats, eng = inference_engine_part(reg, cfg, params, device)
+    finally:
+        reg.shutdown()
+    hosts = [HostProcess(i, cfg, device) for i in range(2)]
+    try:
+        stats.update(fleet_part(hosts, cfg, prompts, plain_streams,
+                                max_new))
+        reports = [h.stop() for h in hosts]
+    finally:
+        for h in hosts:
+            h.kill()
+    bad = check_shutdown(eng) + [v for r in reports for v in r["shutdown"]]
+    check(not bad, f"front door: shutdown law: {bad}")
+    dims = ResourceLedger(engines=[eng], rpc_servers=[],
+                          front_doors=[stats.pop("_fd")]).snapshot().dims
+    for r in reports:
+        dims.update(r["ledger"])
+    held = {k: v for k, v in dims.items() if v and k.endswith(
+        (".open_ops", ".outstanding", ".live_slots", ".queue_depth",
+         ".inflight_rows"))}
+    check(not held, f"front door: ledger after shutdown: {held}")
+    stats["ledger_after_shutdown"] = {
+        k: v for k, v in dims.items() if not k.startswith("process.")}
+    stats["engine_phase_decode_tokens_per_sec"] = engine_tok_s
+    log(f"front door ({CARD}): " + json.dumps(stats, default=str))
+    return stats
+
+
+def inference_engine_part(reg, cfg, params, device):
+    """Part a of :func:`front_door_phase`; returns (stats, engine)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.bert import make_infer_last_logits
+    from deeplearning4j_tpu_torch.serving import CausalLMAdapter
+
+    class Recording(CausalLMAdapter):
+        """Keeps each batch the engine dispatches and its logits."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.calls = []
+            self.on = False
+            self._rec = threading.Lock()
+
+        def infer(self, x):
+            y = super().infer(x)
+            if self.on:
+                with self._rec:
+                    self.calls.append((np.array(x), y))
+            return y
+
+    T, buckets, n_clients = 128, (1, 2, 4, 8, 16, 32), 64
+    rng = np.random.default_rng(1)
+    example = rng.integers(0, cfg.vocab_size, T).astype(np.int32)
+    adapter = Recording(params, cfg, device=device)
+    t0 = time.perf_counter()
+    reg.deploy("bert", adapter, buckets=buckets, warmup_example=example)
+    eng = reg.engine("bert", name="bert-infer")
+    warm_s = time.perf_counter() - t0
+    reqs = [rng.integers(0, cfg.vocab_size,
+                         (int(rng.integers(1, 5)), T)).astype(np.int32)
+            for _ in range(n_clients)]
+    outs, lat = [None] * n_clients, [None] * n_clients
+    gate = threading.Barrier(n_clients)
+
+    def client(i):
+        gate.wait()
+        t = time.perf_counter()
+        outs[i] = eng.output(reqs[i])
+        lat[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_clients)]
+    adapter.on = True
+    reset_launches()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    n = read_launches()
+    adapter.on = False
+    check(all(o is not None for o in outs),
+          "inference engine: a client got no output")
+    check(all(o.shape == (r.shape[0], cfg.vocab_size) and np.isfinite(o).all()
+              for o, r in zip(outs, reqs)),
+          "inference engine: output of the wrong shape or not finite")
+    calls = adapter.calls
+    check(n["mha_attention_packed"] == cfg.layers * len(calls),
+          f"inference engine: packed kernel launched "
+          f"{n['mha_attention_packed']} times for {len(calls)} dispatches "
+          f"of {cfg.layers} layers")
+    check(n["paged_decode_attention"] == 0,
+          "inference engine: the paged kernel launched")
+    check(eng.compiled_signatures() <= len(buckets),
+          f"inference engine: {eng.compiled_signatures()} batch shapes "
+          f"for {len(buckets)} buckets")
+    # each dispatched batch against a direct call on the same padded batch
+    fwd = make_infer_last_logits(cfg)
+    row_out = {}
+    for x, y in calls:
+        check(x.shape[0] in buckets, f"inference engine: batch of "
+              f"{x.shape[0]} rows is no bucket")
+        direct = fwd(params, torch.from_numpy(x).to(device)).cpu().numpy()
+        check(np.array_equal(direct, y),
+              f"inference engine: bucket batch of {x.shape[0]} differs from "
+              f"the direct call (max {np.abs(direct - y).max()})")
+        for j in range(x.shape[0]):
+            row_out.setdefault(x[j].tobytes(), y[j])
+    rel = 0.0
+    for r, o in zip(reqs, outs):
+        want = np.stack([row_out[row.tobytes()] for row in r])
+        check(np.array_equal(o, want),
+              "inference engine: a request's rows are not its batch's rows")
+        own = fwd(params, torch.from_numpy(r).to(device)).cpu().numpy()
+        scale = np.abs(own).max(axis=1, keepdims=True)
+        err = np.abs(o - own) / scale
+        rel = max(rel, float(err.max()))
+        check(err.max() <= 2.0 ** -5,
+              f"inference engine: unpadded rows differ by {err.max()} of "
+              "the row's largest logit (limit 2^-5)")
+    rows = sum(r.shape[0] for r in reqs)
+    stats = {"ie_warmup_s": warm_s, "ie_requests": n_clients,
+             "ie_rows": rows, "ie_wall_s": wall,
+             "ie_rows_per_sec": rows / wall,
+             "ie_latency_p50_ms": float(np.percentile(lat, 50)),
+             "ie_latency_p99_ms": float(np.percentile(lat, 99)),
+             "ie_dispatches": len(calls),
+             "ie_batch_sizes": sorted(x.shape[0] for x, _ in calls),
+             "ie_compiled_signatures": eng.compiled_signatures(),
+             "ie_unpadded_max_rel_err": rel,
+             "ie_packed_launches": n["mha_attention_packed"]}
+    log("inference engine: " + json.dumps(stats))
+    return stats, eng
+
+
+# ---- the front door phase's hosts: one process each ----------------------
+def _cfg_json(cfg) -> str:
+    d = dataclasses.asdict(cfg)
+    for k, v in d.items():
+        if type(v).__name__ == "dtype":        # torch.bfloat16 -> "bfloat16"
+            d[k] = str(v).replace("torch.", "")
+    return json.dumps(d)
+
+
+def serve_host(argv) -> int:
+    """``python3 chip_smoke.py --serve-host I --cfg JSON --device DEV``:
+    host I of the front door phase, in a process of its own (its own
+    interpreter lock and CUDA context, as a host of a fleet has). The
+    engine phase's weights (``init_params(cfg, seed=0)``) are deployed in
+    a ``ModelRegistry``; ``registry.generation_engine("bert", slots=16,
+    max_len=cfg.max_seq, block_size=16, kv_dtype="float32",
+    paged_attention="fused")`` is warmed up and served behind
+    ``LoopbackHost`` and ``HostRpcServer`` on 127.0.0.1. Prints
+    ``{"url": ...}`` once serving, then answers each line on its
+    standard input with one JSON line: ``report`` (once the engine is
+    idle: its prefills, decode steps and kernel launches since the
+    warm-up), ``resume <jobs>`` (each ``{"prompt", "resume", "max_new"}``
+    submitted to the engine itself, seated at ``len(resume)``: the
+    tokens it generates from there), ``stop`` (shut down: the shutdown
+    law of the engine and the server, their ledger dimensions and the
+    final report; then exit)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import TransformerConfig, init_params
+    from deeplearning4j_tpu_torch.serving import (
+        CausalLMAdapter, HostRpcServer, LoopbackHost, ModelRegistry,
+        ResourceLedger, check_shutdown)
+
+    i = int(argv[argv.index("--serve-host") + 1])
+    fields = json.loads(argv[argv.index("--cfg") + 1])
+    device = argv[argv.index("--device") + 1]
+    for k, v in fields.items():
+        if k.endswith("dtype"):
+            fields[k] = getattr(torch, v)
+    cfg = TransformerConfig(**fields)
+    reg = ModelRegistry()
+    reg.deploy("bert", CausalLMAdapter(init_params(cfg, seed=0,
+                                                   device=device),
+                                       cfg, device=device))
+    g = reg.generation_engine("bert", slots=16, max_len=cfg.max_seq,
+                              block_size=16, kv_dtype="float32",
+                              paged_attention="fused", queue_capacity=48,
+                              name=f"fd-h{i}")
+    g.warmup()
+    srv = HostRpcServer(LoopbackHost(i, generation=g))
+    reset_launches()
+    m = g.metrics
+    base = (m.prefills_total.value, m.decode_steps_total.value)
+
+    def report():
+        deadline = time.monotonic() + 60.0
+        while (g.live_slots or g.queue_depth) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        n = read_launches()
+        return {"prefills": m.prefills_total.value - base[0],
+                "decode_steps": m.decode_steps_total.value - base[1],
+                "packed_launches": n["mha_attention_packed"],
+                "paged_launches": n["paged_decode_attention"],
+                "decode_step_ms_mean": m.decode_step_ms.mean,
+                "prefill_ms_mean": m.prefill_ms.mean}
+
+    def resume(jobs):
+        # straight into the engine, no RPC: each job seated at its resume
+        # point through the recompute prefill, greedy as the replay
+        hs = [g.submit(np.asarray(j["prompt"], np.int32),
+                       max_new_tokens=j["max_new"], seed=0,
+                       resume_tokens=np.asarray(j["resume"], np.int32),
+                       resume_step=len(j["resume"])) for j in jobs]
+        return {"tokens": [h.result(timeout=300) for h in hs]}
+
+    print(json.dumps({"url": srv.url}), flush=True)
+    for line in sys.stdin:
+        cmd = line.strip()
+        if cmd == "report":
+            print(json.dumps(report()), flush=True)
+        elif cmd.startswith("resume "):
+            print(json.dumps(resume(json.loads(cmd[len("resume "):]))),
+                  flush=True)
+        elif cmd == "stop":
+            final = report()
+            srv.stop()
+            reg.shutdown()
+            dims = ResourceLedger(engines=[g], rpc_servers=[srv]
+                                  ).snapshot().dims
+            print(json.dumps({
+                "report": final,
+                "shutdown": check_shutdown(g) + check_shutdown(srv),
+                "ledger": {k: v for k, v in dims.items()
+                           if not k.startswith("process.")}}), flush=True)
+            return 0
+    return 1
+
+
+class HostProcess:
+    """One :func:`serve_host` process, started at construction; its
+    answers are read with a timeout, and :meth:`kill` ends it whatever
+    state it is in."""
+
+    def __init__(self, host_id: int, cfg, device: str):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-host",
+             str(host_id), "--cfg", _cfg_json(cfg), "--device", device],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            bufsize=1)
+        self.url = None
+
+    def read(self, timeout: float = 300.0) -> dict:
+        import select
+
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        check(bool(ready), f"host process {self.proc.pid}: no answer in "
+              f"{timeout} s")
+        line = self.proc.stdout.readline()
+        check(bool(line), f"host process {self.proc.pid} exited "
+              f"({self.proc.poll()})")
+        return json.loads(line)
+
+    def ask(self, cmd: str) -> dict:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return self.read()
+
+    def start(self) -> str:
+        self.url = self.read()["url"]
+        return self.url
+
+    def stop(self) -> dict:
+        out = self.ask("stop")
+        check(self.proc.wait(60) == 0, "host process did not exit cleanly")
+        return out
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+def fleet_part(hosts, cfg, prompts, plain_streams, max_new):
+    """Parts b and c of :func:`front_door_phase` over the started host
+    processes; returns the stats (the front door under ``"_fd"``)."""
+    from deeplearning4j_tpu_torch.serving import (
+        ClusterDirectory, ClusterFrontDoor, FaultPlan, HeartbeatPump,
+        HedgePolicy, LoadGenerator, LoopbackTransport, RejectedError,
+        RemoteHost, TraceRequest, Tracer, drain_host, front_door_submitter)
+    from deeplearning4j_tpu_torch.serving.tracing import TERMINAL_REASONS
+
+    t0 = time.perf_counter()
+    urls = [h.start() for h in hosts]
+    d = ClusterDirectory(heartbeat_timeout_s=5.0)
+    pumps = []
+    for i, url in enumerate(urls):
+        rem = RemoteHost(i, url)
+        d.join(rem)
+        pump = HeartbeatPump(rem, LoopbackTransport(d), interval_s=0.2)
+        pump.pump_once()
+        pumps.append(pump.start())
+    tracer = Tracer(sample_rate=1.0, capacity=256)
+    fd = ClusterFrontDoor(d, tracer=tracer, hedge=HedgePolicy(
+        hedge_after_ms=5000.0, max_attempts=3, poll_wait_ms=50.0))
+    stats = {"_fd": fd, "hosts_start_s": time.perf_counter() - t0}
+
+    def replay(spacing_s=0.02, during=None, tenant=lambda i: "chat"):
+        handles = {}
+        submit_fd = front_door_submitter(fd)
+
+        def submit(tr, on_token):
+            try:
+                handles[tr.index] = h = submit_fd(tr, on_token)
+            except RejectedError as e:     # a typed shed at submit
+                handles[tr.index] = e
+                raise
+            return h
+        trace = [TraceRequest(index=i, arrival_s=i * spacing_s, kind="chat",
+                              prompt=tuple(int(t) for t in p),
+                              max_new_tokens=max_new, tenant=tenant(i),
+                              priority=None, seed=0)
+                 for i, p in enumerate(prompts)]
+        side = threading.Thread(target=during) if during else None
+        if side is not None:
+            side.start()
+        report = LoadGenerator(trace, submit, drain_timeout_s=300.0).run()
+        if side is not None:
+            side.join(300)
+        check(report.stuck_streams == 0,
+              f"front door: {report.stuck_streams} stuck stream(s)")
+        streams = []
+        for i in range(len(prompts)):
+            h = handles[i]
+            exc = h if isinstance(h, BaseException) \
+                else h.future.exception(timeout=0)
+            streams.append(h.result() if exc is None else exc)
+        return report, streams
+
+    # ---- b: the fleet over HTTP ------------------------------------------
+    before = [h.ask("report") for h in hosts]
+    report, streams = replay()
+    after = [h.ask("report") for h in hosts]
+    bad = [i for i, (a, b) in enumerate(zip(streams, plain_streams))
+           if a != b]
+    check(not bad, f"front door: streams {bad} differ from the engine "
+          "phase's")
+    check(report.watermark_clean, "front door: a stream's on_token tokens "
+          "differ from its result")
+    routed = fd.routed_by_host.to_dict()
+    check(routed.get("h0", 0) > 0 and routed.get("h1", 0) > 0,
+          f"front door: both hosts must serve, routed {routed}")
+    delta = [{k: a[k] - b[k] for k in ("prefills", "decode_steps",
+                                       "packed_launches", "paged_launches")}
+             for a, b in zip(after, before)]
+    for i, dh in enumerate(delta):
+        check(dh["packed_launches"] == cfg.layers * dh["prefills"],
+              f"front door: host {i} launched the packed kernel "
+              f"{dh['packed_launches']} times for {dh['prefills']} prefills")
+        check(dh["paged_launches"] == cfg.layers * dh["decode_steps"],
+              f"front door: host {i} launched the paged kernel "
+              f"{dh['paged_launches']} times for {dh['decode_steps']} "
+              "decode steps")
+    rep = report.to_dict()
+    stats.update({
+        "fleet_tokens_per_sec": report.tokens_per_sec,
+        "fleet_ttft_p50_ms": rep["ttft_p50_ms"],
+        "fleet_ttft_p99_ms": rep["ttft_p99_ms"],
+        "fleet_latency_p50_ms": rep["latency_p50_ms"],
+        "fleet_latency_p99_ms": rep["latency_p99_ms"],
+        "fleet_duration_s": report.duration_s,
+        "fleet_routed_by_host": routed, "fleet_hedges": fd.hedges.to_dict(),
+        "fleet_hosts": delta,
+        "fleet_decode_step_ms_mean": [a["decode_step_ms_mean"]
+                                      for a in after],
+        "packed_launches": sum(dh["packed_launches"] for dh in delta),
+        "paged_launches": sum(dh["paged_launches"] for dh in delta)})
+    log("front door fleet: " + json.dumps(
+        {k: v for k, v in stats.items() if k != "_fd"}))
+
+    # ---- c: chaos ---------------------------------------------------------
+    plan = (FaultPlan(seed=11)
+            .fail("rpc.dispatch", rate=0.05)
+            .fail("rpc.stream", rate=0.005)
+            .poison("rpc.response", lambda raw: dict(raw, tokens=None),
+                    rate=0.005))
+    hedges0 = dict(fd.hedges.to_dict())
+    with plan:
+        # one tenant label a request: its front-door trace is found again
+        chaos, cstreams = replay(tenant=lambda i: f"r{i}")
+    fired = plan.fired()
+    # each request's front-door trace: its resume points and its path
+    resumed, paths = {}, {}
+    for tr in tracer.traces():
+        if tr.kind != "cluster.generate" or tr.tenant not in {
+                f"r{i}" for i in range(len(prompts))}:
+            continue
+        i = int(tr.tenant[1:])
+        evs = [(n, a or {}) for n, _, a in tr.events]
+        steps = sorted({a["resume_step"] for n, a in evs
+                        if n == "stream.resume"})
+        if steps:
+            resumed[i] = steps
+        paths[i] = [f"{n}@h{a['host']}" + (f":{a['reason']}"
+                                            if "reason" in a else "")
+                    for n, a in evs if "host" in a and n in (
+                        "cluster.route", "cluster.bounce", "stream.resume")]
+    # the exact reference of a resumed stream: the clean stream up to its
+    # first resume point r, then what host 0's engine generates when
+    # seated at r on (prompt, the stream so far) through the same
+    # recompute prefill; again at each later resume point
+    expected = {i: list(streams[i]) for i in resumed}
+    for k in range(max((len(v) for v in resumed.values()), default=0)):
+        jobs = [(i, v[k]) for i, v in resumed.items() if len(v) > k]
+        got = hosts[0].ask("resume " + json.dumps([
+            {"prompt": [int(t) for t in prompts[i]],
+             "resume": expected[i][:r], "max_new": max_new}
+            for i, r in jobs]))["tokens"]
+        for (i, r), cont in zip(jobs, got):
+            expected[i] = expected[i][:r] + cont
+    shed, off_clean = {}, {}
+    for i, (a, b) in enumerate(zip(cstreams, streams)):
+        if isinstance(a, BaseException):
+            check(isinstance(a, RejectedError)
+                  and a.reason in TERMINAL_REASONS and a.reason != "ok",
+                  f"chaos: request {i} failed untyped: {a!r}")
+            shed[a.reason] = shed.get(a.reason, 0) + 1
+            continue
+        want = expected.get(i, b)
+        check(a == want, f"chaos: stream {i} (resumed at "
+              f"{resumed.get(i, [])}, {len(a)} tokens) differs from its "
+              f"reference ({len(want)} tokens): {a} against {want}")
+        if a != b:
+            off_clean[i] = (resumed[i], next(
+                k for k, (x, y) in enumerate(zip(a, b)) if x != y))
+    check(chaos.watermark_clean, "chaos: a stream delivered a token twice "
+          "or skipped one")
+    kinds = {}
+    for e in fired:
+        key = f"{e['point']}:{e['kind']}"
+        kinds[key] = kinds.get(key, 0) + 1
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/front_door_chaos.json", "w") as f:
+        json.dump({"fired": fired, "shed": shed, "resumed": resumed,
+                   "paths": paths}, f)
+    hedges = {k: v - hedges0.get(k, 0) for k, v in fd.hedges.to_dict().items()}
+    stats.update({"chaos_fired": kinds, "chaos_shed": shed,
+                  "chaos_ok": len(prompts) - sum(shed.values()),
+                  "chaos_resumed": len(resumed),
+                  "chaos_resumed_off_clean": off_clean,
+                  "chaos_shed_paths": {
+                      i: paths.get(i) for i, a in enumerate(cstreams)
+                      if isinstance(a, BaseException)},
+                  "chaos_hedges": hedges,
+                  "chaos_tokens_per_sec": chaos.tokens_per_sec})
+
+    # ---- c: drain one host mid-replay -------------------------------------
+    drained = {}
+
+    def drain_later():
+        time.sleep(0.3)
+        t = time.perf_counter()
+        drained["ok"] = drain_host(d, 1, timeout=300.0)
+        drained["s"] = time.perf_counter() - t
+
+    before = dict(fd.routed_by_host.to_dict())
+    report, dstreams = replay(during=drain_later)
+    check(drained.get("ok") is True, "drain: host 1 did not drain")
+    check(d.host_ids() == [0], f"drain: hosts {d.host_ids()} after the "
+          "drain, expected [0]")
+    check(report.reasons() == {"ok": len(prompts)},
+          f"drain: requests shed {report.reasons()}")
+    bad = [i for i, (a, b) in enumerate(zip(dstreams, streams)) if a != b]
+    check(not bad, f"drain: streams {bad} differ from the clean replay")
+    after = fd.routed_by_host.to_dict()
+    stats.update({"drain_s": drained["s"], "drain_routed": {
+        k: v - before.get(k, 0) for k, v in after.items()}})
+    for pump in pumps:
+        pump.stop()
+    return stats
+
+
 def timed_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2971,6 +3515,8 @@ KERNELS = (
 
 
 def main() -> int:
+    if "--serve-host" in sys.argv:
+        return serve_host(sys.argv)
     try:
         import torch
     except ImportError as e:
@@ -3011,6 +3557,9 @@ def main() -> int:
                        prompts, engine["float32"]["streams"])
     resil = timed_phase("resilience and qos", resilience_qos_phase, cfg,
                         params, prompts, engine["float32"]["streams"],
+                        engine["float32"]["decode_tokens_per_sec"])
+    front = timed_phase("front door", front_door_phase, cfg, params,
+                        prompts, engine["float32"]["streams"],
                         engine["float32"]["decode_tokens_per_sec"])
     del params
     torch.cuda.empty_cache()
@@ -3074,8 +3623,12 @@ def main() -> int:
                                host_ms=main["host_ms"])
         if name == "mha_attention_packed":
             kernels[-1]["launches_resilience_qos"] = resil["packed_launches"]
+            kernels[-1]["launches_front_door"] = front["packed_launches"]
+            kernels[-1]["launches_inference_engine"] = \
+                front["ie_packed_launches"]
         if name == "paged_decode_attention":
             kernels[-1]["launches_resilience_qos"] = resil["paged_launches"]
+            kernels[-1]["launches_front_door"] = front["paged_launches"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

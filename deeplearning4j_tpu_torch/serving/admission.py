@@ -1,4 +1,4 @@
-"""Admission control for the generation engine (counterpart:
+"""Admission control for the serving engines (counterpart:
 ``deeplearning4j_tpu/serving/admission.py``): a bounded request queue
 with backpressure, per-request deadlines and typed shedding.
 
@@ -80,13 +80,57 @@ class SloShedError(RejectedError):
         self.detail = detail
 
 
-class HostDrainingError(RejectedError):
-    """The engine is draining (reason 'host_draining'): admission is
-    closed ahead of a graceful leave — resident streams finish, queued
-    work drains, nothing new is accepted."""
+class ClusterCapacityError(RejectedError):
+    """The whole fleet is out of capacity (reason 'cluster_capacity'):
+    the cluster front door (serving/cluster.py) found live hosts but none
+    with admission headroom — the cross-host analogue of queue-full,
+    typed separately so "this host is busy" and "the deployment is
+    saturated" stay apart. Carries the ``hosts`` joined and ``alive``
+    counts at shed time."""
 
-    def __init__(self, msg: str):
+    def __init__(self, msg: str, hosts: Optional[int] = None,
+                 alive: Optional[int] = None):
+        super().__init__(msg, "cluster_capacity")
+        self.hosts = hosts
+        self.alive = alive
+
+
+class HostUnavailableError(RejectedError):
+    """No usable host for this request (reason 'host_unavailable'): the
+    pinned host is dead or stale past its probe allowance, or every
+    candidate is — distinct from cluster_capacity because the cure
+    differs (bring hosts back, not add capacity). ``host`` names the
+    pinned host when one was, else None."""
+
+    def __init__(self, msg: str, host: Optional[int] = None):
+        super().__init__(msg, "host_unavailable")
+        self.host = host
+
+
+class HostDrainingError(RejectedError):
+    """The host is draining (reason 'host_draining'): admission is
+    closed ahead of a graceful leave — resident streams finish, queued
+    work drains, nothing new is accepted. The cluster front door excludes
+    draining hosts from its candidates, so this reason only reaches
+    callers who submit to the host directly. ``host`` names the draining
+    host when known."""
+
+    def __init__(self, msg: str, host: Optional[int] = None):
         super().__init__(msg, "host_draining")
+        self.host = host
+
+
+class RpcError(RejectedError):
+    """The RPC data plane could not interpret a peer's wire payload
+    (reason 'rpc_error'): malformed JSON, a response missing required
+    fields, or a schema the receiver cannot branch on. Distinct from
+    'host_unavailable' (the host answered — with garbage); the front door
+    still treats it as a host bounce and re-dispatches. ``host`` names
+    the peer whose payload failed to parse."""
+
+    def __init__(self, msg: str, host: Optional[int] = None):
+        super().__init__(msg, "rpc_error")
+        self.host = host
 
 
 class KVBlocksExhaustedError(RejectedError):
@@ -134,7 +178,8 @@ class PreemptedError(RejectedError):
 class Request:
     """One submitted inference request (``rows`` leading-dim rows of x)."""
 
-    x: object                      # the engine's payload (a GenerationRequest)
+    x: object                      # the engine's payload: batch-major rows
+    #                                (InferenceEngine) or a GenerationRequest
     rows: int
     future: Future = field(default_factory=Future)
     submit_t: float = field(default_factory=time.perf_counter)

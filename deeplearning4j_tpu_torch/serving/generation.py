@@ -74,7 +74,8 @@ with the resource ledger (:mod:`.ledger`, :meth:`ledger_stats`). With no
 policy, no fault plan and the default (disabled) tracer, streams are the
 plain engine's.
 
-Not ported yet: page migration, the model registry, the RPC data plane
+:func:`client_stream_handle` is the handle of a stream decoded on another
+host (serving/rpc.py, serving/cluster.py). Not ported yet: page migration
 and meshes. The reference's ``compiled_signatures`` and
 ``draft_compiled_signatures`` count XLA executables; the port runs
 eagerly and has none to count.
@@ -103,8 +104,8 @@ from deeplearning4j_tpu_torch.models.bert import (
 from deeplearning4j_tpu_torch.models.random import prng_key
 from deeplearning4j_tpu_torch.profiler import OpProfiler
 from deeplearning4j_tpu_torch.serving.admission import (
-    AdmissionController, HostDrainingError, KVBlocksExhaustedError,
-    PreemptedError, RejectedError, Request)
+    DEFAULT_TENANT, AdmissionController, HostDrainingError,
+    KVBlocksExhaustedError, PreemptedError, RejectedError, Request)
 from deeplearning4j_tpu_torch.serving.engine import bucket_ladder
 from deeplearning4j_tpu_torch.serving.faults import inject
 from deeplearning4j_tpu_torch.serving.ledger import track_engine
@@ -695,7 +696,9 @@ class GenerationEngine(ResilientEngineMixin):
                priority: Optional[str] = None,
                on_token: Optional[Callable[[int], None]] = None,
                resume_tokens=None, resume_step: int = 0,
-               swap_key: Optional[int] = None) -> GenerationHandle:
+               swap_key: Optional[int] = None,
+               trace_link: Optional[str] = None,
+               trace_parent: Optional[str] = None) -> GenerationHandle:
         """Queue one prompt. Greedy by default; ``temperature`` > 0
         samples, ``top_k`` > 0 restricts sampling to the k most likely
         tokens, ``seed`` fixes the stream's PRNG key (a fixed seed gives a
@@ -719,7 +722,13 @@ class GenerationEngine(ResilientEngineMixin):
         prefill and the next sample is drawn at index ``resume_step``
         (which must equal ``len(resume_tokens)``). ``swap_key`` names
         parked blocks to re-seat from instead (it needs
-        ``resume_tokens``, the fallback on a miss)."""
+        ``resume_tokens``, the fallback on a miss).
+
+        ``trace_link``/``trace_parent`` attach the stream's trace to a
+        cross-host parent (the trace context serving/rpc.py forwards):
+        the engine's ``RequestTrace`` stays a full local timeline that
+        names the front-door trace it is a leg of, so the cluster
+        aggregator can stitch the legs. By default it is a local root."""
         tenant, priority = resolve_qos(self.qos, tenant, priority)
         toks = np.ascontiguousarray(np.asarray(prompt, np.int32).ravel())
         if toks.size == 0:
@@ -780,6 +789,8 @@ class GenerationEngine(ResilientEngineMixin):
             resume_tokens=resume_tokens, resume_step=int(resume_step),
             swap_key=swap_key)
         trace = self._tracer.begin(self.name, "generate",
+                                   link=trace_link,
+                                   parent_span=trace_parent,
                                    prompt_len=int(toks.size),
                                    max_new_tokens=max_new_tokens,
                                    tenant=tenant)
@@ -2649,3 +2660,20 @@ class GenerationEngine(ResilientEngineMixin):
             finally:
                 self._spec_force_plain = False
         return self
+
+
+def client_stream_handle(prompt_len: int,
+                         on_token: Optional[Callable[[int], None]] = None,
+                         tenant: Optional[str] = None) -> GenerationHandle:
+    """A :class:`GenerationHandle` backed by no local scheduler — the
+    client half of a cross-host stream (serving/rpc.py's bridge and the
+    front door's hedging supervisor in serving/cluster.py). The bridge
+    delivers through the hooks the scheduler uses — ``_push`` per token,
+    ``_finish``/``_fail`` exactly once at the terminal — so ``result()``,
+    ``stream()``, ``tokens_so_far()`` and ``on_token`` behave the same
+    whether the tokens were decoded in this process or long-polled off a
+    remote host. The admission ``Request`` only carries the future and
+    the tenant label; it never enters a queue."""
+    req = Request(x=None, rows=1,
+                  tenant=tenant if tenant is not None else DEFAULT_TENANT)
+    return GenerationHandle(req, prompt_len, on_token=on_token)

@@ -1,28 +1,34 @@
 """Zero-leak resource ledgers (counterpart: ``deeplearning4j_tpu/serving/
-ledger.py``; its RPC-server and front-door dimensions are not ported).
+ledger.py``).
 
 An episode of chaos is survived only if, once it settles, every resource
 it touched is back where it started: block-allocator free lists full
 (modulo intentional pins), swap-store residency zero, no resident stream
-stuck in a slot, tracer retention still bounded, no thread or RSS creep.
+stuck in a slot, RPC op registries resolved, tracer retention still
+bounded, no thread or RSS creep.
 The accounting lives in one place:
 
 - :class:`ResourceLedger` — snapshot/diff accounting over a set of
-  engines and tracers plus the process itself (threads, RSS).
-  ``baseline()`` stamps the reference state; ``check()`` re-snapshots
-  (with a settle window — streams wind down asynchronously) and returns
+  engines, front doors, RPC servers and tracers plus the process itself
+  (threads, RSS). ``baseline()`` stamps the reference state; ``check()``
+  re-snapshots (with a settle window — streams and HTTP connection
+  threads wind down asynchronously) and returns
   the dimensions that did NOT return to baseline. ``assert_clean()`` is
   the raising form.
 - :func:`check_shutdown` — the ABSOLUTE invariants that must hold for one
-  engine after shutdown, independent of any baseline: no resident slot,
-  no queued request, swap store empty, every allocator block
-  attributable (free + prefix pins + prefix cache == capacity).
+  engine or RPC server after shutdown, independent of any baseline: no
+  resident slot, no queued request, swap store empty, every allocator
+  block attributable (free + prefix pins + prefix cache == capacity),
+  every RPC op resolved.
 - :class:`LeakWatch` — a test fixture's hook: at teardown it sweeps every
-  engine still in the weak registry and runs :func:`check_shutdown` over
-  the ones that were shut down, returning the violations.
+  engine and server still in the weak registries and runs
+  :func:`check_shutdown` over the ones that were shut down, returning the
+  violations.
 
 The ledger only READS engine state, through each engine's
-``ledger_stats()``; it takes no engine locks of its own and never blocks,
+``ledger_stats()`` and the public op accounting of
+:class:`~.rpc.HostRpcServer`; it takes no engine locks of its own and
+never blocks,
 so it is safe to call from another thread while the engine is under load.
 Leaks are reported as strings naming the dimension, never as typed sheds.
 """
@@ -36,26 +42,41 @@ from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 __all__ = [
     "LedgerSnapshot", "LeakWatch", "ResourceLedger", "check_shutdown",
-    "track_engine", "tracked_engines",
+    "track_engine", "track_rpc_server", "tracked_engines",
+    "tracked_rpc_servers",
 ]
 
-# weak registry (the tracing.all_tracers pattern): engines register
-# themselves at construction so a ledger can enumerate what a test or an
-# episode created without threading every object through every helper.
-# Weak: the ledger must never keep a dead engine alive.
+# weak registries (the tracing.all_tracers pattern): engines and RPC
+# servers register themselves at construction so a ledger can enumerate
+# what a test or an episode created without threading every object
+# through every helper. Weak: the ledger must never keep a dead engine
+# alive.
 _ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+_RPC_SERVERS: "weakref.WeakSet" = weakref.WeakSet()
 _REG_LOCK = threading.Lock()
 
 
 def track_engine(engine) -> None:
-    """Called by ``GenerationEngine.__init__``."""
+    """Called by ``GenerationEngine.__init__`` and
+    ``InferenceEngine.__init__``."""
     with _REG_LOCK:
         _ENGINES.add(engine)
+
+
+def track_rpc_server(server) -> None:
+    """Called by ``HostRpcServer.__init__``."""
+    with _REG_LOCK:
+        _RPC_SERVERS.add(server)
 
 
 def tracked_engines() -> list:
     with _REG_LOCK:
         return list(_ENGINES)
+
+
+def tracked_rpc_servers() -> list:
+    with _REG_LOCK:
+        return list(_RPC_SERVERS)
 
 
 def process_thread_counts() -> Tuple[int, int]:
@@ -107,6 +128,11 @@ def _engine_dims(engine, out: Dict[str, float]) -> None:
         out[f"engine[{name}].{k}"] = v
 
 
+def _rpc_dims(server, out: Dict[str, float]) -> None:
+    hid = getattr(getattr(server, "host", None), "host_id", "?")
+    out[f"rpc[h{hid}].open_ops"] = server.open_ops()
+
+
 def _tracer_dims(tracer, idx: int, out: Dict[str, float]) -> None:
     st = tracer.stats()
     out[f"tracer[{idx}].retained"] = st.get("retained", 0)
@@ -116,17 +142,19 @@ def _tracer_dims(tracer, idx: int, out: Dict[str, float]) -> None:
 
 
 class ResourceLedger:
-    """Snapshot/diff accounting over engines and tracers plus this
-    process. Pass no ``engines`` to account every engine constructed in
-    this process (the weak registry)::
+    """Snapshot/diff accounting over a fleet plus this process.
+    ``engines`` / ``rpc_servers`` / ``front_doors`` / ``tracers`` name the
+    objects to account; pass no ``engines`` (or ``rpc_servers``) to
+    account every one constructed in this process (the weak
+    registries)::
 
-        ledger = ResourceLedger(engines=engines)
+        ledger = ResourceLedger(engines=engines, rpc_servers=servers)
         ledger.baseline()            # after warmup, before chaos
         ... episode ...
         ledger.assert_clean(timeout_s=10.0)   # settle, then gate
 
-    Exact dimensions (slots, blocks, swap entries, non-daemon threads)
-    must return EXACTLY to baseline; total threads may settle below
+    Exact dimensions (slots, blocks, swap entries, open ops, non-daemon
+    threads, front-door outstanding) must return EXACTLY to baseline; total threads may settle below
     baseline but not above ``baseline + thread_slack``; RSS may grow up
     to ``rss_slack_bytes`` (allocator caches, code pages) but no
     further."""
@@ -135,10 +163,14 @@ class ResourceLedger:
     _MONOTONE_DOWN = ("process.threads",)
 
     def __init__(self, *, engines: Optional[Iterable] = None,
+                 rpc_servers: Optional[Iterable] = None,
+                 front_doors: Iterable = (),
                  tracers: Iterable = (),
                  rss_slack_bytes: int = 192 * 1024 * 1024,
                  thread_slack: int = 2):
         self._engines = None if engines is None else list(engines)
+        self._servers = None if rpc_servers is None else list(rpc_servers)
+        self._front_doors = list(front_doors)
         self._tracers = list(tracers)
         self.rss_slack_bytes = rss_slack_bytes
         self.thread_slack = thread_slack
@@ -148,8 +180,14 @@ class ResourceLedger:
         dims: Dict[str, float] = {}
         engines = self._engines if self._engines is not None \
             else tracked_engines()
+        servers = self._servers if self._servers is not None \
+            else tracked_rpc_servers()
         for e in engines:
             _engine_dims(e, dims)
+        for srv in servers:
+            _rpc_dims(srv, dims)
+        for i, fd in enumerate(self._front_doors):
+            dims[f"front_door[{i}].outstanding"] = fd.outstanding_total()
         for i, tr in enumerate(self._tracers):
             _tracer_dims(tr, i, dims)
         threads, non_daemon = process_thread_counts()
@@ -198,7 +236,8 @@ class ResourceLedger:
               poll_s: float = 0.1) -> List[str]:
         """Violations vs baseline, retrying for up to ``timeout_s``:
         "clean" is an eventually-reached state (retiring streams free
-        their blocks on the scheduler thread)."""
+        their blocks on the scheduler thread, HTTP connection threads exit
+        after their socket closes, op registries resolve on delivery)."""
         if self._baseline is None:
             raise RuntimeError("ResourceLedger.check() before baseline()")
         deadline = time.monotonic() + timeout_s
@@ -222,17 +261,27 @@ class ResourceLedger:
 
 
 def check_shutdown(obj) -> List[str]:
-    """The invariants that must hold for ONE shut-down engine, no baseline
-    needed: every slot vacated, queue empty, swap store empty, and every
-    allocator block attributable — free + explicit prefix pins +
-    automatic prefix cache == capacity (pins survive shutdown by design;
-    orphaned blocks do not). Returns violation strings."""
+    """The invariants that must hold for ONE shut-down engine or stopped
+    RPC server, no baseline needed. Returns violation strings.
+
+    GenerationEngine: every slot vacated, queue empty, swap store empty,
+    and every allocator block attributable — free + explicit prefix pins
+    + automatic prefix cache == capacity (pins survive shutdown by
+    design; orphaned blocks do not). InferenceEngine: queue empty,
+    nothing in flight. HostRpcServer: every registered op resolved (TTL
+    retention of resolved ops is fine; an op that can never resolve is a
+    stuck client)."""
     out: List[str] = []
     label = getattr(obj, "name", None) or type(obj).__name__
+    if hasattr(obj, "open_ops"):                     # HostRpcServer
+        n = obj.open_ops()
+        if n:
+            out.append(f"rpc[{label}]: {n} unresolved op(s) at stop")
+        return out
     stats = obj.ledger_stats()
     name = stats.get("name", label)
     for dim in ("live_slots", "queue_depth", "swap_entries",
-                "swap_blocks_held"):
+                "swap_blocks_held", "inflight_rows"):
         v = stats.get(dim, 0)
         if v:
             out.append(f"engine[{name}].{dim}: {v:.0f} at shutdown")
@@ -252,8 +301,11 @@ def check_shutdown(obj) -> List[str]:
 
 
 def _shut_down(obj) -> bool:
-    """Did this engine already stop? Only stopped engines are held to the
-    shutdown law — live ones legitimately hold resources."""
+    """Did this engine or server already stop? Only stopped objects are
+    held to the shutdown law — live ones legitimately hold resources."""
+    if hasattr(obj, "open_ops"):
+        thread = getattr(obj, "_thread", None)
+        return thread is not None and not thread.is_alive()
     stop = getattr(obj, "_stop", None)
     return stop is not None and stop.is_set()
 
@@ -266,20 +318,22 @@ class LeakWatch:
         violations = watch.finish()
 
     ``finish()`` settles briefly and returns shutdown-law violations for
-    every engine in the registry that has been shut down since the watch
+    every engine or server in the registries that has been shut down
+    since the watch
     was constructed: engines ALREADY shut down then (an earlier test's,
     lingering un-collected in the weak registry) are excluded."""
 
     def __init__(self):
         self._preexisting: "weakref.WeakSet" = weakref.WeakSet(
-            obj for obj in tracked_engines() if _shut_down(obj))
+            obj for obj in tracked_engines() + tracked_rpc_servers()
+            if _shut_down(obj))
 
     def finish(self, *, settle_s: float = 5.0,
                poll_s: float = 0.05) -> List[str]:
         deadline = time.monotonic() + settle_s
         while True:
             bad: List[str] = []
-            for obj in tracked_engines():
+            for obj in tracked_engines() + tracked_rpc_servers():
                 if obj in self._preexisting:
                     continue
                 if _shut_down(obj):

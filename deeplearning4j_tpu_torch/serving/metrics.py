@@ -6,8 +6,9 @@ counter names and ``snapshot()`` keys).
 ``ServingMetrics.snapshot()`` is one JSON-safe dict: every counter, the
 gauges, the histograms, the per-tenant QoS roll-up (``qos``), the rolling
 SLO windows (``slo``) and the speculative roll-up (``spec``). Fields that
-only the reference's batch engine, cluster or page migration write stay
-at 0 here: they are kept so that both packages report one schema.
+only the reference's page migration writes stay at 0 here: they are kept
+so that both packages report one schema. ``publish`` (the reference's
+StatsStorage hook) waits for the UI tier.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ REJECTION_REASONS = (
     # multi-tenant QoS (serving/qos.py): a tenant's quota or backlog
     # bound, and the SLO-burn governor shedding batch-class traffic
     "quota_exceeded", "slo_shed",
+    # the fleet tier (serving/cluster.py, serving/rpc.py): the whole fleet
+    # out of admission headroom, no usable host, and a peer's wire payload
+    # that could not be interpreted
+    "cluster_capacity", "host_unavailable", "rpc_error",
 )
 
 
@@ -593,6 +598,29 @@ class ServingMetrics:
     def qps(self) -> float:
         dt = time.time() - self._t0
         return self.requests_total.value / dt if dt > 0 else 0.0
+
+    def timeseries_sample(self) -> dict:
+        """One compact per-heartbeat time-series sample (the core of
+        serving/timeseries.py's SAMPLE_FIELDS): throughput, occupancy,
+        pressure and self-observation gauges — a small flat dict, not
+        :meth:`snapshot`, because a heartbeat ships one per beat. Reads
+        existing counters and gauges only."""
+        rss = _read_rss()
+        if rss is not None:
+            self.process_rss_bytes.set(rss)
+        return {
+            "t": time.time(),
+            "tokens_per_sec": self.decode_tokens_per_sec(),
+            "generated_tokens_total": self.generated_tokens_total.value,
+            "slot_occupancy": self.slot_occupancy.value,
+            "kv_block_occupancy": self.kv_block_occupancy.value,
+            "preemptions_total": self.preemptions_total.value,
+            "spec_acceptance_rate": self.spec_acceptance_rate.value,
+            "queue_depth": self.queue_depth.value,
+            "queue_by_class": {p: h.count for p, h in
+                               self.queue_wait_by_class.items()},
+            "rss_bytes": self.process_rss_bytes.value,
+        }
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -456,6 +456,16 @@ class PrefixCache:
             self._entries = []
             self._index = RadixPrefixIndex()
 
+    def advertised_prefixes(self, max_entries: int = 32
+                            ) -> Tuple[Tuple[int, ...], ...]:
+        """The most recently used entries' token sequences as plain int
+        tuples, MRU first and at most ``max_entries`` — what a host
+        advertises in its heartbeat (``HostStatus.prefix_tokens``)."""
+        with self._lock:
+            ents = self._entries[-max_entries:] if max_entries else []
+            return tuple(tuple(int(t) for t in e.tokens)
+                         for e in reversed(ents))
+
 
 @dataclasses.dataclass
 class SwapEntry:

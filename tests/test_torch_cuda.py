@@ -1197,3 +1197,51 @@ def test_watchdog_restart_held_before_the_launch_on_the_card(card):
         assert eng.watchdog_restarts == 1 and eng._cache is not old_pool
         assert any(t is stale and c is old_pool for t, c in launches)
         assert all(c is not eng._cache for t, c in launches if t is stale)
+
+
+def test_front_door_stream_over_rpc_equals_the_engine(card):
+    """One stream through the fleet front door, dispatched over HTTP to a
+    host on the card (``HostRpcServer`` on 127.0.0.1, ``RemoteHost``
+    heartbeats), equals the engine's own stream for the prompt, and the
+    batching ``InferenceEngine`` over ``CausalLMAdapter`` gives the
+    direct call's logits bit for bit on the same padded bucket."""
+    from deeplearning4j_tpu_torch.models.bert import make_infer_last_logits
+    from deeplearning4j_tpu_torch.serving import (
+        CausalLMAdapter, ClusterDirectory, ClusterFrontDoor, HeartbeatPump,
+        HostRpcServer, LoopbackHost, LoopbackTransport, ModelRegistry,
+        RemoteHost)
+    cfg = TransformerConfig(**_LIFE_CFG, dtype=torch.bfloat16,
+                            attention_impl="flash")
+    params = init_params(cfg, seed=8, device=card)
+    rng = np.random.default_rng(80)
+    p = rng.integers(0, 64, 11).astype(np.int32)
+    reg = ModelRegistry()
+    try:
+        reg.deploy("lm", CausalLMAdapter(params, cfg, device=card),
+                   buckets=(1, 2, 4))
+        eng = reg.engine("lm", max_wait_ms=0)
+        x = rng.integers(0, 64, (3, 16)).astype(np.int32)
+        pad = np.concatenate([x, np.zeros((1, 16), np.int32)])
+        direct = make_infer_last_logits(cfg)(
+            params, torch.from_numpy(pad).to(card)).cpu().numpy()
+        assert np.array_equal(eng.output(x), direct[:3])
+        g = reg.generation_engine("lm", slots=2, max_len=64, block_size=8,
+                                  paged_attention="fused")
+        want = g.generate(p, max_new_tokens=24, timeout=120)
+        srv = HostRpcServer(LoopbackHost(0, generation=g))
+        try:
+            d = ClusterDirectory(heartbeat_timeout_s=30.0)
+            rem = RemoteHost(0, srv.url)
+            d.join(rem)
+            HeartbeatPump(rem, LoopbackTransport(d)).pump_once()
+            fd = ClusterFrontDoor(d)
+            seen = []
+            got = fd.submit_generate(p, max_new_tokens=24,
+                                     on_token=seen.append).result(
+                                         timeout=120)
+            assert got == want == seen
+            assert fd.routed_by_host.to_dict() == {"h0": 1.0}
+        finally:
+            srv.stop()
+    finally:
+        reg.shutdown()
