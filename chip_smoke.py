@@ -147,6 +147,7 @@ last ``{"ok": true, "device": {...}}``. Run from the repository root:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -173,9 +174,40 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+# the failed checks of the running kernel phase (``kernel_checks``), else
+# None: then a failed check raises at once
+_FAILED = None
+
+
 def check(ok: bool, msg: str):
-    if not ok:
+    if ok:
+        return
+    if _FAILED is None:
         raise AssertionError(msg)
+    _FAILED.append(msg)
+
+
+def kernel_checks(phase):
+    """``phase`` with its failed checks recorded instead of raised: the
+    phase runs every case, prints the first failing check of each case
+    (its label, before the colon) with its error, then fails."""
+    def run(*args):
+        global _FAILED
+        failed = _FAILED = []
+        try:
+            out = phase(*args)
+        finally:
+            _FAILED = None
+            first = {}
+            for msg in failed:
+                first.setdefault(msg.split(":")[0], msg)
+            for case, msg in first.items():
+                log(f"FAILED {case}: first failing check: {msg}")
+        check(not failed, f"{len(failed)} kernel check(s) failed in "
+              f"{len(first)} case(s); the first: "
+              f"{failed[0] if failed else ''}")
+        return out
+    return run
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -336,6 +368,13 @@ def build():
     took = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + ", ".join(f"{n} {s:.1f} s" for n, s in took.items()))
+    log("build toolchain: " + _build.toolchain().replace("\n", " | "))
+    # each library as loaded: a wrong result traces to a build or a launch
+    for name in took:
+        lib = _build.library(name)
+        data = lib.read_bytes()
+        log(f"  library {name}: {lib} {len(data)} bytes sha256 "
+            f"{hashlib.sha256(data).hexdigest()}")
     for name in took:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -3151,18 +3190,20 @@ def _cfg_json(cfg) -> str:
 
 
 def serve_host(argv) -> int:
-    """``python3 chip_smoke.py --serve-host I --cfg JSON --device DEV``:
-    host I of the front door phase, in a process of its own (its own
-    interpreter lock and CUDA context, as a host of a fleet has). The
+    """``python3 chip_smoke.py --serve-host I --cfg JSON --device DEV
+    [--host-class prefill|decode|mixed]``: host I of the front door and
+    disagg phases, in a process of its own (its own interpreter lock and
+    CUDA context, as a host of a fleet has). The
     engine phase's weights (``init_params(cfg, seed=0)``) are deployed in
     a ``ModelRegistry``; ``registry.generation_engine("bert", slots=16,
     max_len=cfg.max_seq, block_size=16, kv_dtype="float32",
     paged_attention="fused")`` is warmed up and served behind
-    ``LoopbackHost`` and ``HostRpcServer`` on 127.0.0.1. Prints
-    ``{"url": ...}`` once serving, then answers each line on its
-    standard input with one JSON line: ``report`` (once the engine is
-    idle: its prefills, decode steps and kernel launches since the
-    warm-up), ``resume <jobs>`` (each ``{"prompt", "resume", "max_new"}``
+    ``LoopbackHost(host_class=...)`` (default ``"mixed"``) and
+    ``HostRpcServer`` on 127.0.0.1. Prints ``{"url": ...}`` once serving,
+    then answers each line on its standard input with one JSON line:
+    ``report`` (once the engine is idle: its prefills, decode steps and
+    kernel launches since the warm-up, the KV bytes it exported and
+    imported), ``resume <jobs>`` (each ``{"prompt", "resume", "max_new"}``
     submitted to the engine itself, seated at ``len(resume)``: the
     tokens it generates from there), ``stop`` (shut down: the shutdown
     law of the engine and the server, their ledger dimensions and the
@@ -3177,6 +3218,8 @@ def serve_host(argv) -> int:
     i = int(argv[argv.index("--serve-host") + 1])
     fields = json.loads(argv[argv.index("--cfg") + 1])
     device = argv[argv.index("--device") + 1]
+    host_class = argv[argv.index("--host-class") + 1] \
+        if "--host-class" in argv else "mixed"
     for k, v in fields.items():
         if k.endswith("dtype"):
             fields[k] = getattr(torch, v)
@@ -3190,7 +3233,8 @@ def serve_host(argv) -> int:
                               paged_attention="fused", queue_capacity=48,
                               name=f"fd-h{i}")
     g.warmup()
-    srv = HostRpcServer(LoopbackHost(i, generation=g))
+    srv = HostRpcServer(LoopbackHost(i, generation=g,
+                                     host_class=host_class))
     reset_launches()
     m = g.metrics
     base = (m.prefills_total.value, m.decode_steps_total.value)
@@ -3206,7 +3250,10 @@ def serve_host(argv) -> int:
                 "packed_launches": n["mha_attention_packed"],
                 "paged_launches": n["paged_decode_attention"],
                 "decode_step_ms_mean": m.decode_step_ms.mean,
-                "prefill_ms_mean": m.prefill_ms.mean}
+                "prefill_ms_mean": m.prefill_ms.mean,
+                "kv_migrate_bytes_out": m.kv_migrate_bytes_out.value,
+                "kv_migrate_bytes_in": m.kv_migrate_bytes_in.value,
+                "kv_swap_bytes_in": m.kv_swap_bytes_in.value}
 
     def resume(jobs):
         # straight into the engine, no RPC: each job seated at its resume
@@ -3245,10 +3292,12 @@ class HostProcess:
     answers are read with a timeout, and :meth:`kill` ends it whatever
     state it is in."""
 
-    def __init__(self, host_id: int, cfg, device: str):
+    def __init__(self, host_id: int, cfg, device: str,
+                 host_class: str = "mixed"):
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--serve-host",
-             str(host_id), "--cfg", _cfg_json(cfg), "--device", device],
+             str(host_id), "--cfg", _cfg_json(cfg), "--device", device,
+             "--host-class", host_class],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
             bufsize=1)
         self.url = None
@@ -3342,10 +3391,22 @@ def fleet_part(hosts, cfg, prompts, plain_streams, max_new):
 
     # ---- b: the fleet over HTTP ------------------------------------------
     before = [h.ask("report") for h in hosts]
-    report, streams = replay()
+    # one tenant label a request: its front-door trace is found again
+    report, streams = replay(tenant=lambda i: f"b{i}")
     after = [h.ask("report") for h in hosts]
     bad = [i for i, (a, b) in enumerate(zip(streams, plain_streams))
            if a != b]
+    if bad:
+        # what a differing stream went through, before the check fails
+        _, paths = request_paths(tracer, "b", len(prompts))
+        log("front door: differing streams: " + json.dumps({i: {
+            "path": paths.get(i), "tokens": len(streams[i]),
+            "first_difference": next((k for k, (x, y) in enumerate(zip(
+                streams[i], plain_streams[i])) if x != y), None)}
+            for i in bad}) + f"; hedges {fd.hedges.to_dict()}; hosts "
+            + json.dumps([{k: a[k] - b[k] for k in ("prefills",
+                                                      "decode_steps")}
+                          for a, b in zip(after, before)]))
     check(not bad, f"front door: streams {bad} differ from the engine "
           "phase's")
     check(report.watermark_clean, "front door: a stream's on_token tokens "
@@ -3393,21 +3454,7 @@ def fleet_part(hosts, cfg, prompts, plain_streams, max_new):
         chaos, cstreams = replay(tenant=lambda i: f"r{i}")
     fired = plan.fired()
     # each request's front-door trace: its resume points and its path
-    resumed, paths = {}, {}
-    for tr in tracer.traces():
-        if tr.kind != "cluster.generate" or tr.tenant not in {
-                f"r{i}" for i in range(len(prompts))}:
-            continue
-        i = int(tr.tenant[1:])
-        evs = [(n, a or {}) for n, _, a in tr.events]
-        steps = sorted({a["resume_step"] for n, a in evs
-                        if n == "stream.resume"})
-        if steps:
-            resumed[i] = steps
-        paths[i] = [f"{n}@h{a['host']}" + (f":{a['reason']}"
-                                            if "reason" in a else "")
-                    for n, a in evs if "host" in a and n in (
-                        "cluster.route", "cluster.bounce", "stream.resume")]
+    resumed, paths = request_paths(tracer, "r", len(prompts))
     # the exact reference of a resumed stream: the clean stream up to its
     # first resume point r, then what host 0's engine generates when
     # seated at r on (prompt, the stream so far) through the same
@@ -3467,10 +3514,18 @@ def fleet_part(hosts, cfg, prompts, plain_streams, max_new):
         drained["s"] = time.perf_counter() - t
 
     before = dict(fd.routed_by_host.to_dict())
-    report, dstreams = replay(during=drain_later)
+    report, dstreams = replay(during=drain_later,
+                              tenant=lambda i: f"d{i}")
     check(drained.get("ok") is True, "drain: host 1 did not drain")
     check(d.host_ids() == [0], f"drain: hosts {d.host_ids()} after the "
           "drain, expected [0]")
+    if report.reasons() != {"ok": len(prompts)}:
+        # what a shed request went through, before the check fails
+        _, paths = request_paths(tracer, "d", len(prompts))
+        log("drain: shed requests' paths: " + json.dumps({
+            i: paths.get(i) for i, a in enumerate(dstreams)
+            if isinstance(a, BaseException)}) + f"; drain took "
+            f"{drained.get('s')} s")
     check(report.reasons() == {"ok": len(prompts)},
           f"drain: requests shed {report.reasons()}")
     bad = [i for i, (a, b) in enumerate(zip(dstreams, streams)) if a != b]
@@ -3481,6 +3536,464 @@ def fleet_part(hosts, cfg, prompts, plain_streams, max_new):
     for pump in pumps:
         pump.stop()
     return stats
+
+
+def disagg_phase(cfg, params, prompts, engine, front, device="cuda",
+                 max_new=64):
+    """Disaggregated prefill/decode with KV page migration at full width,
+    on the engine phase's model (BERT-base causal LM, bf16,
+    ``attention_impl="flash"``, seeded weights; 16 slots, max_len 512,
+    16-token blocks, fused paged decode) and 32-prompt chat mix with 64
+    new tokens. Every check fails the run.
+
+    a. Loopback fleet, one process, each pool (``"float32"``: bf16 pages;
+       ``"int8"``): two hosts with ``prefix_cache_blocks=8``, run once as
+       ``("mixed", "mixed")`` with no policy and once as ``("prefill",
+       "decode")`` behind ``ClusterFrontDoor(disagg=DisaggPolicy())``;
+       two waves of the mix (arrivals 20 ms apart), wave 2 repeating wave
+       1's prompts. Every disaggregated stream, and every mixed stream of
+       wave 1, equals the engine phase's stream for its pool (the pages
+       move byte for byte); wave 1 migrates 32 streams with 0 fallbacks;
+       the prefill host runs no decode step and the decode host no
+       prefill, and rows 1 and 6 launch layers x the prefill host's
+       prefills and layers x the decode host's steps. TTFT p50, ITL p99
+       and tokens/s of both placements, KV bytes migrated per stream, the
+       prefix-route hit rate of wave 2.
+    b. Processes over HTTP: host 0 ``--host-class prefill`` and host 1
+       ``--host-class decode`` (:func:`serve_host`, the front door
+       phase's pool), a ``RemoteHost`` directory and
+       ``ClusterFrontDoor(disagg=DisaggPolicy())``; the mix replayed with
+       arrivals 20 ms apart. Every stream equals the engine phase's; 32
+       migrations cross ``/rpc/v1/migrate``; host 0's exported bytes equal
+       host 1's imported bytes; row 6 on host 0 and row 1 on host 1
+       launch 0 times. Fleet tokens/s and TTFT beside the front door
+       phase's two mixed hosts, and each migrate RPC's wall time and
+       payload.
+    c. Migration faults on a loopback fleet (``"float32"`` pool): a seeded
+       ``FaultPlan`` fires ``kv.migrate``, ``kv.migrate.export`` and
+       ``kv.migrate.import`` twice each over the 32 streams. Nothing is
+       shed; the front door's fallbacks equal the streams whose trace
+       shows one, by stage as the points fired; a stream recomputed
+       from scratch equals the engine phase's stream, and one recomputed
+       from its first token equals the decode host's engine seated at
+       ``resume_tokens=[first]`` (a bf16 recompute may leave the clean
+       stream: counted).
+    The host processes start first and come up while (c) runs."""
+    hosts = [HostProcess(i, cfg, device, host_class=c)
+             for i, c in enumerate(("prefill", "decode"))]
+    try:
+        stats = {"faults": migrate_faults_part(
+            cfg, params, prompts, engine["float32"]["streams"], device,
+            max_new)}
+        t0 = time.perf_counter()
+        urls = [h.start() for h in hosts]
+        stats["hosts_ready_wait_s"] = time.perf_counter() - t0
+        for kv in ("float32", "int8"):
+            stats[kv] = loopback_disagg_part(
+                cfg, params, prompts, engine[kv]["streams"], kv, device,
+                max_new)
+        stats["rpc"] = rpc_disagg_part(hosts, urls, cfg, prompts,
+                                       engine["float32"]["streams"], front,
+                                       max_new)
+        reports = [h.stop() for h in hosts]
+    finally:
+        for h in hosts:
+            h.kill()
+    bad = [v for r in reports for v in r["shutdown"]]
+    check(not bad, f"disagg: host shutdown law: {bad}")
+    log(f"disagg ({CARD}): " + json.dumps(stats, default=str))
+    return stats
+
+
+def loopback_fleet(cfg, params, kv, classes, disagg, device, tracer=None):
+    """Two warmed-up engines behind ``LoopbackHost``s of ``classes``, a
+    directory that has their heartbeats, and a front door (with a
+    ``DisaggPolicy`` when ``disagg``)."""
+    from deeplearning4j_tpu_torch.serving import (
+        ClusterDirectory, ClusterFrontDoor, DisaggPolicy, GenerationEngine,
+        LoopbackHost, ServingMetrics)
+
+    engines, hosts = [], []
+    d = ClusterDirectory(heartbeat_timeout_s=600.0)
+    for i, c in enumerate(classes):
+        g = GenerationEngine(params, cfg, slots=16, max_len=cfg.max_seq,
+                             paged_attention="fused", kv_dtype=kv,
+                             prefix_cache_blocks=8, queue_capacity=64,
+                             device=device, name=f"dis-{c}{i}")
+        g.warmup()
+        g.metrics = ServingMetrics()   # idle here
+        engines.append(g)
+        hosts.append(LoopbackHost(i, generation=g, host_class=c))
+        d.join(hosts[-1])
+        d.heartbeat(hosts[-1].status())
+    kw = {} if tracer is None else {"tracer": tracer}
+    fd = ClusterFrontDoor(d, disagg=DisaggPolicy() if disagg else None,
+                          **kw)
+    return engines, hosts, d, fd
+
+
+def disagg_replay(fd, prompts, max_new, tenant=lambda i: "chat"):
+    """The mix through ``fd`` by ``LoadGenerator``, one arrival every
+    20 ms: the report, the streams (an exception for a shed one) and the
+    gaps between each stream's consecutive tokens (ms)."""
+    from deeplearning4j_tpu_torch.serving import (
+        LoadGenerator, TraceRequest, front_door_submitter)
+
+    submit_fd = front_door_submitter(fd)
+    stamps, handles = {}, {}
+
+    def submit(tr, on_token):
+        st = stamps[tr.index] = []
+
+        def stamped(tok):
+            st.append(time.perf_counter())
+            on_token(tok)
+        try:
+            handles[tr.index] = h = submit_fd(tr, stamped)
+        except Exception as e:
+            handles[tr.index] = e
+            raise
+        return h
+    trace = [TraceRequest(index=i, arrival_s=i * 0.02, kind="chat",
+                          prompt=tuple(int(t) for t in p),
+                          max_new_tokens=max_new, tenant=tenant(i),
+                          priority=None, seed=0)
+             for i, p in enumerate(prompts)]
+    report = LoadGenerator(trace, submit, drain_timeout_s=300.0).run()
+    check(report.stuck_streams == 0,
+          f"disagg: {report.stuck_streams} stuck stream(s)")
+    streams = []
+    for i in range(len(prompts)):
+        h = handles[i]
+        exc = h if isinstance(h, BaseException) \
+            else h.future.exception(timeout=0)
+        streams.append([int(t) for t in h.result()] if exc is None else exc)
+    itl = [(b - a) * 1e3 for st in stamps.values()
+           for a, b in zip(st, st[1:])]
+    return report, streams, itl
+
+
+def loopback_disagg_part(cfg, params, prompts, plain, kv, device, max_new):
+    """Part a of :func:`disagg_phase` for one pool."""
+    from deeplearning4j_tpu_torch.serving import check_shutdown
+
+    out, n = {}, len(prompts)
+    for placement in ("mixed", "disaggregated"):
+        dis = placement == "disaggregated"
+        engines, hosts, d, fd = loopback_fleet(
+            cfg, params, kv, ("prefill", "decode") if dis
+            else ("mixed", "mixed"), dis, device)
+        try:
+            waves = []
+            for w in range(2):
+                if w == 1:
+                    # wave 1's retired streams sit in the decode side's
+                    # prefix cache; fresh heartbeats advertise them
+                    deadline = time.time() + 10
+                    while dis and not len(engines[1]._prefix_cache or ()) \
+                            and time.time() < deadline:
+                        time.sleep(0.02)
+                    for h in hosts:
+                        d.heartbeat(h.status())
+                fm = fd.metrics
+                before = (fm.kv_migrations_total.value,
+                          fm.kv_migrate_fallbacks_total.value,
+                          fm.prefix_route_hits_total.value,
+                          [g.metrics.prefills_total.value for g in engines],
+                          [g.metrics.decode_steps_total.value
+                           for g in engines],
+                          engines[1].metrics.kv_migrate_bytes_in.value)
+                reset_launches()
+                report, streams, itl = disagg_replay(fd, prompts, max_new)
+                launched = read_launches()
+                check(report.reasons() == {"ok": n},
+                      f"disagg {kv} {placement} wave {w + 1}: requests "
+                      f"ended {report.reasons()}")
+                equal = sum(a == b for a, b in zip(streams, plain))
+                rep = report.to_dict()
+                wave = {
+                    "tokens_per_sec": report.tokens_per_sec,
+                    "ttft_p50_ms": rep["ttft_p50_ms"],
+                    "ttft_p99_ms": rep["ttft_p99_ms"],
+                    "itl_p50_ms": float(np.percentile(itl, 50)),
+                    "itl_p99_ms": float(np.percentile(itl, 99)),
+                    "streams_equal_engine_phase": equal,
+                    "migrations": fm.kv_migrations_total.value - before[0],
+                    "fallbacks":
+                        fm.kv_migrate_fallbacks_total.value - before[1],
+                    "prefix_route_hits":
+                        fm.prefix_route_hits_total.value - before[2],
+                    "prefills": [g.metrics.prefills_total.value - b
+                                 for g, b in zip(engines, before[3])],
+                    "decode_steps": [g.metrics.decode_steps_total.value - b
+                                     for g, b in zip(engines, before[4])],
+                    "packed_launches": launched["mha_attention_packed"],
+                    "paged_launches": launched["paged_decode_attention"],
+                    "migrated_bytes":
+                        engines[1].metrics.kv_migrate_bytes_in.value
+                        - before[5]}
+                wave["prefix_route_hit_rate"] = wave["prefix_route_hits"] / n
+                label = f"disagg {kv} {placement} wave {w + 1}"
+                if dis or w == 0:
+                    # a mixed host's wave 2 seats prompts from its prefix
+                    # cache and feeds their tails through decode steps:
+                    # bf16 K/V rounded another way, counted only
+                    bad = [i for i, (a, b) in enumerate(zip(streams, plain))
+                           if a != b]
+                    check(not bad, f"{label}: streams {bad} differ from "
+                          "the engine phase's")
+                pre, dec = wave["prefills"], wave["decode_steps"]
+                check(wave["packed_launches"] == cfg.layers * sum(pre),
+                      f"{label}: packed launches "
+                      f"{wave['packed_launches']} for prefills {pre}")
+                check(wave["paged_launches"] == cfg.layers * sum(dec),
+                      f"{label}: paged launches {wave['paged_launches']} "
+                      f"for decode steps {dec}")
+                if dis:
+                    check(dec[0] == 0 and pre[1] == 0,
+                          f"{label}: the prefill host ran {dec[0]} decode "
+                          f"steps, the decode host {pre[1]} prefills")
+                    check(wave["migrations"] + wave["fallbacks"] == n,
+                          f"{label}: {wave['migrations']} migrations and "
+                          f"{wave['fallbacks']} fallbacks for {n} streams")
+                    if w == 0:
+                        check(wave["migrations"] == n
+                              and wave["fallbacks"] == 0,
+                              f"{label}: {wave['migrations']} migrations, "
+                              f"{wave['fallbacks']} fallbacks")
+                    wave["migrated_bytes_per_stream"] = \
+                        wave["migrated_bytes"] / max(wave["migrations"], 1)
+                log(f"{label}: " + json.dumps(wave))
+                waves.append(wave)
+            out[placement] = waves
+        finally:
+            for g in engines:
+                g.shutdown()
+        out.setdefault("_shutdown", []).extend(
+            v for g in engines for v in check_shutdown(g))
+    bad = out.pop("_shutdown")
+    check(not bad, f"disagg {kv}: shutdown law: {bad}")
+    return out
+
+
+def migrate_faults_part(cfg, params, prompts, plain, device, max_new):
+    """Part c of :func:`disagg_phase`."""
+    from deeplearning4j_tpu_torch.serving import (
+        FaultPlan, Tracer, check_shutdown)
+
+    n = len(prompts)
+    tracer = Tracer(sample_rate=1.0, capacity=256)
+    engines, hosts, d, fd = loopback_fleet(
+        cfg, params, "float32", ("prefill", "decode"), True, device,
+        tracer=tracer)
+    try:
+        # each point's call indices: one kv.migrate and one export call a
+        # stream, in arrival order; import calls only for streams whose
+        # pages were captured (28 of them here)
+        plan = (FaultPlan(seed=16)
+                .fail("kv.migrate", at=(3, 17))
+                .fail("kv.migrate.export", at=(5, 21))
+                .fail("kv.migrate.import", at=(8, 24)))
+        with plan:
+            report, streams, _ = disagg_replay(fd, prompts, max_new,
+                                               tenant=lambda i: f"r{i}")
+        fired = [(e["point"], e["index"]) for e in plan.fired()]
+        check(report.reasons() == {"ok": n},
+              f"disagg faults: requests ended {report.reasons()}")
+        by_point = {}
+        for p, _ in fired:
+            by_point[p] = by_point.get(p, 0) + 1
+        check(all(by_point.get(p, 0) >= 2 for p in (
+            "kv.migrate", "kv.migrate.export", "kv.migrate.import")),
+            f"disagg faults: fired {by_point}")
+        # each stream's fallback stage, from its front-door trace
+        stage = {}
+        for tr in tracer.traces():
+            if tr.kind != "cluster.generate" or not (
+                    tr.tenant or "").startswith("r"):
+                continue
+            for name, _, a in tr.events:
+                if name == "cluster.migrate.fallback":
+                    stage[int(tr.tenant[1:])] = (a or {}).get("stage")
+        fm = fd.metrics
+        fallbacks = fm.kv_migrate_fallbacks_total.value
+        migrations = fm.kv_migrations_total.value
+        stages = {}
+        for s in stage.values():
+            stages[s] = stages.get(s, 0) + 1
+        check(fallbacks == len(stage) and migrations + fallbacks == n,
+              f"disagg faults: {fallbacks} fallbacks, {migrations} "
+              f"migrations, traces show {stages}")
+        check(stages.get("prefill", 0) == by_point["kv.migrate"]
+              and stages.get("import", 0) == by_point["kv.migrate.import"]
+              and stages.get("export", 0) <= by_point["kv.migrate.export"],
+              f"disagg faults: fallback stages {stages} against fired "
+              f"{by_point}")
+        check(fm.rejected_total.value == 0,
+              f"disagg faults: {fm.rejected_total.value} shed")
+        # the reference of each recomputed stream: from scratch, the
+        # engine phase's stream; from its first token, the decode host's
+        # engine seated at resume_tokens=[first]
+        resumed = sorted(i for i, s in stage.items() if s != "prefill")
+        seated = [engines[1].submit(prompts[i], max_new_tokens=max_new,
+                                    seed=0,
+                                    resume_tokens=streams[i][:1],
+                                    resume_step=1) for i in resumed]
+        want = dict(enumerate(plain))
+        for i, h in zip(resumed, seated):
+            want[i] = streams[i][:1] + [int(t) for t in
+                                        h.result(timeout=300)]
+        bad = [i for i in range(n) if streams[i] != want[i]]
+        check(not bad, f"disagg faults: streams {bad} differ from their "
+              "references")
+        first_bad = [i for i in resumed if streams[i][0] != plain[i][0]]
+        check(not first_bad, f"disagg faults: first tokens of {first_bad} "
+              "differ from the engine phase's")
+        off_clean = [i for i in stage if streams[i] != plain[i]]
+        out = {"fired": by_point, "fallbacks": fallbacks,
+               "migrations": migrations, "fallback_stages": stages,
+               "recomputed_from_first_token": len(resumed),
+               "recomputed_from_scratch": stages.get("prefill", 0),
+               "recomputed_off_clean": len(off_clean)}
+    finally:
+        for g in engines:
+            g.shutdown()
+    bad = [v for g in engines for v in check_shutdown(g)]
+    check(not bad, f"disagg faults: shutdown law: {bad}")
+    log("disagg faults: " + json.dumps(out))
+    return out
+
+
+def timed_remote_host():
+    """``RemoteHost`` that records each migrate RPC's kind, wall time and
+    page payload (base64 characters)."""
+    from deeplearning4j_tpu_torch.serving import RemoteHost
+
+    class TimedRemoteHost(RemoteHost):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.migrate_calls = []
+
+        def _migrate_rpc(self, req):
+            t = time.perf_counter()
+            resp = super()._migrate_rpc(req)
+            pages = req.pages if req.kind == "import" else resp.pages
+            self.migrate_calls.append((
+                req.kind, (time.perf_counter() - t) * 1e3,
+                sum(len(leaf["b64"]) for layer in pages or ()
+                    for leaf in layer.values())))
+            return resp
+    return TimedRemoteHost
+
+
+def rpc_disagg_part(hosts, urls, cfg, prompts, plain, front, max_new):
+    """Part b of :func:`disagg_phase` over the started host processes."""
+    from deeplearning4j_tpu_torch.serving import (
+        ClusterDirectory, ClusterFrontDoor, DisaggPolicy, HeartbeatPump,
+        LoopbackTransport)
+
+    n = len(prompts)
+    remote = timed_remote_host()
+    d = ClusterDirectory(heartbeat_timeout_s=5.0)
+    pumps, rems = [], []
+    for i, url in enumerate(urls):
+        rem = remote(i, url)
+        d.join(rem)
+        pump = HeartbeatPump(rem, LoopbackTransport(d), interval_s=0.2)
+        pump.pump_once()
+        pumps.append(pump.start())
+        rems.append(rem)
+    try:
+        fd = ClusterFrontDoor(d, disagg=DisaggPolicy())
+        check(fd.disagg.enabled(d), "disagg rpc: the policy is not enabled")
+        before = [h.ask("report") for h in hosts]
+        report, streams, itl = disagg_replay(fd, prompts, max_new)
+        after = [h.ask("report") for h in hosts]
+    finally:
+        for pump in pumps:
+            pump.stop()
+    check(report.reasons() == {"ok": n},
+          f"disagg rpc: requests ended {report.reasons()}")
+    bad = [i for i, (a, b) in enumerate(zip(streams, plain)) if a != b]
+    check(not bad, f"disagg rpc: streams {bad} differ from the engine "
+          "phase's")
+    delta = [{k: a[k] - b[k] for k in (
+        "prefills", "decode_steps", "packed_launches", "paged_launches",
+        "kv_migrate_bytes_out", "kv_migrate_bytes_in", "kv_swap_bytes_in")}
+        for a, b in zip(after, before)]
+    fm = fd.metrics
+    check(fm.kv_migrations_total.value == n
+          and fm.kv_migrate_fallbacks_total.value == 0,
+          f"disagg rpc: {fm.kv_migrations_total.value} migrations, "
+          f"{fm.kv_migrate_fallbacks_total.value} fallbacks")
+    check(delta[0]["kv_migrate_bytes_out"]
+          == delta[1]["kv_migrate_bytes_in"] > 0,
+          f"disagg rpc: host 0 exported {delta[0]['kv_migrate_bytes_out']} "
+          f"bytes, host 1 imported {delta[1]['kv_migrate_bytes_in']}")
+    check(delta[0]["paged_launches"] == 0 and delta[0]["decode_steps"] == 0
+          and delta[1]["packed_launches"] == 0 and delta[1]["prefills"] == 0,
+          f"disagg rpc: the prefill host ran {delta[0]['decode_steps']} "
+          f"decode steps ({delta[0]['paged_launches']} paged launches), "
+          f"the decode host {delta[1]['prefills']} prefills "
+          f"({delta[1]['packed_launches']} packed launches)")
+    check(delta[0]["packed_launches"] == cfg.layers * delta[0]["prefills"]
+          and delta[0]["prefills"] == n,
+          f"disagg rpc: host 0 launched the packed kernel "
+          f"{delta[0]['packed_launches']} times for "
+          f"{delta[0]['prefills']} prefills")
+    check(delta[1]["paged_launches"]
+          == cfg.layers * delta[1]["decode_steps"] > 0,
+          f"disagg rpc: host 1 launched the paged kernel "
+          f"{delta[1]['paged_launches']} times for "
+          f"{delta[1]['decode_steps']} decode steps")
+    calls = [c for r in rems for c in r.migrate_calls]
+    walls = {k: [ms for kind, ms, _ in calls if kind == k]
+             for k in ("prefill", "import")}
+    check(all(len(v) == n for v in walls.values()),
+          "disagg rpc: migrate calls "
+          f"{[(k, len(v)) for k, v in walls.items()]}")
+    rep = report.to_dict()
+    out = {"fleet_tokens_per_sec": report.tokens_per_sec,
+           "ttft_p50_ms": rep["ttft_p50_ms"],
+           "ttft_p99_ms": rep["ttft_p99_ms"],
+           "itl_p99_ms": float(np.percentile(itl, 99)),
+           "migrations": fm.kv_migrations_total.value,
+           "hosts": delta,
+           "kv_bytes_per_stream": delta[1]["kv_migrate_bytes_in"] / n,
+           "wire_b64_bytes_per_stream":
+               sum(b for kind, _, b in calls if kind == "import") / n}
+    for k, v in walls.items():
+        out[f"migrate_{k}_rpc_ms_p50"] = float(np.percentile(v, 50))
+        out[f"migrate_{k}_rpc_ms_p99"] = float(np.percentile(v, 99))
+    # the first token reaches the client once the prefill RPC is back
+    out["prefill_rpc_share_of_ttft_p50"] = \
+        out["migrate_prefill_rpc_ms_p50"] / out["ttft_p50_ms"]
+    out["front_door_mixed"] = {k: front[k] for k in (
+        "fleet_tokens_per_sec", "fleet_ttft_p50_ms", "fleet_ttft_p99_ms")}
+    log("disagg rpc: " + json.dumps(out))
+    return out
+
+
+def request_paths(tracer, prefix, n):
+    """From the front door's traces of requests labelled ``prefix + i``:
+    each request's resume points (where it has any) and its path over
+    the hosts (routes, bounces, resumes)."""
+    resumed, paths = {}, {}
+    for tr in tracer.traces():
+        if tr.kind != "cluster.generate" or tr.tenant not in {
+                f"{prefix}{i}" for i in range(n)}:
+            continue
+        i = int(tr.tenant[len(prefix):])
+        evs = [(name, a or {}) for name, _, a in tr.events]
+        steps = sorted({a["resume_step"] for name, a in evs
+                        if name == "stream.resume"})
+        if steps:
+            resumed[i] = steps
+        paths[i] = [f"{name}@h{a['host']}" + (f":{a['reason']}"
+                                               if "reason" in a else "")
+                    for name, a in evs if "host" in a and name in (
+                        "cluster.route", "cluster.bounce", "stream.resume")]
+    return resumed, paths
 
 
 def timed_phase(name, fn, *args):
@@ -3531,12 +4044,14 @@ def main() -> int:
     t_start = time.perf_counter()
     timed_phase("probe", probe)
     timed_phase("build", build)
-    packed_rows, paged_rows = timed_phase("kernels", kernel_phase)
-    train_rows = timed_phase("train kernels", train_kernel_phase)
-    timed_phase("kernel chain", chain_phase)
-    timed_phase("head dims", head_dim_phase)
+    packed_rows, paged_rows = timed_phase("kernels",
+                                          kernel_checks(kernel_phase))
+    train_rows = timed_phase("train kernels",
+                             kernel_checks(train_kernel_phase))
+    timed_phase("kernel chain", kernel_checks(chain_phase))
+    timed_phase("head dims", kernel_checks(head_dim_phase))
     update_rows = timed_phase("loss and update kernels",
-                              loss_update_kernel_phase)
+                              kernel_checks(loss_update_kernel_phase))
     from deeplearning4j_tpu_torch.models import (
         TransformerConfig, init_params)
 
@@ -3561,6 +4076,8 @@ def main() -> int:
     front = timed_phase("front door", front_door_phase, cfg, params,
                         prompts, engine["float32"]["streams"],
                         engine["float32"]["decode_tokens_per_sec"])
+    dis = timed_phase("disagg", disagg_phase, cfg, params, prompts, engine,
+                      front)
     del params
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
@@ -3626,9 +4143,15 @@ def main() -> int:
             kernels[-1]["launches_front_door"] = front["packed_launches"]
             kernels[-1]["launches_inference_engine"] = \
                 front["ie_packed_launches"]
+            # the prefill host's, over HTTP (disagg b)
+            kernels[-1]["launches_disagg"] = \
+                dis["rpc"]["hosts"][0]["packed_launches"]
         if name == "paged_decode_attention":
             kernels[-1]["launches_resilience_qos"] = resil["paged_launches"]
             kernels[-1]["launches_front_door"] = front["paged_launches"]
+            # the decode host's, over HTTP (disagg b)
+            kernels[-1]["launches_disagg"] = \
+                dis["rpc"]["hosts"][1]["paged_launches"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

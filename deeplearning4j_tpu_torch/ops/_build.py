@@ -4,13 +4,17 @@ them with ``ctypes``.
 Each source ``ops/csrc/<name>.cu`` exposes a plain C interface and becomes
 its own shared library ``_build/<name>-<hash>.so`` inside the package
 directory (listed in ``.gitignore``). The hash covers the source, every
-header in ``csrc/`` and the compiler flags, so an edited source rebuilds
-and an unchanged one loads what is already there. Nothing here runs at
-import time: importing the package needs neither ``nvcc`` nor a GPU.
+header in ``csrc/``, the compiler flags and the toolchain (the resolved
+``nvcc`` path and its ``--version`` output), so an edited source or
+another compiler rebuilds and an unchanged one loads what is already
+there; the build's ``.log`` records the toolchain beside nvcc's output.
+Nothing here runs at import time: importing the package needs neither
+``nvcc`` nor a GPU.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,10 +55,24 @@ def nvcc() -> str:
         "package's kernels")
 
 
+@functools.lru_cache(maxsize=None)
+def _nvcc_version(path: str, _mtime_ns: int) -> str:
+    return subprocess.run([path, "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def toolchain() -> str:
+    """The compiler a build uses: its resolved path and ``nvcc --version``
+    (asked once per path and modification time)."""
+    path = os.path.realpath(nvcc())
+    return f"nvcc {path}\n{_nvcc_version(path, os.stat(path).st_mtime_ns)}"
+
+
 def library(name: str) -> Path:
     """Path of the shared library of kernel source ``name`` for the
-    current sources and flags (it exists once built)."""
+    current sources, flags and toolchain (it exists once built)."""
     h = hashlib.sha256()
+    h.update(toolchain().encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(sources()[name].read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
@@ -88,7 +106,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for n, (p, tmp, out, t0) in procs.items():
         stdout, stderr = p.communicate()
         took[n] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(stdout + stderr)
+        out.with_suffix(".log").write_text(
+            f"{toolchain()}\n{' '.join(NVCC_FLAGS)}\n{stdout}{stderr}")
         if p.returncode != 0:
             failures.append(f"--- {n} (nvcc exit {p.returncode}) ---\n"
                             f"{stderr}")

@@ -4,8 +4,9 @@ continuous-batching generation engine over the paged or contiguous KV
 cache, with speculative decoding; admission control and multi-tenant QoS;
 the resilience layer (retries, breaker, watchdog, fault injection);
 request tracing, the resource ledger, paging and metrics; and the fleet
-tier — the cluster directory and hedging front door, the HTTP RPC data
-plane, the load generator and the time-series cost models."""
+tier — the cluster directory and hedging front door, disaggregated
+prefill/decode with KV page migration, the HTTP RPC data plane, the load
+generator and the time-series cost models."""
 from deeplearning4j_tpu_torch.serving.admission import (  # noqa: F401
     DEFAULT_TENANT, AdmissionController, ClusterCapacityError,
     DeadlineExceededError, HostDrainingError, HostUnavailableError,
@@ -17,6 +18,9 @@ from deeplearning4j_tpu_torch.serving.cluster import (  # noqa: F401
     ElasticityLoop, ElasticityPlanner, ElasticityPolicy, HeartbeatPump,
     HedgePolicy, HostHandle, HostStatus, LoopbackHost, LoopbackTransport,
     all_directories, all_elasticity_loops, drain_host, http_snapshot_source,
+)
+from deeplearning4j_tpu_torch.serving.disagg import (  # noqa: F401
+    DisaggPolicy, FleetPrefixIndex,
 )
 from deeplearning4j_tpu_torch.serving.engine import (  # noqa: F401
     InferenceEngine, bucket_ladder,
@@ -57,8 +61,9 @@ from deeplearning4j_tpu_torch.serving.resilience import (  # noqa: F401
     RetryPolicy, Watchdog, WatchdogTimeoutError,
 )
 from deeplearning4j_tpu_torch.serving.rpc import (  # noqa: F401
-    HostRpcServer, RemoteHost, RemoteStream, RpcRequest, RpcResponse,
-    RpcStreamChunk, rejected_from_wire,
+    HostRpcServer, KvMigrateRequest, KvMigrateResponse, RemoteHost,
+    RemoteStream, RpcRequest, RpcResponse, RpcStreamChunk,
+    rejected_from_wire,
 )
 from deeplearning4j_tpu_torch.serving.timeseries import (  # noqa: F401
     TimeSeriesStore, cheapest_cell, config_key, fit_cost_models,

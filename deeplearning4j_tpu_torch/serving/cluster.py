@@ -26,7 +26,10 @@ storm to the next replica. This module is that tier:
   its share of traffic fleet-wide. Streams over the RPC data plane
   (serving/rpc.py) are hedged: a stall races a backup attempt, a lost
   host re-dispatches from the delivery watermark, and exactly one
-  terminal reaches the caller.
+  terminal reaches the caller. With ``disagg=DisaggPolicy()``
+  (serving/disagg.py) a fleet of prefill- and decode-class hosts runs
+  each prompt on a prefill host and migrates its KV pages to a decode
+  host.
 - transports — :class:`LoopbackTransport` delivers heartbeats in
   process (threads as hosts, real engines behind each
   :class:`LoopbackHost`, fake-clock testable); a :class:`~.rpc.
@@ -1654,7 +1657,7 @@ class ClusterFrontDoor:
     def __init__(self, directory: ClusterDirectory, *,
                  metrics: Optional[ServingMetrics] = None,
                  tracer=None, recorder=None, name: str = "cluster",
-                 hedge: Optional[HedgePolicy] = None):
+                 hedge: Optional[HedgePolicy] = None, disagg=None):
         self.directory = directory
         self.name = name
         self.metrics = metrics or ServingMetrics()
@@ -1665,6 +1668,11 @@ class ClusterFrontDoor:
         # (hosts with an open_stream surface — RemoteHost); loopback
         # streams keep the sticky direct path
         self.hedge = hedge if hedge is not None else HedgePolicy()
+        # disaggregated prefill/decode placement (serving/disagg.py's
+        # DisaggPolicy). None, the default, leaves every request on the
+        # single-host path below; a policy engages only while the fleet
+        # has prefill- AND decode-class hosts
+        self.disagg = disagg
         self.routed_by_host = ReasonCounter("routed_by_host")
         self.hedges = ReasonCounter("hedges")   # 'timeout' | 'redispatch'
         self._affinity_lock = threading.Lock()
@@ -1704,10 +1712,17 @@ class ClusterFrontDoor:
     # ------------------------------------------------------------ routing
     def _headroom(self, st: HostStatus, kind: str, rows: int,
                   blocks_needed: int,
-                  blocks_admit: Optional[int] = None) -> bool:
+                  blocks_admit: Optional[int] = None,
+                  blocks_migrate: Optional[int] = None) -> bool:
         if kind == "infer":
             return st.queue_depth + rows <= st.queue_capacity
-        if st.kv_blocks_total and blocks_needed > st.kv_blocks_usable:
+        # a decode host that takes migrated pages seats the stream on its
+        # post-migration block count (the prefill host already paid the
+        # prompt; the resume token rides inside the generation budget),
+        # never on the larger re-prefill count
+        bound = blocks_needed if blocks_migrate is None \
+            else min(blocks_needed, blocks_migrate)
+        if st.kv_blocks_total and bound > st.kv_blocks_usable:
             return False   # this host can NEVER hold the stream (the
             #                 worst case bounds every allocate mode)
         # the demand SEATING pays: an on-demand host takes only the
@@ -1716,7 +1731,7 @@ class ClusterFrontDoor:
         # headroom is judged on the admit demand
         demand = blocks_admit if (blocks_admit is not None
                                   and st.allocate == "on_demand") \
-            else blocks_needed
+            else bound
         if st.free_slots > 0 and (not st.kv_blocks_total
                                   or demand <= st.kv_blocks_free):
             return True    # seats immediately
@@ -1751,6 +1766,7 @@ class ClusterFrontDoor:
 
     def _route(self, kind: str, *, rows: int = 1, blocks_needed: int = 0,
                blocks_admit: Optional[int] = None,
+               blocks_migrate: Optional[int] = None,
                pinned: Optional[int] = None,
                exclude: Tuple[int, ...] = (), bounced_full: int = 0):
         """Pick (handle, host_id, decision) or raise typed. Pure reader
@@ -1759,7 +1775,10 @@ class ClusterFrontDoor:
         how many of those bounced for capacity (heartbeat lag: the view
         said headroom, the host's own admission said full).
         ``blocks_admit`` is the prompt-only seat demand an on-demand
-        host gates on (None: judge every host on ``blocks_needed``)."""
+        host gates on (None: judge every host on ``blocks_needed``).
+        ``blocks_migrate`` is the post-migration seat demand of a stream
+        that arrives as migrated KV pages: a host is judged on the smaller
+        of the two bounds."""
         d = self.directory
         ranked: List[Tuple[tuple, int, HostHandle]] = []
         probe_set: List[Tuple[int, HostHandle]] = []
@@ -1784,7 +1803,7 @@ class ClusterFrontDoor:
                 probe_set.append((hid, h))       # drained fleet-wide
                 continue
             if not self._headroom(st, kind, rows, blocks_needed,
-                                  blocks_admit):
+                                  blocks_admit, blocks_migrate):
                 full += 1
                 continue
             ranked.append((self._load_key(st, kind, rows, blocks_needed),
@@ -1946,6 +1965,17 @@ class ClusterFrontDoor:
         (their KV blocks cannot migrate)."""
         toks = np.asarray(prompt).ravel()
         label = self._label(tenant, priority)
+        if (self.disagg is not None and host is None and prefix_id is None
+                and self.disagg.enabled(self.directory)):
+            # disaggregated placement: a prefill-class host runs the
+            # prompt and its KV pages migrate to a decode-class host. The
+            # policy does its own request, trace and terminal accounting
+            # (it spans two routed submits); pinned and prefix-affine
+            # streams stay on the single-host path, since their blocks
+            # cannot migrate
+            return self.disagg.submit(
+                self, toks, max_new_tokens=max_new_tokens, tenant=tenant,
+                priority=priority, **kwargs)
         if prefix_id is not None:
             with self._affinity_lock:
                 ph = self._prefix_hosts.get(prefix_id)

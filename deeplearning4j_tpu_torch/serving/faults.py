@@ -35,6 +35,19 @@ generation engine's:
   back to recompute-on-resume; the resumed stream is the uninterrupted
   one either way.
 
+Cross-host KV page migration (serving/disagg.py and the ``kv.migrate``
+RPC endpoint) carries the same DEGRADE contract across hosts: a fired
+fault falls back to recompute on the DECODE host, it never sheds.
+
+- ``kv.migrate`` — the migrate round trip itself (the RPC, or the
+  loopback hand-off of the captured pages): no pages and, over the wire,
+  no first token arrive; the decode host runs the whole stream;
+- ``kv.migrate.export`` — the prefill host's device-to-host page copy:
+  no pages ship, the decode host recomputes from the first token;
+- ``kv.migrate.import`` — parking shipped pages in the decode host's
+  swap store: the pages are dropped and the decode host recomputes from
+  the first token.
+
 Usage::
 
     plan = (FaultPlan(seed=7)

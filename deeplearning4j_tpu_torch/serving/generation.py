@@ -75,10 +75,14 @@ policy, no fault plan and the default (disabled) tracer, streams are the
 plain engine's.
 
 :func:`client_stream_handle` is the handle of a stream decoded on another
-host (serving/rpc.py, serving/cluster.py). Not ported yet: page migration
-and meshes. The reference's ``compiled_signatures`` and
-``draft_compiled_signatures`` count XLA executables; the port runs
-eagerly and has none to count.
+host (serving/rpc.py, serving/cluster.py). Page migration for
+disaggregated prefill/decode (serving/disagg.py): ``submit(capture_pages=
+True)`` exports a retiring stream's blocks (:meth:`GenerationEngine.
+take_captured_pages`), and :meth:`GenerationEngine.import_pages` parks
+another host's pages for a ``submit(swap_key=...)`` that re-seats them
+through the swap-in path. Not ported yet: meshes. The reference's
+``compiled_signatures`` and ``draft_compiled_signatures`` count XLA
+executables; the port runs eagerly and has none to count.
 """
 from __future__ import annotations
 
@@ -164,6 +168,15 @@ class GenerationRequest:
     # prefill; a miss falls back to the recompute above
     swap_key: Optional[int] = None
     swap_ins: int = 0               # resumes by swap-in
+    # ---- cross-host KV page migration (serving/disagg.py) ---------------
+    # capture_pages asks the retire tail to copy this stream's written KV
+    # blocks (values and int8 scales) to host memory as a SwapEntry on
+    # captured_entry BEFORE the terminal is delivered; the disaggregation
+    # orchestrator ships it to a decode-class host, which re-seats it
+    # through the swap-in path. A failed export leaves captured_entry
+    # None: the decode host recomputes, the stream is never shed.
+    capture_pages: bool = False
+    captured_entry: Optional[SwapEntry] = None
 
 
 class GenerationHandle:
@@ -696,6 +709,7 @@ class GenerationEngine(ResilientEngineMixin):
                priority: Optional[str] = None,
                on_token: Optional[Callable[[int], None]] = None,
                resume_tokens=None, resume_step: int = 0,
+               capture_pages: bool = False,
                swap_key: Optional[int] = None,
                trace_link: Optional[str] = None,
                trace_parent: Optional[str] = None) -> GenerationHandle:
@@ -722,7 +736,13 @@ class GenerationEngine(ResilientEngineMixin):
         prefill and the next sample is drawn at index ``resume_step``
         (which must equal ``len(resume_tokens)``). ``swap_key`` names
         parked blocks to re-seat from instead (it needs
-        ``resume_tokens``, the fallback on a miss).
+        ``resume_tokens``, the fallback on a miss): a preemption's
+        swap-out, or pages another host exported (:meth:`import_pages`).
+
+        ``capture_pages`` (paged only) exports the stream's written K/V
+        blocks when it retires, for :meth:`take_captured_pages`: the
+        prefill half of disaggregated serving (serving/disagg.py runs such
+        a stream with ``max_new_tokens=1``).
 
         ``trace_link``/``trace_parent`` attach the stream's trace to a
         cross-host parent (the trace context serving/rpc.py forwards):
@@ -752,6 +772,11 @@ class GenerationEngine(ResilientEngineMixin):
             raise ValueError(
                 f"resume_step ({resume_step}) requires resume_tokens — "
                 "the delivered prefix the recompute prefill replays")
+        if capture_pages and not self.paged:
+            raise ValueError(
+                "capture_pages requires the paged KV cache "
+                "(GenerationEngine(paged=True)) — page export gathers "
+                "block rows, and the contiguous layout has no blocks")
         if swap_key is not None and resume_tokens is None:
             raise ValueError(
                 "swap_key requires resume_tokens — a swap-in miss degrades "
@@ -787,7 +812,7 @@ class GenerationEngine(ResilientEngineMixin):
             eos_id=self.eos_id if eos_id is _UNSET else eos_id,
             key=prng_key(seed), prefix_id=prefix_id,
             resume_tokens=resume_tokens, resume_step=int(resume_step),
-            swap_key=swap_key)
+            capture_pages=bool(capture_pages), swap_key=swap_key)
         trace = self._tracer.begin(self.name, "generate",
                                    link=trace_link,
                                    parent_span=trace_parent,
@@ -797,6 +822,10 @@ class GenerationEngine(ResilientEngineMixin):
         if resume_tokens is not None:
             self.metrics.stream_resumes_total.inc()
             trace.event("stream.resume", resume_step=int(resume_step))
+        if swap_key is not None:
+            # pages another host exported (import_pages); the seat's
+            # kv.swap event says whether they were used
+            trace.event("kv.migrate", direction="import", key=int(swap_key))
         req = Request(x=greq, rows=1, trace=trace, tenant=tenant,
                       priority=priority)
         greq.handle = GenerationHandle(req, toks.size, on_token=on_token)
@@ -1738,7 +1767,10 @@ class GenerationEngine(ResilientEngineMixin):
         take it, or the copy fails (a ``kv.swap_out`` fault) — every miss
         resumes by recompute."""
         store = self._swap_store
-        if store is None or vst.blocks is None:
+        if store is None or vst.blocks is None \
+                or self.swap_threshold_blocks is None:
+            # no threshold: the store exists only for migrated pages
+            # (import_pages), and preemption recomputes
             return None, 0, 0
         if len(vst.blocks) <= self.swap_threshold_blocks:
             return None, 0, 0
@@ -1812,6 +1844,86 @@ class GenerationEngine(ResilientEngineMixin):
                 self.metrics.kv_swapped_blocks_held.set(
                     self._swap_store.blocks_held)
             greq.swap_key = None
+
+    # ------------------------------------ cross-host KV page migration
+    def _capture_pages(self, pool: _Pool, req: Request, blocks, length: int,
+                       n_generated: int, last_token: int):
+        """Export a retiring ``capture_pages`` stream's written blocks
+        (values and int8 scales, every layer) as a :class:`SwapEntry` on
+        its ``captured_entry``: the prefill half of a migration. The
+        caller holds ``_wd_lock`` with ``pool`` current and has not freed
+        the blocks: the copy is the swap-out's (:meth:`_blocks_to_host`),
+        complete when it returns, so the blocks may go back to the free
+        list right after. Any failure (the seeded ``kv.migrate.export``
+        point among them) leaves ``captured_entry`` None: the decode host
+        recomputes, the stream is never shed."""
+        greq: GenerationRequest = req.x
+        try:
+            payload, nbytes = inject("kv.migrate.export",
+                                     self._blocks_to_host, blocks,
+                                     pool.cache)
+        except Exception as e:
+            req.trace.event("kv.migrate", direction="export",
+                            failed=type(e).__name__)
+            return
+        greq.captured_entry = SwapEntry(
+            payload=payload, used_blocks=len(blocks), length=int(length),
+            n_generated=int(n_generated), last_token=int(last_token),
+            prefix_len=0, nbytes=nbytes)
+        self.metrics.kv_migrate_bytes_out.inc(nbytes)
+        req.trace.event("kv.migrate", direction="export",
+                        blocks=len(blocks), bytes=nbytes)
+
+    def take_captured_pages(self, handle: GenerationHandle
+                            ) -> Optional[SwapEntry]:
+        """One-shot retrieval of a ``capture_pages`` stream's exported
+        pages; None when the export failed or never ran (the caller
+        recomputes on the decode host). Call once the handle's future has
+        resolved: the capture happens before the terminal is delivered."""
+        greq = handle._req.x
+        if greq is None:
+            return None
+        entry, greq.captured_entry = greq.captured_entry, None
+        return entry
+
+    def import_pages(self, entry: SwapEntry) -> Optional[int]:
+        """Park migrated pages in this engine's swap store and return the
+        key to pass as ``submit(swap_key=...)``: the decode half of a
+        migration re-seats through the swap-in path. The entry is put
+        under ``_wd_lock``, so a watchdog restart before its stream is
+        admitted drops it with the store's other entries (they name the
+        replaced pool's contents) and the stream recomputes. An engine
+        without ``swap_threshold_blocks`` gets its store here; preemption
+        still gates on the threshold, so it does not change. None when the
+        store refuses the entry or the seeded ``kv.migrate.import`` point
+        fires: the caller submits without ``swap_key`` and recomputes."""
+        if not self.paged:
+            raise ValueError(
+                "import_pages requires the paged KV cache "
+                "(GenerationEngine(paged=True)) — migrated pages re-seat "
+                "through the block pool")
+        try:
+            with self._wd_lock:
+                if self._swap_store is None:
+                    self._swap_store = BlockSwapStore(self.num_blocks)
+                store = self._swap_store
+                key = inject("kv.migrate.import", store.put, entry)
+        except Exception:
+            return None
+        if key is not None:
+            self.metrics.kv_migrate_bytes_in.inc(entry.nbytes)
+            self.metrics.kv_swapped_blocks_held.set(store.blocks_held)
+        return key
+
+    def discard_imported(self, key: int):
+        """Drop an :meth:`import_pages` entry whose stream never reached
+        admission (its submit was rejected): nothing will take the key,
+        so the parked bytes come back now."""
+        with self._wd_lock:
+            store = self._swap_store
+        if store is not None:
+            store.discard(key)
+            self.metrics.kv_swapped_blocks_held.set(store.blocks_held)
 
     def _preempt_for(self, pool: _Pool, needy_i: int,
                      needy_st: _Slot) -> str:
@@ -2072,6 +2184,18 @@ class GenerationEngine(ResilientEngineMixin):
                       n_generated=greq.resume_step + 1, last_token=tok,
                       length=n, blocks=blocks, n_entries=nb_total,
                       resumed=resumed)
+        if greq.capture_pages and blocks is not None \
+                and self._retire_reason(state, tok) is not None:
+            # a stream retiring at its first token (the disaggregated
+            # prefill stage runs max_new_tokens=1): export its pages before
+            # _push resolves the future, since the orchestrator reads the
+            # entry the moment result() returns
+            used = blocks_for_tokens(n, self.block_size)
+            if 0 < used <= nb_total:
+                with self._wd_lock:
+                    if self._pool is pool:
+                        self._capture_pages(pool, req, blocks[:used], n,
+                                            state.n_generated, tok)
         err = greq.handle._push(tok)
         if err is not None:
             # a broken on_token consumer failed its own stream
@@ -2396,6 +2520,17 @@ class GenerationEngine(ResilientEngineMixin):
                 st.last_token = tok
                 reason = self._retire_reason(st, tok)
                 if reason is not None:
+                    if st.greq.capture_pages and st.blocks is not None:
+                        # a decode-feed seat retiring (a prefix or cache
+                        # hit, EOS at its first token): export the written
+                        # pages while the blocks are still referenced
+                        # (st.length counts written positions; the
+                        # retiring token's K/V never is)
+                        used = blocks_for_tokens(st.length, self.block_size)
+                        if 0 < used <= st.n_entries:
+                            self._capture_pages(
+                                pool, st.request, pool.tables[i][:used],
+                                st.length, st.n_generated, tok)
                     self._maybe_cache_retired(pool, i, st)
                     self._clear_slot(pool, i, st)
         if fed_only:

@@ -5,9 +5,11 @@ counter names and ``snapshot()`` keys).
 
 ``ServingMetrics.snapshot()`` is one JSON-safe dict: every counter, the
 gauges, the histograms, the per-tenant QoS roll-up (``qos``), the rolling
-SLO windows (``slo``) and the speculative roll-up (``spec``). Fields that
-only the reference's page migration writes stay at 0 here: they are kept
-so that both packages report one schema. ``publish`` (the reference's
+SLO windows (``slo``) and the speculative roll-up (``spec``). The page
+migration counters (``kv_migrations_total``, ``kv_migrate_bytes_out``,
+``kv_migrate_bytes_in``, ``kv_migrate_fallbacks_total``,
+``prefix_route_hits_total``) are written by the engines' page export and
+import and by serving/disagg.py's placement. ``publish`` (the reference's
 StatsStorage hook) waits for the UI tier.
 """
 from __future__ import annotations
@@ -315,7 +317,7 @@ class ServingMetrics:
         self.kv_swap_bytes_out = Counter("kv_swap_bytes_out")
         self.kv_swap_bytes_in = Counter("kv_swap_bytes_in")
         self.kv_swapped_blocks_held = Gauge("kv_swapped_blocks_held")
-        # ---- disaggregated prefill/decode (the reference's disagg.py) -----
+        # ---- disaggregated prefill/decode (serving/disagg.py) ------------
         # kv_migrations_total counts streams whose KV pages moved from a
         # prefill-class host to a decode-class host; bytes_out is stamped
         # on the exporting engine, bytes_in on the importing one (the two

@@ -475,7 +475,10 @@ class SwapEntry:
     the victim's used blocks — so swap-in is a row scatter into whatever
     blocks the re-seat allocates. The slot state (``length``,
     ``n_generated``, ``last_token``, ``prefix_len``) rides along: the
-    re-seated stream resumes mid-decode with no prefill."""
+    re-seated stream resumes mid-decode with no prefill. The same entry
+    carries a stream's pages from a prefill-class host to a decode-class
+    one (``GenerationEngine.import_pages``); it names no epoch, because a
+    watchdog restart drops every parked entry at once."""
 
     payload: List[Dict[str, object]]
     used_blocks: int

@@ -37,11 +37,18 @@ Dean & Barroso's "The Tail at Scale" with Google SRE's load shedding:
   protocol (stop admission, finish resident streams, release prefix
   pins) so a fleet scales down without shedding a request.
 
-The reference's ``kv.migrate`` endpoint (cross-host KV page migration for
-disaggregated prefill/decode) is not ported yet.
+- **KV page migration** — ``POST /rpc/v1/migrate`` (:class:`KvMigrateRequest`
+  / :class:`KvMigrateResponse`) runs a prompt's prefill with page capture
+  on a prefill-class host and seats the shipped pages on a decode-class
+  host (serving/disagg.py drives both stages; the ``kv.migrate`` fault
+  point wraps the round trip). Pages cross as base64 of each leaf's raw
+  bytes, encoded from torch (no ``ml_dtypes``): a bf16 pool's pages are
+  ``"bfloat16"`` on the wire, as the reference writes them, and arrive
+  bit for bit.
 """
 from __future__ import annotations
 
+import base64
 import dataclasses
 import itertools
 import json
@@ -55,6 +62,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.serving.admission import (
     DeadlineExceededError, HostDrainingError, HostUnavailableError,
@@ -64,6 +72,7 @@ from deeplearning4j_tpu_torch.serving.cluster import HostHandle, HostStatus
 from deeplearning4j_tpu_torch.serving.faults import FaultInjectedError, inject
 from deeplearning4j_tpu_torch.serving.generation import client_stream_handle
 from deeplearning4j_tpu_torch.serving.ledger import track_rpc_server
+from deeplearning4j_tpu_torch.serving.paging import SwapEntry
 from deeplearning4j_tpu_torch.serving.tracing import (
     TERMINAL_REASONS, terminal_reason,
 )
@@ -206,6 +215,145 @@ class RpcStreamChunk:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+@dataclasses.dataclass
+class KvMigrateRequest:
+    """One ``kv.migrate`` call crossing the wire — the cross-host KV
+    page-migration endpoint serving/disagg.py's two-stage placement
+    drives. ``kind="prefill"`` asks the receiving (prefill-class) host
+    to run the prompt's prefill with page capture; ``kind="import"``
+    ships stage A's captured block pages (base64 arrays — cache values
+    AND int8 scales per layer) to the decode host, which seats them
+    through its swap store's swap-in path and continues the stream
+    from the delivery watermark (``first_token``/``resume_step``).
+    ``timeout_ms`` is the REMAINING deadline budget at send time, wire
+    discipline identical to :class:`RpcRequest` — the budget shrinks
+    across the two stages, never resets."""
+
+    request_id: str = ""
+    kind: str = "prefill"                # 'prefill' | 'import'
+    prompt: Optional[list] = None        # token ids
+    max_new_tokens: int = 16             # ORIGINAL total budget (the
+    #                                      prefill stage runs 1 itself)
+    temperature: float = 0.0
+    top_k: int = 0
+    eos_id: Optional[int] = None
+    eos_default: bool = True
+    seed: int = 0
+    tenant: Optional[str] = None
+    priority: Optional[str] = None
+    timeout_ms: Optional[float] = None   # remaining budget at send time
+    # ---- cross-host trace context (wire v2, same contract as
+    # RpcRequest's v3 fields: defaulted None both directions, so the
+    # context survives BOTH migration legs or degrades to local roots) --
+    trace_id: Optional[str] = None
+    parent_span: Optional[str] = None
+    # ---- import payload (stage B) ----------------------------------------
+    first_token: int = 0                 # the delivery watermark token
+    resume_step: int = 1
+    pages: Optional[list] = None         # per-layer {leaf: b64 array}
+    used_blocks: int = 0
+    length: int = 0
+    n_generated: int = 0
+    last_token: int = 0
+    nbytes: int = 0
+    block_size: int = 0                  # sender's block size (a
+    #                                      mismatch degrades to recompute)
+    wire_version: int = 2
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "KvMigrateRequest":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass
+class KvMigrateResponse:
+    """``kv.migrate`` answer. ``mode`` is the honored outcome:
+    ``captured`` (stage A — the pages ride back beside the first
+    token), ``migrated`` (stage B — the pages seated, the stream
+    resumes from them), ``recompute`` (the degrade path — the stream
+    still runs, it just re-prefills on the decode host: the same tokens
+    in fp32, while a bf16 recompute may round K/V unlike the decode
+    steps and continue on another greedy path). Failure answers carry
+    the host's typed reason exactly like :class:`RpcResponse`; a
+    migration that cannot move its pages is NOT
+    a failure — it is ``recompute`` (tracing.py: ``migrate_failed`` is
+    deliberately not a terminal reason)."""
+
+    request_id: str = ""
+    ok: bool = False
+    mode: str = "recompute"              # 'captured'|'migrated'|'recompute'
+    stream_id: Optional[str] = None      # import: the /stream op id
+    first_token: int = 0
+    finish_reason: Optional[str] = None  # prefill: 'eos' short-circuits
+    #                                      stage B entirely
+    pages: Optional[list] = None
+    used_blocks: int = 0
+    length: int = 0
+    n_generated: int = 0
+    last_token: int = 0
+    nbytes: int = 0
+    block_size: int = 0
+    error_reason: Optional[str] = None
+    error_message: Optional[str] = None
+    wire_version: int = 1
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "KvMigrateResponse":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+#: The leaf dtypes a page crosses the wire in, by their wire names (the
+#: names numpy and ``ml_dtypes`` give them, which the reference writes).
+_WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "int8": torch.int8}
+_WIRE_NAMES = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+def _encode_pages(payload) -> list:
+    """KV block pages → JSON-safe wire form: per layer, per cache leaf
+    (values AND int8 scales — the quantized path's scales ride the same
+    dict), a base64 blob of the leaf's raw bytes + dtype + shape, read
+    from torch through a byte view, so a bf16 leaf needs no ``ml_dtypes``.
+    Binary-exact by construction, and the same dict the reference encodes
+    from numpy arrays of the same values. A leaf dtype outside
+    ``_WIRE_DTYPES`` raises (the caller ships no pages)."""
+    out = []
+    for layer in payload:
+        enc = {}
+        for k, a in layer.items():
+            t = torch.as_tensor(a).detach().to("cpu").contiguous()
+            raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+            enc[k] = {"b64": base64.b64encode(raw).decode("ascii"),
+                      "dtype": _WIRE_NAMES[t.dtype], "shape": list(t.shape)}
+        out.append(enc)
+    return out
+
+
+def _decode_pages(pages: list) -> list:
+    """The inverse of :func:`_encode_pages`: per layer, ``{leaf: CPU
+    tensor}`` holding the shipped bytes. An unknown dtype name or a blob
+    that does not fill its shape raises (the caller recomputes)."""
+    out = []
+    for layer in pages:
+        dec = {}
+        for k, d in layer.items():
+            raw = bytearray(base64.b64decode(d["b64"]))
+            flat = torch.frombuffer(raw, dtype=torch.uint8) if raw \
+                else torch.empty(0, dtype=torch.uint8)
+            dec[k] = flat.view(_WIRE_DTYPES[d["dtype"]]).reshape(
+                [int(n) for n in d["shape"]])
+        out.append(dec)
+    return out
+
+
 def rejected_from_wire(reason: Optional[str], message: Optional[str],
                        host: Optional[int] = None) -> RejectedError:
     """Rebuild a peer's typed rejection client-side, in the ONE
@@ -284,6 +432,7 @@ class _RpcHandler(BaseHTTPRequestHandler):
             f"{RPC_PREFIX}/cancel": rpc._handle_cancel,
             f"{RPC_PREFIX}/register_prefix": rpc._handle_register_prefix,
             f"{RPC_PREFIX}/drain": rpc._handle_drain,
+            f"{RPC_PREFIX}/migrate": rpc._handle_migrate,
         }.get(self.path)
         if route is None:
             self._json({"error": "not found"}, 404)
@@ -292,6 +441,15 @@ class _RpcHandler(BaseHTTPRequestHandler):
             self._json(route(payload))
         except Exception as e:   # a broken payload must not kill the thread
             self._json({"error": f"{type(e).__name__}: {e}"}, 500)
+
+
+class _HttpServer(ThreadingHTTPServer):
+    #: the listen backlog. The front door holds a long-poll connection per
+    #: stream, and a host's engine threads keep the accept loop waiting
+    #: for the interpreter lock: past the standard library's 5 queued
+    #: connections the kernel drops SYNs, which clients retry after 1, 3
+    #: and 7 s, so a stream stalls long enough to be hedged
+    request_queue_size = 1024
 
 
 class HostRpcServer:
@@ -339,7 +497,7 @@ class HostRpcServer:
         self.last_arrival_budget_ms: Optional[float] = None
         self.submits = 0
         self.cancels = 0
-        self._httpd = ThreadingHTTPServer(("127.0.0.1", port), _RpcHandler)
+        self._httpd = _HttpServer(("127.0.0.1", port), _RpcHandler)
         self._httpd.rpc = self  # type: ignore[attr-defined]
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, kwargs={"poll_interval": 0.05},
@@ -648,6 +806,173 @@ class HostRpcServer:
         drained = self.host.drain(
             timeout=float(timeout_s) if timeout_s is not None else None)
         return {"ok": True, "drained": bool(drained)}
+
+    # --------------------------------------------- kv.migrate endpoint
+    def _handle_migrate(self, payload: dict) -> dict:
+        """``POST /rpc/v1/migrate`` — cross-host KV page migration, the
+        endpoint beside ``/rpc/v1/*`` that serving/disagg.py's two-stage
+        placement drives. ``kind="prefill"`` runs a ONE-token prefill
+        with page capture and answers with the first sampled token plus
+        the base64-encoded block pages (values + int8 scales + lengths +
+        stream watermark — everything a SwapEntry carries);
+        ``kind="import"`` seats shipped pages through the engine's
+        swap store's swap-in path and continues decoding from the
+        watermark, answering with the ``stream_id`` the normal
+        ``/stream`` long-poll serves. EVERY page-movement degradation
+        (capture failed, pages undecodable, import fault, block-size
+        mismatch) answers ``mode="recompute"`` — the stream still runs,
+        it just re-prefills; only the host's own
+        typed admission rejections answer ``ok=False``."""
+        self._gc()
+        try:
+            req = KvMigrateRequest.from_dict(payload)
+        except (TypeError, KeyError, ValueError) as e:
+            return KvMigrateResponse(
+                ok=False, error_reason="rpc_error",
+                error_message=f"malformed KvMigrateRequest: {e}").to_dict()
+        timeout_ms = req.timeout_ms
+        self.last_arrival_budget_ms = timeout_ms
+        if timeout_ms is not None and timeout_ms <= 0.0:
+            return KvMigrateResponse(
+                request_id=req.request_id, ok=False,
+                error_reason="deadline",
+                error_message=(f"deadline budget exhausted in transit "
+                               f"({timeout_ms:.1f} ms remaining on "
+                               f"arrival)")).to_dict()
+        if req.kind == "prefill":
+            return self._migrate_prefill(req, timeout_ms)
+        if req.kind == "import":
+            return self._migrate_import(req, timeout_ms)
+        return KvMigrateResponse(
+            request_id=req.request_id, ok=False, error_reason="rpc_error",
+            error_message=f"unknown migrate kind {req.kind!r}").to_dict()
+
+    def _migrate_prefill(self, req: KvMigrateRequest,
+                         timeout_ms: Optional[float]) -> dict:
+        kw = {} if req.eos_default else {"eos_id": req.eos_id}
+        if req.trace_id is not None:
+            # wire v2 migrate trace context: the prefill leg links to
+            # the front-door trace exactly like a /submit dispatch does
+            kw["trace_link"] = req.trace_id
+            kw["trace_parent"] = req.parent_span
+        try:
+            handle = self.host.submit_generate(
+                np.asarray(req.prompt, np.int32), max_new_tokens=1,
+                temperature=req.temperature, top_k=req.top_k,
+                seed=req.seed, timeout_ms=timeout_ms, tenant=req.tenant,
+                priority=req.priority, capture_pages=True, **kw)
+        except RejectedError as e:
+            return KvMigrateResponse(request_id=req.request_id, ok=False,
+                                     error_reason=e.reason,
+                                     error_message=str(e)).to_dict()
+        except (ValueError, KeyError, TypeError) as e:
+            return KvMigrateResponse(request_id=req.request_id, ok=False,
+                                     error_reason="client_error",
+                                     error_message=str(e)).to_dict()
+        # block the handler thread for the one-token prefill: the server
+        # is a ThreadingHTTPServer, and the caller's budget (plus grace
+        # for a cold first call) bounds the wait
+        wait_s = 600.0 if timeout_ms is None else timeout_ms / 1e3 + 30.0
+        try:
+            toks = handle.result(timeout=wait_s)
+        except RejectedError as e:
+            return KvMigrateResponse(request_id=req.request_id, ok=False,
+                                     error_reason=e.reason,
+                                     error_message=str(e)).to_dict()
+        except Exception as e:
+            return KvMigrateResponse(request_id=req.request_id, ok=False,
+                                     error_reason=terminal_reason(e),
+                                     error_message=str(e)).to_dict()
+        if not len(toks):
+            return KvMigrateResponse(
+                request_id=req.request_id, ok=False,
+                error_reason="rpc_error",
+                error_message="prefill produced no token").to_dict()
+        first = int(toks[0])
+        finish = handle.finish_reason
+        gen = getattr(self.host, "generation", None)
+        entry = None if gen is None else gen.take_captured_pages(handle)
+        if entry is None:
+            return KvMigrateResponse(
+                request_id=req.request_id, ok=True, mode="recompute",
+                first_token=first, finish_reason=finish).to_dict()
+        try:
+            pages = _encode_pages(entry.payload)
+        except Exception:
+            # a leaf dtype the wire cannot carry: ship no pages — the
+            # decode host recomputes, the stream still runs
+            return KvMigrateResponse(
+                request_id=req.request_id, ok=True, mode="recompute",
+                first_token=first, finish_reason=finish).to_dict()
+        return KvMigrateResponse(
+            request_id=req.request_id, ok=True, mode="captured",
+            first_token=first, finish_reason=finish, pages=pages,
+            used_blocks=int(entry.used_blocks), length=int(entry.length),
+            n_generated=int(entry.n_generated),
+            last_token=int(entry.last_token), nbytes=int(entry.nbytes),
+            block_size=int(getattr(gen, "block_size", 0) or 0)).to_dict()
+
+    def _migrate_import(self, req: KvMigrateRequest,
+                        timeout_ms: Optional[float]) -> dict:
+        gen = getattr(self.host, "generation", None)
+        key = None
+        if gen is not None and req.pages is not None \
+                and getattr(gen, "paged", False) \
+                and (not req.block_size
+                     or req.block_size == gen.block_size):
+            try:
+                entry = SwapEntry(
+                    payload=_decode_pages(req.pages),
+                    used_blocks=int(req.used_blocks),
+                    length=int(req.length),
+                    n_generated=int(req.n_generated),
+                    last_token=int(req.last_token), prefix_len=0,
+                    nbytes=int(req.nbytes))
+                key = gen.import_pages(entry)
+            except Exception:
+                key = None   # undecodable pages: recompute, never shed
+        op_id = f"op-{next(self._op_ids)}"
+        state = _OpState(op_id, "generate")
+        kw = {} if req.eos_default else {"eos_id": req.eos_id}
+        if req.trace_id is not None:
+            # the import/decode leg carries the SAME logical trace the
+            # prefill leg did — the context is never dropped between the
+            # two migration stages (deadline-propagation-style contract)
+            kw["trace_link"] = req.trace_id
+            kw["trace_parent"] = req.parent_span
+        if key is not None:
+            kw["swap_key"] = key
+        try:
+            handle = self.host.submit_generate(
+                np.asarray(req.prompt, np.int32),
+                max_new_tokens=req.max_new_tokens,
+                temperature=req.temperature, top_k=req.top_k,
+                seed=req.seed, timeout_ms=timeout_ms,
+                tenant=req.tenant, priority=req.priority,
+                resume_tokens=np.asarray([req.first_token], np.int32),
+                resume_step=int(req.resume_step),
+                on_token=self._make_on_token(state), **kw)
+        except RejectedError as e:
+            if key is not None:
+                gen.discard_imported(key)
+            return KvMigrateResponse(request_id=req.request_id, ok=False,
+                                     error_reason=e.reason,
+                                     error_message=str(e)).to_dict()
+        except (ValueError, KeyError, TypeError) as e:
+            if key is not None:
+                gen.discard_imported(key)
+            return KvMigrateResponse(request_id=req.request_id, ok=False,
+                                     error_reason="client_error",
+                                     error_message=str(e)).to_dict()
+        state.handle = handle
+        handle.future.add_done_callback(
+            lambda _f, s=state: self._notify(s))
+        self._register(state)
+        return KvMigrateResponse(
+            request_id=req.request_id, ok=True,
+            mode="migrated" if key is not None else "recompute",
+            stream_id=op_id, first_token=int(req.first_token)).to_dict()
+
 
 # --------------------------------------------------------------------------
 # Client side: RemoteHost + the stream attempt protocol
@@ -1076,6 +1401,105 @@ class RemoteHost(HostHandle):
                     handle._finish(chunk.finish_reason or "max_tokens")
                 return
 
+    # --------------------------------------------- kv.migrate (disagg)
+    def migrate_prefill(self, prompt, *, max_new_tokens: int = 16,
+                        temperature: float = 0.0, top_k: int = 0,
+                        eos_id=_UNSET, seed: int = 0,
+                        timeout_ms: Optional[float] = None,
+                        deadline_t: Optional[float] = None,
+                        tenant: Optional[str] = None,
+                        priority: Optional[str] = None,
+                        trace_link: Optional[str] = None,
+                        trace_parent: Optional[str] = None
+                        ) -> KvMigrateResponse:
+        """Stage A of disaggregated serving (serving/disagg.py): run
+        the prompt's prefill HERE with page capture, returning the
+        first sampled token plus the captured block pages. Raises the
+        host's typed rejection, or ``host_unavailable`` on network loss
+        (the ``kv.migrate`` fault point covers this hop) — the caller
+        degrades to recompute on the decode host, never sheds."""
+        toks = np.asarray(prompt, np.int32).ravel()
+        if deadline_t is None:
+            deadline_t = self._deadline_t(timeout_ms)
+        eos_default = eos_id is _UNSET
+        req = KvMigrateRequest(
+            request_id=f"h{self.host_id}-m{next(self._req_ids)}",
+            kind="prefill", prompt=[int(t) for t in toks],
+            max_new_tokens=int(max_new_tokens),
+            temperature=float(temperature), top_k=int(top_k),
+            eos_id=None if eos_default else eos_id,
+            eos_default=eos_default, seed=int(seed), tenant=tenant,
+            priority=priority, timeout_ms=self._budget_ms(deadline_t),
+            trace_id=trace_link, parent_span=trace_parent)
+        return self._migrate_rpc(req)
+
+    def submit_migrated(self, prompt, prefill: KvMigrateResponse, *,
+                        max_new_tokens: int = 16,
+                        temperature: float = 0.0, top_k: int = 0,
+                        eos_id=_UNSET, seed: int = 0,
+                        timeout_ms: Optional[float] = None,
+                        deadline_t: Optional[float] = None,
+                        tenant: Optional[str] = None,
+                        priority: Optional[str] = None,
+                        trace_link: Optional[str] = None,
+                        trace_parent: Optional[str] = None,
+                        handle=None):
+        """Stage B: seat stage A's pages on THIS host and continue the
+        stream from its watermark. Returns ``(handle, mode)`` — the
+        bridged local handle (``handle=`` lets the caller pass the
+        client handle it already delivered the first token through; the
+        server's handle holds only post-watermark tokens, so the bridge
+        starts clean at cursor 0) and the server's honored mode
+        (``"migrated"`` | ``"recompute"``)."""
+        toks = np.asarray(prompt, np.int32).ravel()
+        if deadline_t is None:
+            deadline_t = self._deadline_t(timeout_ms)
+        eos_default = eos_id is _UNSET
+        req = KvMigrateRequest(
+            request_id=f"h{self.host_id}-m{next(self._req_ids)}",
+            kind="import", prompt=[int(t) for t in toks],
+            max_new_tokens=int(max_new_tokens),
+            temperature=float(temperature), top_k=int(top_k),
+            eos_id=None if eos_default else eos_id,
+            eos_default=eos_default, seed=int(seed), tenant=tenant,
+            priority=priority, timeout_ms=self._budget_ms(deadline_t),
+            trace_id=trace_link, parent_span=trace_parent,
+            first_token=int(prefill.first_token), resume_step=1,
+            pages=prefill.pages, used_blocks=int(prefill.used_blocks),
+            length=int(prefill.length),
+            n_generated=int(prefill.n_generated),
+            last_token=int(prefill.last_token),
+            nbytes=int(prefill.nbytes),
+            block_size=int(prefill.block_size))
+        resp = self._migrate_rpc(req)
+        if not resp.stream_id:
+            raise RpcError(
+                f"host {self.host_id} accepted the migrated stream but "
+                f"returned no op id", host=self.host_id)
+        stream = RemoteStream(self, resp.stream_id)
+        if handle is None:
+            handle = client_stream_handle(int(toks.size), tenant=tenant)
+        t = threading.Thread(
+            target=self._bridge_stream, args=(stream, handle),
+            daemon=True, name=f"rpc-migrated[h{self.host_id}]")
+        t.start()
+        return handle, resp.mode
+
+    def _migrate_rpc(self, req: KvMigrateRequest) -> KvMigrateResponse:
+        raw = self._rpc(f"{RPC_PREFIX}/migrate", req.to_dict(),
+                        point="kv.migrate")
+        try:
+            resp = KvMigrateResponse.from_dict(raw)
+        except (TypeError, KeyError, ValueError) as e:
+            raise RpcError(
+                f"malformed KvMigrateResponse from host {self.host_id}",
+                host=self.host_id) from e
+        if not resp.ok:
+            raise rejected_from_wire(resp.error_reason,
+                                     resp.error_message,
+                                     host=self.host_id)
+        return resp
+
     # ------------------------------------------------------- control actions
     def register_prefix(self, tokens, prefix_id=None, timeout=None) -> str:
         toks = np.asarray(tokens, np.int32).ravel()
@@ -1106,5 +1530,6 @@ def _identity(x):
     return x
 
 
-__all__ = ["RpcRequest", "RpcResponse", "RpcStreamChunk", "HostRpcServer",
+__all__ = ["RpcRequest", "RpcResponse", "RpcStreamChunk",
+           "KvMigrateRequest", "KvMigrateResponse", "HostRpcServer",
            "RemoteHost", "RemoteStream", "rejected_from_wire", "RPC_PREFIX"]

@@ -12,7 +12,12 @@ request-scoped timeline says where one request's own time went.
   (``submit -> queue.admit -> queue.wait -> slot.assign -> prefill ->
   decode.step* -> stream.finish -> retire``), resilience events
   (``retry.attempt``, ``watchdog.restart``) and recovery events
-  (``preempt``, ``kv.swap`` with ``direction="out"|"in"``).
+  (``preempt``, ``kv.swap`` with ``direction="out"|"in"``). Page
+  migration (serving/disagg.py) adds ``kv.migrate`` on the engines
+  (``direction="export"|"import"``, ``failed=`` on a degraded copy) and
+  ``cluster.migrate`` / ``cluster.migrate.fallback`` (with its ``stage``)
+  on the front door's trace; the two legs of a migrated stream link to
+  that trace as the children ``migrate:prefill`` and ``migrate:decode``.
 - :class:`Tracer` — trace collector with **tail sampling**: every
   in-flight request of an enabled tracer records live, and retention is
   decided at ``finish()`` — error traces are always kept, successes at

@@ -232,7 +232,8 @@ def test_port_imports_no_jax():
         "pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "for want in ('ops.updaters', 'serving.rpc', 'serving.cluster'):\n"
+        "for want in ('ops.updaters', 'serving.rpc', 'serving.cluster',\n"
+        "             'serving.disagg'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + want in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'deeplearning4j_tpu.')) "

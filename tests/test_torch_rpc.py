@@ -53,7 +53,8 @@ WIDTHS = dict(vocab_size=50, hidden=32, layers=2, heads=2, mlp_dim=64,
 JCFG = JaxConfig(**WIDTHS, dtype=jnp.float32, attention_impl="full")
 TCFG = TransformerConfig(**WIDTHS, dtype=torch.float32,
                          attention_impl="full")
-WIRE_TYPES = ("RpcRequest", "RpcResponse", "RpcStreamChunk", "HostStatus")
+WIRE_TYPES = ("RpcRequest", "RpcResponse", "RpcStreamChunk", "HostStatus",
+              "KvMigrateRequest", "KvMigrateResponse")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -155,7 +156,7 @@ class Served:
     ``settled`` serves each stream whole (:func:`settled_host`)."""
 
     def __init__(self, pkg, host_id=0, *, np_params=None, delay_s=0.0,
-                 clock=None, settled=False):
+                 clock=None, settled=False, host_class="mixed"):
         self.eng = pkg.InferenceEngine(mlp(pkg, delay_s), max_batch_size=8,
                                        max_wait_ms=0.0,
                                        name=f"rpc-e{host_id}")
@@ -163,7 +164,7 @@ class Served:
             if np_params is not None else None
         local_cls = settled_host(pkg) if settled else pkg.LoopbackHost
         self.local = local_cls(host_id, engine=self.eng,
-                               generation=self.gen)
+                               generation=self.gen, host_class=host_class)
         kw = {} if clock is None else {"clock": clock}
         self.srv = pkg.HostRpcServer(self.local, **kw)
 
@@ -192,6 +193,24 @@ def wire_cases(pkg):
                         error_message="full"),
         pkg.RpcStreamChunk(stream_id="op-7", cursor=3, tokens=[5, 6],
                            done=True, finish_reason="eos"),
+        pkg.KvMigrateRequest(request_id="h1-m3", kind="import",
+                             prompt=[4, 5, 6], max_new_tokens=9,
+                             temperature=0.8, top_k=4, eos_default=False,
+                             eos_id=2, seed=7, tenant="acme",
+                             priority="batch", timeout_ms=120.5,
+                             trace_id="cluster-000007",
+                             parent_span="migrate:decode", first_token=11,
+                             pages=[{"k": {"b64": "AAE=", "dtype": "int8",
+                                           "shape": [1, 2]}}],
+                             used_blocks=1, length=3, n_generated=1,
+                             last_token=11, nbytes=2, block_size=16),
+        pkg.KvMigrateResponse(request_id="h1-m3", ok=True, mode="migrated",
+                              stream_id="op-9", first_token=11,
+                              finish_reason="max_tokens", used_blocks=1,
+                              length=3, n_generated=1, last_token=11,
+                              nbytes=2, block_size=16),
+        pkg.KvMigrateResponse(ok=False, error_reason="deadline",
+                              error_message="spent"),
         pkg.HostStatus(host_id=4, has_infer=True, has_generate=True,
                        queue_depth=3, queue_capacity=64, slots=8,
                        free_slots=2, kv_blocks_total=64, kv_blocks_free=10,
@@ -243,6 +262,15 @@ class TestWireSchema:
         back = T.HostStatus.from_dict(st)
         assert back.draining is False and back.sample is None
         assert back.prefix_tokens == ()
+        # a migrate request from a peer without the trace context
+        mig = next(c for c in wire_cases(T)
+                   if isinstance(c, T.KvMigrateRequest)).to_dict()
+        for drop in ("trace_id", "parent_span"):
+            del mig[drop]
+        mig["wire_version"] = 1
+        back = T.KvMigrateRequest.from_dict(mig)
+        assert back.trace_id is None and back.parent_span is None
+        assert back.first_token == 11 and back.block_size == 16
 
     def test_rejected_from_wire_maps_the_one_taxonomy(self):
         assert TERMINAL_REASONS == JAX_REASONS
@@ -331,6 +359,168 @@ class TestCrossPackage:
             routed = fd.routed_by_host.to_dict()
             assert routed.get("h0", 0) >= 2 and routed.get("h1", 0) >= 2
             assert sum(routed.values()) == 5
+        finally:
+            for s in hosts:
+                s.stop()
+
+
+# --------------------------------------------------------------------------
+# KV page migration across packages
+# --------------------------------------------------------------------------
+def page_payloads(dtype: str, seed: int = 0):
+    """The same two-layer page payload as the JAX package holds it (numpy;
+    bfloat16 through ``ml_dtypes``) and as the port does (CPU tensors)."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(seed)
+    j_layers, t_layers = [], []
+    for _ in range(2):
+        jl, tl = {}, {}
+        if dtype == "int8":
+            for k in ("k", "v"):
+                a = rng.integers(-128, 128, (2, 4, 2, 8)).astype(np.int8)
+                jl[k], tl[k] = a, torch.from_numpy(a.copy())
+            for k in ("k_scale", "v_scale"):
+                a = rng.random((2, 4, 2)).astype(np.float32)
+                jl[k], tl[k] = a, torch.from_numpy(a.copy())
+        else:
+            for k in ("k", "v"):
+                a = rng.standard_normal((2, 4, 2, 8)).astype(np.float32)
+                if dtype == "bfloat16":
+                    t = torch.from_numpy(a).to(torch.bfloat16)
+                    # the same bits on both sides
+                    jl[k] = t.view(torch.int16).numpy().view(
+                        ml_dtypes.bfloat16)
+                    tl[k] = t
+                else:
+                    jl[k], tl[k] = a, torch.from_numpy(a.copy())
+        j_layers.append(jl)
+        t_layers.append(tl)
+    return j_layers, t_layers
+
+
+def bits(x) -> bytes:
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+    return np.ascontiguousarray(x).tobytes()
+
+
+class TestPageMigration:
+    @pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+    def test_page_codec_equal_across_packages(self, dtype):
+        """``_encode_pages`` gives the same dict from the JAX package's
+        numpy leaves as from the port's tensors, and each package's
+        ``_decode_pages`` reads the other's output bit for bit."""
+        from deeplearning4j_tpu.serving import rpc as jrpc
+        from deeplearning4j_tpu_torch.serving import rpc as trpc
+
+        jp, tp = page_payloads(dtype)
+        jw, tw = jrpc._encode_pages(jp), trpc._encode_pages(tp)
+        assert tw == jw
+        assert json.dumps(tw) == json.dumps(jw)
+        names = {d["dtype"] for layer in tw for d in layer.values()}
+        assert names == ({"int8", "float32"} if dtype == "int8"
+                         else {dtype})
+        t_back = trpc._decode_pages(json.loads(json.dumps(jw)))
+        j_back = jrpc._decode_pages(json.loads(json.dumps(tw)))
+        for tl, jl, t0, j0 in zip(t_back, j_back, tp, jp):
+            assert sorted(tl) == sorted(jl) == sorted(t0)
+            for k in t0:
+                assert tl[k].dtype == t0[k].dtype
+                assert tuple(tl[k].shape) == jl[k].shape == j0[k].shape
+                assert str(jl[k].dtype) == str(j0[k].dtype)
+                assert bits(tl[k]) == bits(t0[k]) == bits(jl[k]) \
+                    == bits(j0[k])
+
+    def test_undecodable_pages_degrade(self):
+        from deeplearning4j_tpu_torch.serving import rpc as trpc
+
+        _, tp = page_payloads("float32")
+        wire = trpc._encode_pages(tp)
+        bad_dtype = json.loads(json.dumps(wire))
+        bad_dtype[0]["k"]["dtype"] = "complex64"
+        short = json.loads(json.dumps(wire))
+        short[1]["v"]["shape"] = [3, 4, 2, 8]
+        for pages in (bad_dtype, short):
+            with pytest.raises((KeyError, RuntimeError, ValueError)):
+                trpc._decode_pages(pages)
+        with pytest.raises(KeyError):
+            trpc._encode_pages([{"k": torch.zeros(2, dtype=torch.int64)}])
+
+    @pytest.mark.parametrize("sampling", [False, True])
+    def test_jax_front_door_disagg_over_port_servers(self, np_params,
+                                                     sampling):
+        """A JAX ``ClusterFrontDoor(disagg=DisaggPolicy())`` over a port
+        prefill host and a port decode host: the pages leave the port's
+        ``/rpc/v1/migrate``, come back as the JAX package decodes them,
+        and go out again to the port's decode host. The stream equals the
+        JAX single-host stream."""
+        kw = dict(temperature=0.8, seed=7) if sampling else dict(seed=0)
+        ref_eng = gen_engine(J, np_params)
+        try:
+            want = [int(t) for t in ref_eng.generate(
+                prompt(6), max_new_tokens=8, timeout=120, **kw)]
+        finally:
+            ref_eng.shutdown()
+        hosts = [Served(T, i, np_params=np_params, host_class=c)
+                 for i, c in enumerate(("prefill", "decode"))]
+        try:
+            d = J.ClusterDirectory(heartbeat_timeout_s=600.0)
+            for i, s in enumerate(hosts):
+                rem = J.RemoteHost(i, s.srv.url)
+                d.join(rem)
+                J.HeartbeatPump(rem, J.LoopbackTransport(d)).pump_once()
+            fd = J.ClusterFrontDoor(d, disagg=J.DisaggPolicy())
+            assert fd.disagg.enabled(d)
+            got = [int(t) for t in fd.submit_generate(
+                prompt(6), max_new_tokens=8, **kw).result(timeout=120)]
+            assert got == want
+            assert fd.metrics.kv_migrations_total.value == 1
+            assert fd.metrics.kv_migrate_fallbacks_total.value == 0
+            gp, gd = hosts[0].gen.metrics, hosts[1].gen.metrics
+            assert gp.kv_migrate_bytes_out.value \
+                == gd.kv_migrate_bytes_in.value == gd.kv_swap_bytes_in.value
+            assert gp.generated_tokens_total.value == 1
+            assert gd.generated_tokens_total.value == 7
+        finally:
+            for s in hosts:
+                s.stop()
+
+    @pytest.mark.parametrize("prefill,decode", [("jax", "torch"),
+                                                ("torch", "jax")])
+    def test_pages_cross_packages(self, np_params, prefill, decode):
+        """A prefill host of one package ships its pages to a decode host
+        of the other, each behind its own package's server; the front
+        door is the decode side's package. The stream equals the JAX
+        single-host stream and the decode host seats the pages."""
+        ref_eng = gen_engine(J, np_params)
+        try:
+            want = [int(t) for t in ref_eng.generate(
+                prompt(9, 4), max_new_tokens=8, timeout=120)]
+        finally:
+            ref_eng.shutdown()
+        fpkg = PKGS[decode]
+        hosts = [Served(PKGS[prefill], 0, np_params=np_params,
+                        host_class="prefill"),
+                 Served(PKGS[decode], 1, np_params=np_params,
+                        host_class="decode")]
+        try:
+            d = fpkg.ClusterDirectory(heartbeat_timeout_s=600.0)
+            for i, s in enumerate(hosts):
+                rem = fpkg.RemoteHost(i, s.srv.url)
+                d.join(rem)
+                fpkg.HeartbeatPump(rem, fpkg.LoopbackTransport(d)
+                                   ).pump_once()
+            fd = fpkg.ClusterFrontDoor(d, disagg=fpkg.DisaggPolicy())
+            got = [int(t) for t in fd.submit_generate(
+                prompt(9, 4), max_new_tokens=8).result(timeout=120)]
+            assert got == want
+            assert fd.metrics.kv_migrations_total.value == 1
+            assert fd.metrics.kv_migrate_fallbacks_total.value == 0
+            gd = hosts[1].gen.metrics
+            assert gd.kv_migrate_bytes_in.value \
+                == hosts[0].gen.metrics.kv_migrate_bytes_out.value > 0
+            assert gd.kv_swap_bytes_in.value > 0
         finally:
             for s in hosts:
                 s.stop()
