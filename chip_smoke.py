@@ -122,6 +122,20 @@ seconds:
 10. long-context train — the causal LM at B=2, T=8192, 12 layers: 1
     warm-up and 2 timed steps; the streamed forward, dq and dk/dv launch
     layers x steps each and the packed kernels never;
+    mesh — the device mesh at world size 1 with torch.distributed on
+    NCCL (a file store under ``chiprun_out/``), so the mesh route's
+    collectives run on the card: (a) the MLM step through
+    ``make_train_step(cfg, mesh)`` from the MLM phase's params and batch,
+    its losses within 1e-3 of that phase's (bit-equal or not reported),
+    the packed kernels layers x steps; (b) the T=8192 step under the mesh
+    against the long-context phase, rows 3-5 layers x steps; (c) the
+    ring's schedule in one process (``ring_flash_loop``,
+    ``zigzag_ring_flash_loop``) over 4 virtual ranks at B=2, H=12,
+    T=8192, D=64, bf16: the plain ring, the causal ring and the zigzag
+    against the streamed kernels over the whole T, forward and dq/dk/dv
+    (the backward passes fed the ring output's delta), rows 3-5 launching
+    16, 10 and 36 times, each schedule's ms beside the unsharded
+    kernels';
 11. train parity — a 2-layer fp32 copy at full widths: the kernel route
     and the einsum route give the same loss and gradients at T=512 (packed)
     and T=2048 (streamed);
@@ -322,9 +336,12 @@ BF16_ULP = 2 ** -7
 FWD_FLOOR, BWD_FLOOR = 2 ** -5, 2 ** -6
 
 
-def judge(a, b, d: int, p_bf16: bool, floor: float):
+def judge(a, b, d: int, p_bf16: bool, floor: float, terms=None):
     """(largest |a - b|, the largest share of its bound that an element
-    takes, the bound's rule); the check passes when the share is <= 1."""
+    takes, the bound's rule); the check passes when the share is <= 1.
+    ``terms``: per element the sum of |the bf16-rounded terms| that were
+    added in fp32 to make ``a``, each off by at most half an ulp, 2^-8 of
+    itself — that much more is allowed."""
     import torch
 
     err = max_err(a, b)
@@ -335,9 +352,13 @@ def judge(a, b, d: int, p_bf16: bool, floor: float):
     diff = (a - b).abs()
     allowed = BF16_ULP * b.abs() \
         + floor * b.square().mean(-1, keepdim=True).sqrt()
+    rule = f"2^-7|ref| + 2^{int(np.log2(floor))} rms(row)"
+    if terms is not None:
+        allowed = allowed + 2 ** -8 * terms.float().unflatten(-1, (-1, d))
+        rule += " + 2^-8 sum|terms|"
     share = torch.where(diff == 0, torch.zeros_like(diff),
                         diff / allowed).max().item()   # 0/0 counts as 0
-    return err, share, f"2^-7|ref| + 2^{int(np.log2(floor))} rms(row)"
+    return err, share, rule
 
 
 # ------------------------------------------------------------------ phases
@@ -1934,23 +1955,27 @@ def train_batch(cfg, B, T, seed=0):
 
 
 def train_run(cfg, B, T, warmup, timed, extra=0, label="train",
-              make_step=None):
+              make_step=None, mesh=None):
     """The port's make_train_step on ``cfg`` (seeded weights), or the
     ``(init_state, step)`` that ``make_step(cfg)`` builds, over one fixed
     batch: ``warmup`` steps, ``timed`` steps between synchronizes, then
-    ``extra`` steps; the loss of every step is kept. Every launch count is
-    set to 0 before the first step and read after the last. Returns the
-    step's metrics."""
+    ``extra`` steps; the loss of every step is kept. With ``mesh`` the
+    weights go through ``place_params`` and the step is
+    ``make_train_step(cfg, mesh)``. Every launch count is set to 0 before
+    the first step and read after the last. Returns the step's metrics."""
     import torch
 
     from deeplearning4j_tpu_torch import profiler as tprof
-    from deeplearning4j_tpu_torch.models import init_params, make_train_step
+    from deeplearning4j_tpu_torch.models import (
+        init_params, make_train_step, place_params)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=0, device=DEVICE)
+    if mesh is not None:
+        params = place_params(params, cfg, mesh)
     init_state, step = make_step(cfg) if make_step else make_train_step(
-        cfg, learning_rate=1e-4)
+        cfg, mesh, learning_rate=1e-4)
     opt_state = init_state(params)
     batch = train_batch(cfg, B, T)
     losses = []
@@ -2027,6 +2052,197 @@ def long_context_phase():
     check(la["mha_attention_packed"] == la["mha_packed_backward"] == 0,
           f"long-context: packed kernels launched: {la}")
     return st
+
+
+# the ring schedules of the mesh phase's part (c): (name, causal, the
+# pairs a schedule launches of each of rows 3-5 over n virtual ranks)
+RING_SCHEDULES = (
+    ("ring", False, lambda n: n * n),
+    ("ring causal", True, lambda n: n * (n + 1) // 2),
+    ("zigzag", True, lambda n: n * (2 * n + 1)),
+)
+
+
+def mesh_phase(mlm, longctx):
+    """The device mesh on the card, at world size 1: torch.distributed
+    initialized with NCCL (a file store under ``chiprun_out/``), so every
+    collective of the mesh route (the Megatron all-reduces, the logits'
+    all-gather, the loss's and the gradients' sums) runs through NCCL on
+    one rank. (a) bench.py's MLM step through ``make_train_step(cfg,
+    mesh=make_mesh({"data": 1, "model": 1, "context": 1}))`` from the MLM
+    phase's seeded params and batch: its 10 losses within 1e-3 relative of
+    the MLM phase's (and whether they are bit-equal), the packed kernels
+    layers x steps, the streamed ones never. (b) The long-context causal
+    LM (B=2, T=8192) under the same mesh: 1 warm-up and 2 steps, losses
+    within 1e-3 of the long-context phase's, rows 3-5 layers x steps.
+    (c) One attention layer at the long-context shape (B=2, H=12, T=8192,
+    D=64, bf16) through the ring's schedule in one process over n=4
+    virtual ranks (``ring_flash_loop``, ``zigzag_ring_flash_loop``): the
+    plain ring, the causal ring and the zigzag, forward and dq/dk/dv held
+    against the streamed kernels over the whole T (``ring_loop_part``),
+    each row's launches against n^2, n(n+1)/2 and n(2n+1), each
+    schedule's forward+backward ms beside the unsharded kernels'."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.models import TransformerConfig
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    store = os.path.abspath("chiprun_out/mesh_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1, "context": 1})
+        check(mesh.device_mesh is not None
+              and dist.get_backend(mesh.group("model")) == "nccl",
+              f"mesh: no NCCL groups on {mesh}")
+        out = {"mesh": dict(mesh.shape), "backend": dist.get_backend()}
+        # (a) bench.py's MLM step under the mesh
+        cfg = TransformerConfig(remat=False, attention_impl="flash")
+        st = train_run(cfg, 96, 512, warmup=2, timed=5, extra=3,
+                       label="mesh mlm train", mesh=mesh)
+        out["mlm"] = mesh_compare(st, mlm, "mesh mlm", cfg.layers,
+                                  ("mha_attention_packed",
+                                   "mha_packed_backward"),
+                                  ("flash_forward", "flash_bwd_dq",
+                                   "flash_bwd_dkv"))
+        # (b) the long-context causal LM under the mesh
+        cfg = TransformerConfig(causal=True, max_seq=8192, remat=False,
+                                attention_impl="flash")
+        st = train_run(cfg, 2, 8192, warmup=1, timed=2,
+                       label="mesh long-context train", mesh=mesh)
+        out["long_context"] = mesh_compare(
+            st, longctx, "mesh long-context", cfg.layers,
+            ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"),
+            ("mha_attention_packed", "mha_packed_backward"))
+    finally:
+        dist.destroy_process_group()
+    # (c) the ring's schedule in one process at full width
+    out["ring"] = kernel_checks(ring_loop_part)()
+    log("mesh: " + json.dumps(out))
+    return out
+
+
+def mesh_compare(st, base, label, layers, used, unused):
+    """The mesh run ``st`` against the meshless run ``base``: every loss
+    within 1e-3 relative (and whether all are bit-equal), the ``used``
+    kernels launched layers x steps each and the ``unused`` ones never;
+    returns the figures for the phase's line."""
+    n = layers * st["steps"]
+    la = st["launches"]
+    check(len(st["losses"]) == len(base["losses"]),
+          f"{label}: {len(st['losses'])} steps against {len(base['losses'])}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(st["losses"],
+                                                  base["losses"]))
+    check(rel <= 1e-3, f"{label}: losses {st['losses']} against the meshless "
+          f"run's {base['losses']} (largest relative difference {rel})")
+    check(all(la[k] == n for k in used),
+          f"{label}: launches {la}, expected {used} x {n}")
+    check(all(la[k] == 0 for k in unused),
+          f"{label}: {unused} launched: {la}")
+    return {"losses": st["losses"], "meshless_losses": base["losses"],
+            "largest_relative_difference": rel,
+            "bit_equal": st["losses"] == base["losses"],
+            "step_ms": st["step_ms_mean"],
+            "meshless_step_ms": base["step_ms_mean"],
+            "tokens_per_sec": st["tokens_per_sec"],
+            "meshless_tokens_per_sec": base["tokens_per_sec"],
+            "peak_memory_bytes": st["peak_memory_bytes"],
+            "launches": {k: la[k] for k in used}}
+
+
+def ring_loop_part():
+    """Part (c) of the mesh phase: the three ring schedules at the
+    long-context shape, n=4 virtual ranks, held stage by stage against
+    the whole-T kernels: the output against ``flash_forward`` over the
+    whole T; dq, dk, dv against ``flash_bwd_dq`` / ``flash_bwd_dkv`` over
+    the whole T fed that forward's lse and the delta of the ring's own
+    output (the ring takes its delta from it, and each bf16 rounding of
+    the output moves delta and with it every gradient of the row — the
+    same delta keeps the comparison to the backward passes), allowing
+    half an ulp of each bf16 pair term the ring sums. For the record,
+    each share of the attention check against ``flash_attention``'s own
+    backward too."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.parallel import sequence_parallel as sp
+
+    n, B, H, T, D = 4, 2, 12, 8192, 64
+    rng = np.random.default_rng(8192)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((B, H, T, D)),
+                                   dtype=torch.float32)
+                   .to(DEVICE, torch.bfloat16) for _ in range(4))
+    q3, k3, v3, do3 = (x.reshape(B * H, T, D) for x in (q, k, v, do))
+    rows = {}
+    whole = {}
+    for causal in (False, True):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+
+        def unsharded(xs=xs, causal=causal):
+            o = ak.flash_attention(*xs, causal)
+            return o, torch.autograd.grad(o, xs, do)
+
+        o, g = unsharded()
+        whole[causal] = (o.detach(), g, ak.flash_forward(q3, k3, v3,
+                                                         causal)[1])
+        rows[f"unsharded{' causal' if causal else ''}"] = {
+            "ms": time_ms(unsharded, iters=5, reps=3, graph=False)}
+    zz = torch.as_tensor(sp.zigzag_indices(T, n), device=DEVICE)
+    inv = torch.argsort(zz)
+    for name, causal, pairs in RING_SCHEDULES:
+        if name == "zigzag":
+            def run(magnitudes=False):
+                o, g = sp.zigzag_ring_flash_loop(
+                    *(x[:, :, zz] for x in (q, k, v)), n, do[:, :, zz],
+                    magnitudes)
+                return o[:, :, inv], tuple(x[:, :, inv] for x in g)
+        else:
+            def run(magnitudes=False, causal=causal):
+                return sp.ring_flash_loop(q, k, v, n, causal, do,
+                                          magnitudes)
+        reset_launches()
+        o, g = run()
+        torch.cuda.synchronize()
+        la = read_launches()
+        want = pairs(n)
+        got = {r: la[r] for r in ("flash_forward", "flash_bwd_dq",
+                                  "flash_bwd_dkv")}
+        check(all(c == want for c in got.values()),
+              f"ring {name}: launches {got}, expected {want} each")
+        ro, rg, lse = whole[causal]
+        delta = (do3.float() * o.reshape(B * H, T, D).float()).sum(-1)[
+            :, None, :]
+        ref = (ak.flash_bwd_dq(q3, k3, v3, do3, lse, delta, causal),
+               *ak.flash_bwd_dkv(q3, k3, v3, do3, lse, delta, causal))
+        terms = run(magnitudes=True)[1]
+        errs = {}
+        for i, (part, a, b, floor, t) in enumerate((
+                ("out", o, ro, FWD_FLOOR, None),
+                ("dq", g[0], ref[0], BWD_FLOOR, terms[0]),
+                ("dk", g[1], ref[1], BWD_FLOOR, terms[1]),
+                ("dv", g[2], ref[2], BWD_FLOOR, terms[2]))):
+            err, share, rule = judge(a, b.reshape(a.shape), D, False, floor,
+                                     t)
+            check(share <= 1, f"ring {name}: {part} off the whole-T kernel "
+                  f"by {err} ({share:.3f} of {rule})")
+            errs[part] = {"max_abs_err": err, "share_of_bound": share,
+                          "bound": rule}
+            if t is not None:
+                # for the record: the attention check alone, against
+                # flash_attention's own backward (its delta)
+                errs[part]["share_of_attention_check_own_delta"] = judge(
+                    a, rg[i - 1], D, False, floor)[1]
+        rows[name] = {"launches": got, "expected_launches": want,
+                      "checks": errs,
+                      "ms": time_ms(run, iters=5, reps=3, graph=False),
+                      "unsharded_ms": rows["unsharded causal" if causal
+                                           else "unsharded"]["ms"]}
+        log(f"mesh ring {name}: " + json.dumps(rows[name]))
+    return rows
 
 
 def train_parity_phase():
@@ -4082,6 +4298,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
     longctx = timed_phase("long-context train", long_context_phase)
+    mesh = timed_phase("mesh", mesh_phase, mlm, longctx)
     timed_phase("train parity", train_parity_phase)
     timed_phase("train profile", train_profile_phase)
     timed_phase("long-context profile", long_context_profile_phase)
@@ -4138,6 +4355,16 @@ def main() -> int:
         if name == "fused_adamw":
             kernels[-1].update(kernel_ms=main["kernel_ms"],
                                host_ms=main["host_ms"])
+        # the mesh phase: rows 1-2 under the mesh MLM step (a), rows 3-5
+        # under the mesh long-context step (b) and, per schedule, the
+        # ring's one-process loop (c)
+        for part in ("mlm", "long_context"):
+            if name in mesh[part]["launches"]:
+                kernels[-1]["launches_mesh"] = mesh[part]["launches"][name]
+        if name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
+            kernels[-1]["launches_ring_loop"] = {
+                sched: mesh["ring"][sched]["launches"][name]
+                for sched, _, _ in RING_SCHEDULES}
         if name == "mha_attention_packed":
             kernels[-1]["launches_resilience_qos"] = resil["packed_launches"]
             kernels[-1]["launches_front_door"] = front["packed_launches"]

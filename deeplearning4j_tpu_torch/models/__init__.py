@@ -1,19 +1,22 @@
 """The flagship transformer (BERT-class encoder / causal LM) in PyTorch —
 counterpart of ``deeplearning4j_tpu/models``: the forward pass, the loss
-and training step, and the paged generation functions the serving engine
-drives: the paged and contiguous caches, the speculative draft and
-verify steps."""
+and training step (on one device or a mesh of ranks), and the paged
+generation functions the serving engine drives: the paged and contiguous
+caches, the speculative draft and verify steps."""
 from deeplearning4j_tpu_torch.models.bert import (  # noqa: F401
     BERT_BASE,
     KV_DTYPES,
     TransformerConfig,
+    batch_pspec,
     compute_params,
     forward,
+    gather_params,
     grow_block_table,
     init_draft_kv_cache,
     init_kv_cache,
     init_params,
     lm_loss,
+    local_batch,
     loss_from_logits,
     make_decode_step,
     make_draft_prefill,
@@ -25,7 +28,9 @@ from deeplearning4j_tpu_torch.models.bert import (  # noqa: F401
     make_prefill,
     make_train_step,
     make_verify_step,
+    param_pspecs,
     params_from_numpy,
+    place_params,
     quantize_kv,
     sample_token,
     sample_tokens,

@@ -1,6 +1,7 @@
 """BERT-class transformer (bidirectional MLM or causal LM): its training
-step and its paged generation functions — the PyTorch counterpart of
-``deeplearning4j_tpu/models/bert.py`` without a mesh.
+step, over one device or a ``(data, model, context)`` mesh of ranks, and
+its paged generation functions — the PyTorch counterpart of
+``deeplearning4j_tpu/models/bert.py``.
 
 Parameters are a plain nested dict of fp32 tensors with the JAX package's
 names and layouts (kernel matrices ``(in, out)``, used as ``x @ W``).
@@ -12,6 +13,15 @@ Training (:func:`make_train_step`) takes gradients with ``torch.autograd``
 through the attention kernels' autograd Functions and applies AdamW with
 optax's semantics to the fp32 master params IN PLACE (the reference
 donates them to a jitted executable and returns new ones).
+
+Under a mesh (:mod:`deeplearning4j_tpu_torch.parallel.mesh`) the model
+runs per rank as explicit Megatron over local shards (the JAX package's
+shard_map bodies, with the collectives GSPMD inserts written out): every
+rank holds its :func:`place_params` shards and its (data, context) block
+of the batch (:func:`local_batch`). ``model`` splits the heads, the MLP
+hidden width and the vocabulary; ``context`` the sequence (ring or
+Ulysses attention); ``data`` the batch. Gradients sum over data and
+context.
 
 Generation keeps the JAX package's two cache layouts: the paged design
 (vLLM's block pool), whose K/V live in a shared pool of fixed-size blocks
@@ -41,6 +51,11 @@ from deeplearning4j_tpu_torch.ops.attention_kernels import (
     flash_attention, flash_envelope_ok, mha_attention_packed,
     packed_kernel_shape_ok, paged_decode_attention)
 from deeplearning4j_tpu_torch.ops.updaters import tree_leaves as _leaves
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    CONTEXT_AXIS, DATA_AXIS, MODEL_AXIS, Mesh, NamedSharding, P, copy_to,
+    gather_last, reduce_sum, tree_shardings)
+from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+    gather_sequence, ring_attention, ring_flash_attention, ulysses_attention)
 
 _log = logging.getLogger(__name__)
 _flash_fallback_warned: set = set()
@@ -133,6 +148,78 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     return params
 
 
+def param_pspecs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Megatron-style tensor-parallel PartitionSpecs over the 'model' axis,
+    the JAX package's. Column-parallel (output features split): qkv,
+    mlp_in, lm_head. Row-parallel (input features split): attn_out,
+    mlp_out, whose output is summed over the axis. The token embedding
+    splits the vocabulary; layernorms and the positions are whole. The
+    fused qkv's column split is per third: :func:`place_params` gives each
+    rank its heads of q, of k and of v."""
+    ln = {"scale": P(), "bias": P()}
+    block = {
+        "ln1": ln, "ln2": ln,
+        "qkv": {"kernel": P(None, MODEL_AXIS), "bias": P(MODEL_AXIS)},
+        "attn_out": {"kernel": P(MODEL_AXIS, None), "bias": P()},
+        "mlp_in": {"kernel": P(None, MODEL_AXIS), "bias": P(MODEL_AXIS)},
+        "mlp_out": {"kernel": P(MODEL_AXIS, None), "bias": P()},
+    }
+    return {
+        "tok_emb": P(MODEL_AXIS, None),
+        "pos_emb": P(),
+        "ln_f": ln,
+        "lm_head": P(None, MODEL_AXIS),
+        "blocks": [block for _ in range(cfg.layers)],
+    }
+
+
+def _shardings(cfg: TransformerConfig, mesh: Mesh):
+    """param_pspecs as a matching tree of NamedShardings; axes absent from
+    the mesh (a pure-DP mesh with no 'model') degrade to whole dims."""
+    return tree_shardings(mesh, param_pspecs(cfg))
+
+
+def _map_shardings(params, cfg: TransformerConfig, mesh: Mesh, fn):
+    """``fn(sharding, leaf)`` over the parameter tree and its shardings.
+    The fused qkv leaves go through their (..., 3, hidden) view with the
+    'model' split on the last dim, so a rank's block holds the same heads
+    of q, of k and of v (a plain column split of the fused matrix would
+    give rank 0 all of q and half of k)."""
+    def walk(p, s, qkv):
+        if isinstance(p, dict):
+            return {k: walk(p[k], s[k], qkv or k == "qkv") for k in p}
+        if isinstance(p, (list, tuple)):
+            return [walk(a, b, qkv) for a, b in zip(p, s)]
+        if not qkv:
+            return fn(s, p)
+        spec = P(*s.spec[:-1], None, s.spec[-1])
+        return fn(NamedSharding(mesh, spec),
+                  p.unflatten(-1, (3, -1))).flatten(-2)
+
+    return walk(params, _shardings(cfg, mesh), False)
+
+
+def place_params(params, cfg: TransformerConfig, mesh: Mesh):
+    """This rank's shards of a global parameter tree (every rank passes
+    the same tree), per :func:`param_pspecs`, as new tensors. Raises when
+    the 'model' axis does not divide the heads, the MLP width or the
+    vocabulary."""
+    tp = mesh.axis_size(MODEL_AXIS)
+    for n, what in ((cfg.heads, "heads"), (cfg.mlp_dim, "mlp_dim"),
+                    (cfg.vocab_size, "vocab_size")):
+        if n % tp:
+            raise ValueError(f"{what}={n} does not split over "
+                             f"{MODEL_AXIS}={tp}")
+    return _map_shardings(params, cfg, mesh,
+                          lambda s, x: s.shard(x).clone())
+
+
+def gather_params(params, cfg: TransformerConfig, mesh: Mesh):
+    """The global parameter tree from every rank's :func:`place_params`
+    shards (a collective: every rank of the mesh calls it)."""
+    return _map_shardings(params, cfg, mesh, lambda s, x: s.gather(x))
+
+
 def params_from_numpy(tree, device=None):
     """The JAX package's params (as numpy arrays, same nesting and names)
     as the port's tensor tree on ``device``."""
@@ -181,130 +268,272 @@ def _dense(x, p):
 
 
 def _full_attention(q, k, v, causal: bool,
-                    softmax_dtype: torch.dtype = torch.float32):
-    # q, k, v: (B, H, T, D)
+                    softmax_dtype: torch.dtype = torch.float32,
+                    q_offset: int = 0):
+    # q: (B, H, Tq, D), k, v: (B, H, Tk, D); query i sits at position
+    # q_offset + i of the keys (a context rank's block of the sequence)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if causal:
-        T = q.shape[2]
-        mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        Tq, Tk = q.shape[2], k.shape[2]
+        mask = torch.ones(Tq, Tk, dtype=torch.bool,
+                          device=q.device).tril(q_offset)
         s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
     p = torch.softmax(s.to(softmax_dtype), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
-def _use_packed_kernel(cfg: TransformerConfig, T: int) -> bool:
+def _axes(mesh: Optional[Mesh]):
+    """(data, model, context) sizes; all 1 without a mesh."""
+    if mesh is None:
+        return 1, 1, 1
+    return (mesh.axis_size(DATA_AXIS), mesh.axis_size(MODEL_AXIS),
+            mesh.axis_size(CONTEXT_AXIS))
+
+
+def _packed_mesh_spec(cfg: TransformerConfig, mesh: Mesh, B: int):
+    """(PartitionSpec, local head count) of the packed kernel run per rank
+    under ``mesh`` — batch on 'data', heads on 'model', no collective —
+    or None where the kernel cannot run that way: the sequence is split
+    over 'context', or the global batch ``B`` or the heads do not divide
+    their axes (then the einsum or ring routes serve)."""
+    if mesh.axis_size(CONTEXT_AXIS) > 1:
+        return None   # the sequence is split: ring / Ulysses own that
+    dp, tp = mesh.axis_size(DATA_AXIS), mesh.axis_size(MODEL_AXIS)
+    if B % dp or cfg.heads % tp:
+        return None
+    spec = P(DATA_AXIS if DATA_AXIS in mesh.shape else None, None,
+             MODEL_AXIS if MODEL_AXIS in mesh.shape else None)
+    return spec, cfg.heads // tp
+
+
+def _use_packed_kernel(cfg: TransformerConfig, mesh: Optional[Mesh],
+                       B: int, T: int) -> bool:
     """True when attention routes to the packed-layout kernel: the
     (B, T, H*D) projections feed it directly, so no head transpose is
-    made. Same envelope as the reference (no mesh in the port)."""
-    return cfg.attention_impl == "flash" and packed_kernel_shape_ok(T)
+    made. ``B`` and ``T`` are global. Same envelope as the JAX package:
+    ``attention_impl="flash"``, :func:`packed_kernel_shape_ok`, and under
+    a mesh :func:`_packed_mesh_spec` (per rank on its heads)."""
+    if cfg.attention_impl != "flash" or not packed_kernel_shape_ok(T):
+        return False
+    return mesh is None or _packed_mesh_spec(cfg, mesh, B) is not None
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
-    """(B, H, T, D) attention as the reference's ``_attention`` routes it
-    with no mesh: ``"flash"`` takes the streamed kernels where
-    :func:`flash_envelope_ok` holds and the einsum path (with a one-time
-    warning) where it does not; every other impl is the einsum path."""
-    if cfg.attention_impl == "flash":
+def _attention(q, k, v, cfg: TransformerConfig,
+               mesh: Optional[Mesh] = None):
+    """(B, H, T, D) attention of this rank's shards (local batch and
+    heads; under a 'context' split, T is the rank's block), routed as the
+    JAX package's ``_attention``:
+
+    - ``"flash"`` with the sequence whole: the streamed kernels where
+      :func:`flash_envelope_ok` holds, else the einsum path with a
+      one-time warning;
+    - ``"full"``, or any impl with the sequence whole: the einsum path
+      (under a 'context' split on K/V gathered over the axis, the rank's
+      queries at their global positions);
+    - a 'context' split: ``"ulysses"`` takes :func:`ulysses_attention`;
+      ``"ring"`` and ``"flash"`` take :func:`ring_flash_attention` where
+      the block's length is inside the kernel envelope, else the einsum
+      :func:`ring_attention`."""
+    impl = cfg.attention_impl
+    cp = _axes(mesh)[2]
+    if impl == "flash" and cp == 1:
         T = q.shape[2]
         if flash_envelope_ok(T):
             return flash_attention(q, k, v, cfg.causal)
         _warn_flash_fallback(
-            f"streamed kernel unavailable for T={T} under mesh None")
-    return _full_attention(q, k, v, cfg.causal, cfg.softmax_dtype)
+            f"streamed kernel unavailable for T={T} under mesh "
+            f"{dict(mesh.shape) if mesh is not None else None}")
+    if cp == 1:
+        return _full_attention(q, k, v, cfg.causal, cfg.softmax_dtype)
+    group = mesh.group(CONTEXT_AXIS)
+    if impl == "full":
+        return _full_attention(
+            q, gather_sequence(k, group), gather_sequence(v, group),
+            cfg.causal, cfg.softmax_dtype,
+            q_offset=mesh.axis_index(CONTEXT_AXIS) * q.shape[2])
+    if impl == "ulysses":
+        return ulysses_attention(q, k, v, group, cfg.causal)
+    fn = ring_flash_attention if flash_envelope_ok(q.shape[2]) \
+        else ring_attention
+    return fn(q, k, v, group, cfg.causal)
 
 
-def _block(params, x, cfg: TransformerConfig, return_kv: bool = False):
-    B, T, H = x.shape
-    h = _layernorm(x, params["ln1"])
+def _row_dense(x, p, mesh: Optional[Mesh]):
+    """:func:`_dense` of a row-parallel layer: the rank's partial product
+    summed over 'model', then the bias, added once."""
+    if mesh is None:
+        return _dense(x, p)
+    return reduce_sum(x @ p["kernel"].to(x.dtype), [mesh.group(MODEL_AXIS)]) \
+        + p["bias"].to(x.dtype)
+
+
+def _to_model(x, mesh: Optional[Mesh]):
+    """The input of a column-parallel layer: whole on every 'model' rank,
+    its gradient summed over them."""
+    return x if mesh is None else copy_to(x, mesh.group(MODEL_AXIS))
+
+
+def _block(params, x, cfg: TransformerConfig, mesh: Optional[Mesh] = None,
+           return_kv: bool = False):
+    B, T, _ = x.shape
+    dp, tp, cp = _axes(mesh)
+    heads = cfg.heads // tp
+    width = heads * cfg.head_dim
+    h = _to_model(_layernorm(x, params["ln1"]), mesh)
     qkv = _dense(h, params["qkv"])
-    q, k, v = qkv.split(H, dim=-1)
+    q, k, v = qkv.split(width, dim=-1)
     if return_kv:
         # (B, T, heads, head_dim) — the KV-cache layout, a free view of
         # the head-contiguous packed projection
-        kv_out = (k.reshape(B, T, cfg.heads, cfg.head_dim),
-                  v.reshape(B, T, cfg.heads, cfg.head_dim))
-    if _use_packed_kernel(cfg, T):
+        kv_out = (k.reshape(B, T, heads, cfg.head_dim),
+                  v.reshape(B, T, heads, cfg.head_dim))
+    if _use_packed_kernel(cfg, mesh, B * dp, T * cp):
         o = mha_attention_packed(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), cfg.heads, cfg.causal, None,
+                                 v.contiguous(), heads, cfg.causal, None,
                                  cfg.softmax_dtype)
     else:
-        def heads(t):  # (B, T, H) -> (B, heads, T, D)
-            return t.reshape(B, T, cfg.heads, cfg.head_dim).transpose(1, 2)
-        o = _attention(heads(q), heads(k), heads(v), cfg)
-        o = o.transpose(1, 2).reshape(B, T, H)
-    x = x + _dense(o, params["attn_out"])
-    h = _layernorm(x, params["ln2"])
+        def split(t):  # (B, T, width) -> (B, heads, T, D)
+            return t.reshape(B, T, heads, cfg.head_dim).transpose(1, 2)
+        o = _attention(split(q), split(k), split(v), cfg, mesh)
+        o = o.transpose(1, 2).reshape(B, T, width)
+    x = x + _row_dense(o, params["attn_out"], mesh)
+    h = _to_model(_layernorm(x, params["ln2"]), mesh)
     h = F.gelu(_dense(h, params["mlp_in"]), approximate="tanh")
-    x = x + _dense(h, params["mlp_out"])
+    x = x + _row_dense(h, params["mlp_out"], mesh)
     if return_kv:
         return x, kv_out[0], kv_out[1]
     return x
 
 
-def _embed(params, token_ids, positions, cfg: TransformerConfig):
-    return params["tok_emb"][token_ids].to(cfg.dtype) \
-        + params["pos_emb"][positions].to(cfg.dtype)
+def _embed(params, token_ids, positions, cfg: TransformerConfig,
+           mesh: Optional[Mesh] = None):
+    """Token plus position embeddings in the compute dtype. Under a mesh
+    the token table is this rank's block of the vocabulary: ids outside
+    it give zero rows, and the rows sum over 'model' (in fp32)."""
+    emb = params["tok_emb"]
+    if mesh is None:
+        tok = emb[token_ids]
+    else:
+        V = emb.shape[0]
+        local = token_ids - mesh.axis_index(MODEL_AXIS) * V
+        inside = (local >= 0) & (local < V)
+        tok = reduce_sum(emb[local.clamp(0, V - 1)] * inside[..., None],
+                         [mesh.group(MODEL_AXIS)])
+    return tok.to(cfg.dtype) + params["pos_emb"][positions].to(cfg.dtype)
 
 
-def encode(params, token_ids, cfg: TransformerConfig):
+def encode(params, token_ids, cfg: TransformerConfig,
+           mesh: Optional[Mesh] = None):
     """Embeddings + transformer stack + final layernorm (no lm_head). With
     ``cfg.remat`` and autograd recording, each block runs under
     ``torch.utils.checkpoint``: its activations are recomputed in the
     backward (the reference's ``jax.checkpoint``; its policy changes
     memory, not results), so each block's attention forward launches
-    twice per training step."""
+    twice per training step (and under a mesh its collectives run again
+    on every rank alike).
+
+    Under ``mesh`` this runs per rank: ``token_ids`` is the rank's
+    (data, context) block (:func:`local_batch`), ``params`` its
+    :func:`place_params` shards, and the positions those of the block,
+    ``[c * T_local, (c + 1) * T_local)`` on context rank c."""
     _, T = token_ids.shape
+    offset = 0 if mesh is None else mesh.axis_index(CONTEXT_AXIS) * T
     x = _embed(params, token_ids,
-               torch.arange(T, device=token_ids.device)[None], cfg)
+               (torch.arange(T, device=token_ids.device) + offset)[None],
+               cfg, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     for bp in params["blocks"]:
         if remat:
-            x = torch.utils.checkpoint.checkpoint(_block, bp, x, cfg,
+            x = torch.utils.checkpoint.checkpoint(_block, bp, x, cfg, mesh,
                                                   use_reentrant=False)
         else:
-            x = _block(bp, x, cfg)
+            x = _block(bp, x, cfg, mesh)
     return _layernorm(x, params["ln_f"])
 
 
-def _forward_raw(params, token_ids, cfg: TransformerConfig):
+def _forward_raw(params, token_ids, cfg: TransformerConfig,
+                 mesh: Optional[Mesh] = None):
     """Logits in the COMPUTE dtype: the loss upcasts them, as the
-    reference's loss path does."""
-    x = encode(params, token_ids, cfg)
-    return x @ params["lm_head"].to(x.dtype)
+    reference's loss path does. Under ``mesh``, per rank (as
+    :func:`encode`): the vocabulary-split ``lm_head`` products are
+    gathered over 'model', so every model rank holds the block's whole
+    logits (the loss then runs unchanged; a vocabulary-parallel
+    logsumexp would save that (B, T, vocab) memory)."""
+    x = _to_model(encode(params, token_ids, cfg, mesh), mesh)
+    logits = x @ params["lm_head"].to(x.dtype)
+    return logits if mesh is None else gather_last(
+        logits, mesh.group(MODEL_AXIS))
 
 
 @torch.no_grad()
-def forward(params, token_ids, cfg: TransformerConfig):
-    """token_ids (B, T) integer -> logits (B, T, vocab) fp32."""
-    return _forward_raw(params, token_ids.long(), cfg).float()
+def forward(params, token_ids, cfg: TransformerConfig,
+            mesh: Optional[Mesh] = None):
+    """token_ids (B, T) integer -> logits (B, T, vocab) fp32; under
+    ``mesh`` per rank, on its block (see :func:`encode`)."""
+    return _forward_raw(params, token_ids.long(), cfg, mesh).float()
 
 
-def loss_from_logits(logits, batch):
+def loss_from_logits(logits, batch, mesh: Optional[Mesh] = None):
     """Weighted LM cross-entropy from compute-dtype logits, as
-    logsumexp(logits) - logits[target] with fp32 accumulation."""
+    logsumexp(logits) - logits[target] with fp32 accumulation. Under
+    ``mesh`` the weighted sum and the weight sum each add over 'data'
+    and 'context': every rank returns the global weighted mean, whose
+    gradient on a rank is its block's share."""
     lse = torch.logsumexp(logits.float(), dim=-1)
     tgt = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
     w = batch["weights"]
-    return ((lse - tgt.float()) * w).sum() / w.sum().clamp_min(1.0)
+    num = ((lse - tgt.float()) * w).sum()
+    den = w.sum()
+    if mesh is not None:
+        groups = [mesh.group(DATA_AXIS), mesh.group(CONTEXT_AXIS)]
+        num = reduce_sum(num, groups)
+        den = reduce_sum(den.detach(), groups)
+    return num / den.clamp_min(1.0)
 
 
-def lm_loss(params, batch, cfg: TransformerConfig):
+def lm_loss(params, batch, cfg: TransformerConfig,
+            mesh: Optional[Mesh] = None):
     """Masked/causal LM cross-entropy. batch = {'tokens': (B, T) int,
     'targets': (B, T) int, 'weights': (B, T) float} — weights zero out
-    unmasked positions (MLM) or padding."""
+    unmasked positions (MLM) or padding. Under ``mesh`` per rank: the
+    rank's shards and batch block; the loss is the global mean."""
     return loss_from_logits(
-        _forward_raw(params, batch["tokens"].long(), cfg), batch)
+        _forward_raw(params, batch["tokens"].long(), cfg, mesh), batch,
+        mesh)
 
 
-def make_infer_last_logits(cfg: TransformerConfig):
+def batch_pspec(mesh: Mesh) -> P:
+    """Tokens (B, T): batch over 'data', sequence over 'context'."""
+    return P(DATA_AXIS if DATA_AXIS in mesh.shape else None,
+             CONTEXT_AXIS if CONTEXT_AXIS in mesh.shape else None)
+
+
+def local_batch(mesh: Mesh, batch):
+    """This rank's (data, context) block of each (B, T) array of a global
+    batch, per :func:`batch_pspec` (every rank passes the same batch)."""
+    sh = NamedSharding(mesh, batch_pspec(mesh))
+    return {k: sh.shard(v) for k, v in batch.items()}
+
+
+def make_infer_last_logits(cfg: TransformerConfig,
+                           mesh: Optional[Mesh] = None):
     """Token ids (B, T) -> last-position logits (B, vocab) fp32, without
     autograd (the reference returns a jitted function; the port runs
-    eagerly)."""
+    eagerly). Under ``mesh`` every rank passes the same global tokens and
+    ``place_params`` shards, and gets the whole (B, vocab): the last
+    context rank's rows, gathered over 'data'."""
 
     @torch.no_grad()
     def last_logits(params, tokens):
-        return forward(params, tokens, cfg)[:, -1, :]
+        if mesh is None:
+            return forward(params, tokens, cfg)[:, -1, :]
+        out = forward(params, local_batch(mesh, {"t": tokens})["t"], cfg,
+                      mesh)[:, -1, :]
+        if mesh.axis_index(CONTEXT_AXIS) != mesh.axis_size(CONTEXT_AXIS) - 1:
+            out = torch.zeros_like(out)
+        out = reduce_sum(out, [mesh.group(CONTEXT_AXIS)])
+        return NamedSharding(mesh, P(DATA_AXIS)).gather(out)
 
     return last_logits
 
@@ -333,10 +562,30 @@ def _batch_on(batch, device):
             for k, v in batch.items()}
 
 
-def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-4,
-                    weight_decay: float = 0.01):
+def _sum_grads(grads, mesh: Mesh):
+    """Every leaf's gradient summed over 'data' and 'context', in one
+    flat buffer (one all-reduce per axis). Leaves split over 'model' hold
+    their block's whole gradient already; whole leaves hold the same
+    gradient on every model rank (the column-parallel inputs' gradients
+    were summed in the backward)."""
+    groups = [g for g in (mesh.group(DATA_AXIS), mesh.group(CONTEXT_AXIS))
+              if g is not None]
+    if not groups:
+        return grads
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    for group in groups:
+        torch.distributed.all_reduce(flat, group=group)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return out
+
+
+def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
+                    learning_rate: float = 1e-4, weight_decay: float = 0.01):
     """Build ``(init_state, step)``; ``step(params, opt_state, batch) ->
-    (params, opt_state, loss)``, the reference's single-device step.
+    (params, opt_state, loss)``, the reference's step.
 
     Gradients of :func:`lm_loss` come from ``torch.autograd`` (compute in
     ``cfg.dtype`` over the fp32 master params). AdamW follows
@@ -346,7 +595,14 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-4,
     bias corrections ``1 - b ** count`` divide the moments; the decoupled
     decay ``wd * p`` is added to the update of EVERY leaf (optax's mask
     is None), then the update is scaled by ``-lr``. Params and state are
-    updated IN PLACE and returned (the reference donates them)."""
+    updated IN PLACE and returned (the reference donates them).
+
+    Under ``mesh`` every rank of the mesh calls ``step`` with its
+    :func:`place_params` shards and state, and with the same GLOBAL batch
+    (as the reference's jitted step takes it): each rank takes its
+    (data, context) block, the loss is the global weighted mean, each
+    gradient is summed over data and context (:func:`_sum_grads`), and
+    AdamW runs on the local shards. ``init_state`` takes the shards too."""
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def init_state(params):
@@ -358,8 +614,13 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-4,
     def step(params, opt_state, batch):
         leaves = _leaves(params)
         tree, xs = grad_aliases(params)
-        loss = lm_loss(tree, _batch_on(batch, leaves[0].device), cfg)
+        batch = _batch_on(batch, leaves[0].device)
+        if mesh is not None:
+            batch = local_batch(mesh, batch)
+        loss = lm_loss(tree, batch, cfg, mesh)
         grads = torch.autograd.grad(loss, xs)
+        if mesh is not None:
+            grads = _sum_grads(grads, mesh)
         count = opt_state["count"] + 1
         bc1 = 1 - b1 ** count
         bc2 = 1 - b2 ** count

@@ -108,8 +108,8 @@ class InferenceEngine(ResilientEngineMixin):
         if mesh is not None:
             raise ValueError(
                 "InferenceEngine(mesh=...) is not supported by the port yet: "
-                "the device mesh and its batch sharding "
-                "(parallel/mesh.py) are not ported — serve on one device")
+                "the sharded serving engines are not ported (the mesh in "
+                "parallel/mesh.py serves training) — serve on one device")
         self.adapter = model if isinstance(model, ModelAdapter) \
             else as_adapter(model)
         self.mesh = None

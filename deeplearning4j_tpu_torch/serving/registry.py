@@ -81,8 +81,8 @@ class CausalLMAdapter(ModelAdapter):
         if mesh is not None:
             raise ValueError(
                 "CausalLMAdapter(mesh=...) is not supported by the port "
-                "yet: the device mesh (parallel/mesh.py) is not ported — "
-                "serve on one device")
+                "yet: the sharded serving engines are not ported (the mesh "
+                "in parallel/mesh.py serves training) — serve on one device")
         self.params = params
         self.cfg = cfg
         self.mesh = None
@@ -169,15 +169,6 @@ class Deployment:
         return f"{self.name}:{self.version}"
 
 
-def _cluster_host_id() -> int:
-    """This process's host id in a cluster directory: its rank when a
-    ``torch.distributed`` process group exists, else 0."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return int(dist.get_rank())
-    return 0
-
-
 class ModelRegistry:
     """deploy/undeploy/alias with per-name monotone versions.
 
@@ -248,14 +239,16 @@ class ModelRegistry:
     def _cluster_host(self):
         """This process's LoopbackHost in the cluster directory, minted
         and joined on the first engine when ``cluster=`` was given; its id
-        is the process's ``torch.distributed`` rank, else 0."""
+        is the process's index in the job (``multihost.process_index``:
+        its ``torch.distributed`` rank, else 0), as in the reference."""
+        from deeplearning4j_tpu_torch.parallel import multihost
         from deeplearning4j_tpu_torch.serving.cluster import LoopbackHost
 
         created = False
         with self._lock:
             if self._local_host is None:
                 self._local_host = LoopbackHost(
-                    _cluster_host_id(), tracer=self._tracer)
+                    multihost.process_index(), tracer=self._tracer)
                 created = True
             host = self._local_host
         if created:

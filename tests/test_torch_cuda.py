@@ -50,11 +50,17 @@ def _bound(ref, rel):
 FWD_FLOOR, BWD_FLOOR = 2 ** -5, 2 ** -6
 
 
-def _within(a, b, d, floor):
+def _within(a, b, d, floor, terms=None):
+    """The rule above; ``terms`` (per element the sum of |the bf16-rounded
+    terms| added in fp32 to make ``a``) allows half an ulp, 2^-8, of each
+    term more."""
     a = a.float().unflatten(-1, (-1, d))
     b = b.float().unflatten(-1, (-1, d))
     rms = b.square().mean(-1, keepdim=True).sqrt()
-    return bool(((a - b).abs() <= 2 ** -7 * b.abs() + floor * rms).all())
+    allowed = 2 ** -7 * b.abs() + floor * rms
+    if terms is not None:
+        allowed = allowed + 2 ** -8 * terms.float().unflatten(-1, (-1, d))
+    return bool(((a - b).abs() <= allowed).all())
 
 
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
@@ -1245,3 +1251,66 @@ def test_front_door_stream_over_rpc_equals_the_engine(card):
             srv.stop()
     finally:
         reg.shutdown()
+
+
+# ------------------------- the ring's schedule in one process (rows 3-5)
+
+from deeplearning4j_tpu_torch.parallel import (  # noqa: E402
+    sequence_parallel as sp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,pairs", [
+    ("ring", lambda n: n * n), ("ring causal", lambda n: n * (n + 1) // 2),
+    ("zigzag", lambda n: n * (2 * n + 1))])
+def test_ring_loop_matches_flash_attention(card, kind, pairs, dtype):
+    """The kernel ring of ``ring_flash_attention`` (plain or causal) and
+    the zigzag, run over 4 virtual ranks in one process (per pair the
+    streamed kernels, lse and delta in the global frame), against the
+    streamed kernels over the whole T: B=2, H=2, T=512, D=64 (blocks of
+    128; zigzag halves of 64). Each of rows 3, 4 and 5 launches n^2,
+    n(n+1)/2 or n(2n+1) times. The output is held against the whole-T
+    forward; dq, dk, dv against the whole-T backward passes fed that
+    forward's lse and the delta of the ring's own output (each rounding
+    of the output moves delta, and with it every gradient of the row).
+    In bf16 each gradient is a sum of pair terms that leave their kernels
+    rounded to bf16: half an ulp of each more is allowed
+    (``magnitudes=True`` sums |terms|)."""
+    n, t = 4, 512
+    rng = np.random.default_rng(len(kind))
+    q, k, v, do = (_tensor(rng, (2, 2, t, 64), dtype, card)
+                   for _ in range(4))
+    causal = kind != "ring"
+    counts = (ak.flash_forward.launches, ak.flash_bwd_dq.launches,
+              ak.flash_bwd_dkv.launches)
+
+    def run(magnitudes=False):
+        if kind != "zigzag":
+            return sp.ring_flash_loop(q, k, v, n, causal, do, magnitudes)
+        zz = torch.as_tensor(sp.zigzag_indices(t, n), device=card)
+        inv = torch.argsort(zz)
+        o, g = sp.zigzag_ring_flash_loop(q[:, :, zz], k[:, :, zz],
+                                         v[:, :, zz], n, do[:, :, zz],
+                                         magnitudes)
+        return o[:, :, inv], [x[:, :, inv] for x in g]
+
+    o, g = run()
+    torch.cuda.synchronize()
+    assert (ak.flash_forward.launches, ak.flash_bwd_dq.launches,
+            ak.flash_bwd_dkv.launches) == tuple(c + pairs(n) for c in counts)
+    terms = run(magnitudes=True)[1]
+    q3, k3, v3, do3, o3 = (x.reshape(4, t, 64) for x in (q, k, v, do, o))
+    ro, lse = ak.flash_forward(q3, k3, v3, causal)
+    delta = (do3.float() * o3.float()).sum(-1)[:, None, :]
+    rg = (ak.flash_bwd_dq(q3, k3, v3, do3, lse, delta, causal),
+          *ak.flash_bwd_dkv(q3, k3, v3, do3, lse, delta, causal))
+    ro, rg = ro.reshape(o.shape), [x.reshape(o.shape) for x in rg]
+    if dtype == torch.float32:
+        # fp32 both ways; the merges reassociate the softmax sums
+        torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
+        for a, b in zip(g, rg):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    else:
+        assert _within(o, ro, 64, FWD_FLOOR)
+        for a, b, m in zip(g, rg, terms):
+            assert _within(a, b, 64, BWD_FLOOR, m)

@@ -1,0 +1,553 @@
+"""One rank of the port's distributed CPU tests (gloo, a ``file://``
+store), and the helpers the test files use to start a world of them.
+
+Run as ``python tests/torch_dist_worker.py SUITE RANK WORLD STORE OUT``:
+the rank joins through ``multihost.initialize`` (the ``multihost`` suite
+through its environment variables), runs every case of ``SUITE`` in
+order — each rank the same cases, so the collectives line up — and rank
+0 pickles ``{case: result}`` to ``OUT/SUITE.pkl``; each rank logs its
+cases and any traceback to ``OUT/SUITE.rankR.log``. A case returns numpy
+arrays and plain values (None on ranks outside the case's mesh).
+
+This module imports torch and the port, never ``jax``: the test files
+import it for the seeded inputs and compute the JAX package's side
+themselves.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+import torch.distributed as dist  # noqa: E402
+
+from deeplearning4j_tpu_torch.models import bert as tbert  # noqa: E402
+from deeplearning4j_tpu_torch.ops.attention_kernels import (  # noqa: E402
+    higher_order_attention)
+from deeplearning4j_tpu_torch.parallel import (  # noqa: E402
+    multihost, sequence_parallel as sp)
+from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: E402
+    P, NamedSharding, make_mesh, shard_batch, tree_shardings)
+
+# ---------------------------------------------------------------- inputs
+
+
+def attn_inputs(seed, shape, scale=1.0, n=3):
+    """``n`` float32 arrays of ``shape`` drawn from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * scale).astype(np.float32)
+            for _ in range(n)]
+
+
+# tests/test_models.py's TINY, and the configurations of the mesh cases
+TINY = dict(vocab_size=64, hidden=32, layers=2, heads=4, mlp_dim=64,
+            max_seq=32, remat=False)
+GOLDEN = dict(vocab_size=128, hidden=32, layers=2, heads=4, mlp_dim=64,
+              max_seq=32, remat=False)
+GOLDEN_STEPS, GOLDEN_B, GOLDEN_T = 50, 4, 32
+LR = 1e-3
+
+# (case id, mesh shape, attention_impl, causal)
+TRAIN_CASES = [
+    ("data2-full", {"data": 2}, "full", False),
+    ("model2-full", {"model": 2}, "full", False),
+    ("context2-ring-causal", {"context": 2}, "ring", True),
+    ("context2-ulysses", {"context": 2}, "ulysses", False),
+    ("context2-full-causal", {"context": 2}, "full", True),
+    ("model2-context2-ring", {"model": 2, "context": 2}, "ring", False),
+    ("data2-model2-flash", {"data": 2, "model": 2}, "flash", True),
+    ("data2-context2-flash", {"data": 2, "context": 2}, "flash", True),
+]
+
+
+def np_params(cfg: dict, seed: int):
+    """A parameter tree in the JAX package's names and shapes, every leaf
+    (biases and layernorms too) drawn from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    H, M, V = cfg["hidden"], cfg["mlp_dim"], cfg["vocab_size"]
+
+    def w(*shape, scale=0.02, base=0.0):
+        return (base + rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ln():
+        return {"scale": w(H, scale=0.1, base=1.0), "bias": w(H)}
+
+    return {"tok_emb": w(V, H), "pos_emb": w(cfg["max_seq"], H),
+            "ln_f": ln(), "lm_head": w(H, V),
+            "blocks": [{"ln1": ln(), "qkv": {"kernel": w(H, 3 * H),
+                                             "bias": w(3 * H)},
+                        "attn_out": {"kernel": w(H, H), "bias": w(H)},
+                        "ln2": ln(), "mlp_in": {"kernel": w(H, M),
+                                                "bias": w(M)},
+                        "mlp_out": {"kernel": w(M, H), "bias": w(H)}}
+                       for _ in range(cfg["layers"])]}
+
+
+def np_batch(vocab: int, B: int, T: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, vocab, (B, T)).astype(np.int32),
+            "targets": rng.integers(0, vocab, (B, T)).astype(np.int32),
+            # a masked-LM-like weight pattern: some positions count 0
+            "weights": (rng.random((B, T)) > 0.3).astype(np.float32)}
+
+
+def golden_batches():
+    """tests/test_sharded_goldens.py's copy task: 50 (tokens, targets)."""
+    rng = np.random.default_rng(123)
+    out = []
+    for _ in range(GOLDEN_STEPS):
+        tokens = rng.integers(0, 128, (GOLDEN_B, GOLDEN_T)).astype(np.int32)
+        out.append((tokens, tokens.copy()))
+    return out
+
+
+def _t(*xs, grad=False):
+    out = [torch.from_numpy(np.array(x, copy=True)) for x in xs]
+    if grad:
+        out = [x.requires_grad_() for x in out]
+    return out
+
+
+def _np(*xs):
+    return [x.detach().numpy() for x in xs]
+
+
+def _flat_leaves(tree):
+    return [x.detach().numpy() for x in tbert._leaves(tree)]
+
+
+def _like(tree, leaves):
+    """``tree``'s structure holding ``leaves`` (in ``_leaves`` order)."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [rebuild(x) for x in t]
+        return next(it)
+
+    return rebuild(tree)
+
+
+# ------------------------------------------------------- suite: parallel
+
+FWD_CASES = [(impl, causal, n) for impl in ("ring", "ring_flash", "ulysses")
+             for causal in (False, True) for n in (2, 4)]
+GRAD_CASES = [("ring_flash", causal, n) for causal in (False, True)
+              for n in (2, 4)] + [("zigzag", True, n) for n in (2, 4)]
+
+
+def fwd_case(impl, causal, n):
+    mesh = make_mesh({"context": n})
+    if not mesh.contains_rank():
+        return None
+    q, k, v = _t(*attn_inputs(0, (2, 8, 32, 16)))
+    out = sp.ring_self_attention(mesh, q, k, v, causal=causal, impl=impl)
+    return {"out": out.numpy()}
+
+
+def grad_case(impl, causal, n):
+    mesh = make_mesh({"context": n})
+    if not mesh.contains_rank():
+        return None
+    q, k, v = _t(*attn_inputs(7, (2, 3, 64, 8), 0.3), grad=True)
+    if impl == "zigzag":
+        out = sp.zigzag_ring_self_attention(mesh, q, k, v)
+    else:
+        out = sp.ring_self_attention(mesh, q, k, v, causal=causal,
+                                     impl=impl)
+    grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+    return dict(zip(("out", "dq", "dk", "dv"), _np(out, *grads)))
+
+
+def ulysses_kernel_case(causal):
+    """Ulysses' local attention through the kernel route (its plain
+    version on the CPU) and through the einsum path, forward and grads."""
+    mesh = make_mesh({"context": 4})
+    group = mesh.group("context")
+    res = {}
+    for use_kernel in (True, False):
+        q, k, v = _t(*attn_inputs(9, (1, 4, 32, 8), 0.3), grad=True)
+        out = sp._ring_self(q, k, v, group, lambda a, b, c: (
+            sp.ulysses_attention(a, b, c, group, causal, use_kernel)))
+        grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+        res[use_kernel] = _np(out, *grads)
+    return res
+
+
+def off_envelope_case():
+    mesh = make_mesh({"context": 2})
+    if not mesh.contains_rank():
+        return None
+    group = mesh.group("context")
+    q, = _t(*attn_inputs(2, (1, 2, 36, 8), n=1))
+    ql = sp._own_block(q, group)
+    try:
+        sp.ulysses_attention(ql, ql, ql, group, False, True)
+    except ValueError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+def _double_grad(loss_fn):
+    s = torch.tensor(1.0, requires_grad=True)
+    g, = torch.autograd.grad(loss_fn(s), s, create_graph=True)
+    h, = torch.autograd.grad(g, s)
+    return float(h)
+
+
+def higher_order_case(kind):
+    mesh = make_mesh({"context": 2})
+    if not mesh.contains_rank():
+        return None
+    if kind == "ring_flash":
+        q, = _t(*attn_inputs(5, (1, 2, 16, 8), 0.3, n=1))
+
+        def loss(s):
+            return (sp.ring_self_attention(mesh, q * s, q, q, causal=True,
+                                           impl="ring_flash") ** 2).sum()
+    else:
+        q, = _t(*attn_inputs(22, (1, 2, 16, 8), 0.3, n=1))
+
+        def loss(s):
+            return (sp.zigzag_ring_self_attention(mesh, q * s, q, q)
+                    ** 2).sum()
+    with higher_order_attention():
+        h = _double_grad(loss)
+    res = {"h": h}
+    if kind == "ring_flash":
+        try:
+            _double_grad(loss)
+            res["outside"] = None
+        except RuntimeError as e:
+            res["outside"] = str(e)
+    return res
+
+
+def loop_case(kind, causal):
+    """The distributed ring (4 ranks) against :func:`ring_flash_loop` /
+    :func:`zigzag_ring_flash_loop` over 4 virtual ranks, forward and
+    grads, bit for bit."""
+    mesh = make_mesh({"context": 4})
+    group = mesh.group("context")
+    q, k, v, do = _t(*attn_inputs(31, (2, 3, 64, 8), 0.5, n=4))
+    ql, kl, vl = (sp._own_block(x, group).requires_grad_()
+                  for x in (q, k, v))
+    if kind == "zigzag":
+        out = sp.zigzag_ring_flash_attention(ql, kl, vl, group)
+    else:
+        out = sp.ring_flash_attention(ql, kl, vl, group, causal)
+    grads = torch.autograd.grad(out, (ql, kl, vl), sp._own_block(do, group))
+    dist_all = [sp._all_gather_seq(x.detach(), group)
+                for x in (out, *grads)]
+    if dist.get_rank() != 0:
+        return None
+    if kind == "zigzag":
+        lo, lg = sp.zigzag_ring_flash_loop(q, k, v, 4, do)
+    else:
+        lo, lg = sp.ring_flash_loop(q, k, v, 4, causal, do)
+    return {"equal": [bool(torch.equal(a, b))
+                      for a, b in zip(dist_all, (lo, *lg))],
+            "max_diff": max(float((a - b).abs().max())
+                            for a, b in zip(dist_all, (lo, *lg)))}
+
+
+def mesh_case():
+    world = dist.get_world_size()
+    m = make_mesh({"data": 2, "model": 2})
+    res = {"shape": dict(m.shape), "axis_names": m.axis_names,
+           "default": dict(make_mesh().shape), "world": world}
+    try:
+        make_mesh({"data": 2 * world})
+        res["too_big"] = None
+    except ValueError as e:
+        res["too_big"] = str(e)
+    cut = make_mesh({"data": 2})
+    flags = [None] * world
+    dist.all_gather_object(flags, cut.contains_rank())
+    res["cut_devices"] = cut.devices.tolist()
+    res["cut_contains"] = flags
+    coords = [None] * world
+    dist.all_gather_object(coords, (m.axis_index("data"),
+                                    m.axis_index("model")))
+    res["coords"] = coords
+    return res
+
+
+def placement_case():
+    mesh = make_mesh({"data": 2, "model": 2})
+    x = torch.arange(16 * 6, dtype=torch.float32).reshape(16, 6)
+    rows = shard_batch(mesh, {"x": x})["x"]
+    sh = tree_shardings(mesh, {"w": P("model", "context"), "b": P()})
+    w = sh["w"].shard(x)
+    blocks = [None] * dist.get_world_size()
+    dist.all_gather_object(blocks, (rows.numpy(), w.numpy()))
+    odd = torch.arange(6 * 5, dtype=torch.float32).reshape(6, 5)
+    odd_sh = NamedSharding(mesh, P("data", None))
+    return {"spec": tuple(sh["w"].spec), "whole": tuple(sh["b"].spec),
+            "blocks": blocks,
+            "round_trip": bool(torch.equal(sh["w"].gather(w), x)),
+            "odd_round_trip": bool(torch.equal(
+                odd_sh.gather(odd_sh.shard(odd)), odd)),
+            "batch_round_trip": bool(torch.equal(NamedSharding(
+                mesh, P("data", None)).gather(rows), x))}
+
+
+def parallel_suite():
+    cases = [(f"fwd-{i}-{c}-{n}", (lambda i=i, c=c, n=n: fwd_case(i, c, n)))
+             for i, c, n in FWD_CASES]
+    cases += [(f"grad-{i}-{c}-{n}", (lambda i=i, c=c, n=n:
+                                     grad_case(i, c, n)))
+              for i, c, n in GRAD_CASES]
+    cases += [(f"ulysses-kernel-{c}", (lambda c=c: ulysses_kernel_case(c)))
+              for c in (False, True)]
+    cases += [("off-envelope", off_envelope_case)]
+    cases += [(f"higher-order-{k}", (lambda k=k: higher_order_case(k)))
+              for k in ("ring_flash", "zigzag")]
+    cases += [(f"loop-{k}-{c}", (lambda k=k, c=c: loop_case(k, c)))
+              for k, c in (("ring", False), ("ring", True),
+                           ("zigzag", True))]
+    cases += [("mesh", mesh_case), ("placement", placement_case)]
+    return cases
+
+
+# ------------------------------------------------------ suite: multihost
+
+
+def multihost_suite():
+    def info():
+        row = {"process_index": multihost.process_index(),
+               "global": multihost.global_device_count(),
+               "local": multihost.local_device_count(),
+               "coordinator": multihost.is_coordinator(),
+               "barrier": multihost.barrier("test")}
+        rows = [None] * dist.get_world_size()
+        dist.all_gather_object(rows, row)
+        return rows
+    return [("info", info)]
+
+
+# ------------------------------------------------------ suite: mesh train
+
+
+def _tcfg(cfg, impl, causal):
+    return tbert.TransformerConfig(dtype=torch.float32, attention_impl=impl,
+                                   causal=causal, **cfg)
+
+
+def _tree(np_tree):
+    return tbert.params_from_numpy(np_tree, device="cpu")
+
+
+def train_case(shape, impl, causal):
+    """Loss and gradients of ``lm_loss`` on the mesh (gathered whole),
+    then one ``make_train_step(mesh=)`` step: its loss and the params."""
+    mesh = make_mesh(shape)
+    if not mesh.contains_rank():
+        return None
+    cfg = _tcfg(TINY, impl, causal)
+    params = np_params(TINY, 0)
+    batch = {k: torch.from_numpy(v)
+             for k, v in np_batch(TINY["vocab_size"], 4, 16, 1).items()}
+    placed = tbert.place_params(_tree(params), cfg, mesh)
+    tree, xs = tbert.grad_aliases(placed)
+    loss = tbert.lm_loss(tree, tbert.local_batch(mesh, batch), cfg, mesh)
+    grads = tbert._sum_grads(torch.autograd.grad(loss, xs), mesh)
+    whole_grads = _flat_leaves(tbert.gather_params(_like(placed, grads), cfg,
+                                                   mesh))
+    init, step = tbert.make_train_step(cfg, mesh, learning_rate=LR)
+    state = init(placed)
+    placed, state, step_loss = step(placed, state, batch)
+    whole = _flat_leaves(tbert.gather_params(placed, cfg, mesh))
+    return {"loss": float(loss.detach()), "grads": whole_grads,
+            "step_loss": float(step_loss), "params": whole}
+
+
+def infer_case():
+    """``make_infer_last_logits(cfg, mesh)`` on a (data, context) mesh and
+    per-rank ``forward`` blocks against the meshless forward."""
+    mesh = make_mesh({"data": 2, "model": 2, "context": 2})
+    cfg = _tcfg(TINY, "ring", True)
+    params = _tree(np_params(TINY, 3))
+    tokens = torch.from_numpy(np_batch(TINY["vocab_size"], 4, 16,
+                                       4)["tokens"])
+    placed = tbert.place_params(params, cfg, mesh)
+    last = tbert.make_infer_last_logits(cfg, mesh)(placed, tokens)
+    block = tbert.forward(placed, tbert.local_batch(
+        mesh, {"t": tokens})["t"], cfg, mesh)
+    return {"last": last.numpy(), "block": block.numpy(),
+            "coord": (mesh.axis_index("data"), mesh.axis_index("context"))}
+
+
+def refusal_case():
+    """_packed_mesh_spec / _use_packed_kernel on the reference test's
+    meshes (tests/test_models.py)."""
+    cfg = _tcfg(TINY, "flash", False)
+    res = {"dc": tbert._packed_mesh_spec(
+               cfg, make_mesh({"data": 2, "context": 2}), 4),
+           "m8": tbert._packed_mesh_spec(cfg, make_mesh({"model": 8}), 8),
+           "d8": tbert._packed_mesh_spec(cfg, make_mesh({"data": 8}), 4)}
+    dm = make_mesh({"data": 2, "model": 2})
+    spec, heads = tbert._packed_mesh_spec(cfg, dm, 4)
+    res.update(dm_spec=tuple(spec), dm_heads=heads,
+               use_dm=tbert._use_packed_kernel(cfg, dm, 4, 16),
+               use_d8=tbert._use_packed_kernel(cfg, make_mesh({"data": 8}),
+                                               4, 16),
+               use_dmc1=tbert._use_packed_kernel(
+                   cfg, make_mesh({"data": 4, "model": 2, "context": 1}),
+                   4, 16))
+    return res
+
+
+def golden_case():
+    """tests/test_sharded_goldens.py's 2x2x2 ring trajectory: 50 steps."""
+    mesh = make_mesh({"data": 2, "model": 2, "context": 2})
+    cfg = _tcfg(GOLDEN, "ring", False)
+    params = tbert.place_params(_tree(np_params(GOLDEN, 0)), cfg, mesh)
+    init, step = tbert.make_train_step(cfg, mesh, learning_rate=LR)
+    state = init(params)
+    losses = []
+    weights = torch.ones((GOLDEN_B, GOLDEN_T), dtype=torch.float32)
+    for tokens, targets in golden_batches():
+        params, state, loss = step(params, state, {
+            "tokens": torch.from_numpy(tokens),
+            "targets": torch.from_numpy(targets), "weights": weights})
+        losses.append(float(loss))
+    flat = np.concatenate([x.ravel() for x in _flat_leaves(
+        tbert.gather_params(params, cfg, mesh))])
+    return {"losses": np.asarray(losses), "params": flat}
+
+
+def train_suite():
+    cases = [(f"train-{cid}", (lambda s=s, i=i, c=c: train_case(s, i, c)))
+             for cid, s, i, c in TRAIN_CASES]
+    cases += [("infer", infer_case), ("refusal", refusal_case),
+              ("golden", golden_case)]
+    return cases
+
+
+SUITES = {"parallel": parallel_suite, "multihost": multihost_suite,
+          "train": train_suite}
+
+
+# ---------------------------------------------------------------- worker
+
+
+def main(argv) -> int:
+    suite, rank, world, store, out = argv[1], int(argv[2]), int(argv[3]), \
+        argv[4], argv[5]
+    torch.set_num_threads(1)
+    if suite == "multihost":
+        os.environ.update(COORDINATOR_ADDRESS=f"file://{store}",
+                          NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
+        joined = multihost.initialize(device="cpu")
+    else:
+        joined = multihost.initialize(f"file://{store}", world, rank,
+                                      device="cpu")
+    results = {"_joined": joined}
+    with open(os.path.join(out, f"{suite}.rank{rank}.log"), "w") as log:
+        for name, fn in SUITES[suite]():
+            t0 = time.perf_counter()
+            try:
+                res = fn()
+            except Exception:   # recorded; the test reports it
+                res = {"error": traceback.format_exc()}
+                log.write(res["error"])
+            log.write(f"{name}: {time.perf_counter() - t0:.2f} s\n")
+            log.flush()
+            results[name] = res
+    results["_jax_imported"] = sorted(m for m in sys.modules
+                                      if m == "jax" or m.startswith("jax."))
+    if rank == 0:
+        tmp = os.path.join(out, f"{suite}.pkl.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(results, f)
+        os.replace(tmp, os.path.join(out, f"{suite}.pkl"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+# ----------------------------------------------------- the tests' launcher
+
+
+class World:
+    """``world`` worker processes of ``suite`` started at once; each keeps
+    one CPU thread. :meth:`results` waits for them (every wait bounded
+    by ``timeout`` seconds from the start; on expiry every process is
+    killed and the call raises) and returns rank 0's results."""
+
+    def __init__(self, suite: str, world: int, tmpdir, timeout: float):
+        self.suite, self.dir = suite, str(tmpdir)
+        self.deadline = time.monotonic() + timeout
+        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+        store = os.path.join(self.dir, f"{suite}.store")
+        self.procs = []
+        for r in range(world):
+            with open(os.path.join(self.dir, f"{suite}.rank{r}.err"),
+                      "w") as err:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), suite,
+                     str(r), str(world), store, self.dir], cwd=REPO,
+                    env=env, stdout=subprocess.DEVNULL, stderr=err))
+        self._results = None
+
+    def _logs(self) -> str:
+        out = []
+        for r in range(len(self.procs)):
+            for ext in ("log", "err"):
+                path = os.path.join(self.dir, f"{self.suite}.rank{r}.{ext}")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        text = f.read()[-3000:]
+                    if text.strip():
+                        out.append(f"--- rank {r} {ext}\n{text}")
+        return "\n".join(out)
+
+    def results(self) -> dict:
+        if self._results is not None:
+            return self._results
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(0.1, self.deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            self.close()
+            raise RuntimeError(f"{self.suite} world timed out\n"
+                               + self._logs())
+        codes = [p.returncode for p in self.procs]
+        path = os.path.join(self.dir, f"{self.suite}.pkl")
+        if any(codes) or not os.path.exists(path):
+            raise RuntimeError(f"{self.suite} world exited {codes}\n"
+                               + self._logs())
+        with open(path, "rb") as f:
+            self._results = pickle.load(f)
+        return self._results
+
+    def case(self, name: str):
+        res = self.results()[name]
+        if isinstance(res, dict) and "error" in res:
+            raise AssertionError(f"case {name} failed in the worker:\n"
+                                 + res["error"])
+        return res
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs:
+            p.wait(timeout=30)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
