@@ -113,6 +113,21 @@ seconds:
    watermark equal to host 0's engine seated at its resume points) and
    with one host drained
    mid-replay (nothing shed); the shutdown law and the ledger at zero;
+   disagg — disaggregated prefill/decode with KV page migration
+   (:func:`disagg_phase`);
+   mesh serving — the sharded serving engines (:func:`mesh_serving_phase`):
+   (a) the engine phase's model, mix and both pools through
+   ``GenerationEngine(mesh=)`` at world size 1 on NCCL, every stream
+   token-equal to the engine phase's, rows 1 and 6 layers x prefills and
+   layers x steps, one plan a prefill and a step, decode tokens/s, TTFT
+   p50 and the plans' broadcast ms beside the engine phase's; (b) one
+   prefill of four prompts and one decode step through the per-rank step
+   bodies over 2 and 4 virtual 'model' ranks in one process (6 and 3
+   heads of 64 a rank), rows 1 and 6 on the rank's heads, bf16 and int8
+   pools, logits against the unsharded step within twice its own
+   distance from fp32, fp32 tokens equal; (c) the front door's part a
+   through ``InferenceEngine(mesh=)`` and ``CausalLMAdapter(mesh=)``,
+   every bucket batch bit-equal to a direct call;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -160,6 +175,7 @@ last ``{"ok": true, "device": {...}}``. Run from the repository root:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1198,19 +1214,27 @@ def chat_mix(vocab: int, n_requests: int = 32, max_len: int = 512):
     return out
 
 
-def engine_phase(cfg, params, prompts, device="cuda", max_new=64):
+def engine_phase(cfg, params, prompts, device="cuda", max_new=64,
+                 mesh=None, label="engine", pools=("float32", "int8")):
+    """The mix through the fused route on each of ``pools`` (under
+    ``mesh`` the sharded engine, whose plans' broadcast time is reported
+    too; a follower rank of the mesh only follows, and returns no run)."""
     from deeplearning4j_tpu_torch.ops import attention_kernels as ak
     from deeplearning4j_tpu_torch.serving import (
         GenerationEngine, ServingMetrics)
 
     results = {}
-    for kv in ("float32", "int8"):
-        with GenerationEngine(params, cfg, slots=16, max_len=cfg.max_seq,
+    for kv in pools:
+        with GenerationEngine(params, cfg, mesh=mesh, slots=16,
+                              max_len=cfg.max_seq,
                               paged_attention="fused", kv_dtype=kv,
                               queue_capacity=len(prompts) + 16,
                               device=device) as eng:
+            if not eng.is_driver:
+                continue   # leaving the block waits for the driver's end
             eng.warmup()
             eng.metrics = ServingMetrics()   # the engine is idle here
+            plans0 = eng.plan_stats()
             ak.mha_attention_packed.launches = 0
             ak.paged_decode_attention.launches = 0
             first = {}
@@ -1230,19 +1254,21 @@ def engine_phase(cfg, params, prompts, device="cuda", max_new=64):
             packed_n = ak.mha_attention_packed.launches
             paged_n = ak.paged_decode_attention.launches
             m = eng.metrics
+            plans1 = eng.plan_stats()
         check(all(len(o) == max_new for o in outs),
-              f"engine {kv}: a stream returned fewer than {max_new} tokens")
+              f"{label} {kv}: a stream returned fewer than {max_new} tokens")
         check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
-              f"engine {kv}: token id out of range")
+              f"{label} {kv}: token id out of range")
         prefills = int(m.prefills_total.value)
         steps = int(m.decode_steps_total.value)
         check(prefills == len(prompts),
-              f"engine {kv}: {prefills} prefills for {len(prompts)} prompts")
+              f"{label} {kv}: {prefills} prefills for {len(prompts)} "
+              "prompts")
         check(packed_n == cfg.layers * prefills,
-              f"engine {kv}: packed kernel launched {packed_n} times, "
+              f"{label} {kv}: packed kernel launched {packed_n} times, "
               f"expected layers x prefills = {cfg.layers * prefills}")
         check(paged_n == cfg.layers * steps,
-              f"engine {kv}: paged kernel launched {paged_n} times, "
+              f"{label} {kv}: paged kernel launched {paged_n} times, "
               f"expected layers x decode steps = {cfg.layers * steps}")
         ttft = float(np.median([first[i] for i in first]))
         stats = dict(decode_tokens_per_sec=m.decode_tokens_per_sec(),
@@ -1255,7 +1281,19 @@ def engine_phase(cfg, params, prompts, device="cuda", max_new=64):
                      kv_pool_bytes=eng.num_blocks * eng.kv_block_bytes,
                      prefills=prefills, decode_steps=steps,
                      packed_launches=packed_n, paged_launches=paged_n)
-        log(f"engine kv_dtype={kv}: " + json.dumps(stats))
+        if plans1 is not None:
+            # the run's plans: one a prefill and a decode step (and none
+            # else: no swap, draft or restart on this path)
+            n = plans1["plans"] - plans0["plans"]
+            ms = plans1["plan_ms"] - plans0["plan_ms"]
+            check(n == prefills + steps,
+                  f"{label} {kv}: {n} plans for {prefills} prefills and "
+                  f"{steps} decode steps")
+            stats.update(plans=n, plan_ms_total=ms,
+                         plan_ms_per_step=ms / n,
+                         plan_share_of_decode_step=ms / n
+                         / m.decode_step_ms.mean)
+        log(f"{label} kv_dtype={kv}: " + json.dumps(stats))
         results[kv] = dict(stats, streams=outs)
     return results
 
@@ -2082,19 +2120,12 @@ def mesh_phase(mlm, longctx):
     against the streamed kernels over the whole T (``ring_loop_part``),
     each row's launches against n^2, n(n+1)/2 and n(2n+1), each
     schedule's forward+backward ms beside the unsharded kernels'."""
-    import torch
     import torch.distributed as dist
 
     from deeplearning4j_tpu_torch.models import TransformerConfig
     from deeplearning4j_tpu_torch.parallel import make_mesh
 
-    os.makedirs("chiprun_out", exist_ok=True)
-    store = os.path.abspath("chiprun_out/mesh_store")
-    if os.path.exists(store):
-        os.remove(store)
-    dist.init_process_group("nccl", init_method=f"file://{store}",
-                            world_size=1, rank=0)
-    try:
+    with nccl_world():
         mesh = make_mesh({"data": 1, "model": 1, "context": 1})
         check(mesh.device_mesh is not None
               and dist.get_backend(mesh.group("model")) == "nccl",
@@ -2118,12 +2149,35 @@ def mesh_phase(mlm, longctx):
             st, longctx, "mesh long-context", cfg.layers,
             ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"),
             ("mha_attention_packed", "mha_packed_backward"))
-    finally:
-        dist.destroy_process_group()
     # (c) the ring's schedule in one process at full width
     out["ring"] = kernel_checks(ring_loop_part)()
     log("mesh: " + json.dumps(out))
     return out
+
+
+_WORLDS = iter(range(1 << 30))
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """torch.distributed at world size 1 on NCCL, with a file store under
+    ``chiprun_out/``: NCCL seats one rank on a card, so a mesh's
+    collectives run through it on this one. The group is destroyed on
+    exit. Each world has a store file of its own (a file store made
+    again at a path an earlier world of the process used leaves a gloo
+    group's rendezvous waiting)."""
+    import torch.distributed as dist
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    store = os.path.abspath(f"chiprun_out/mesh_store.{next(_WORLDS)}")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def mesh_compare(st, base, label, layers, used, unused):
@@ -3287,11 +3341,14 @@ def front_door_phase(cfg, params, prompts, plain_streams, engine_tok_s,
     return stats
 
 
-def inference_engine_part(reg, cfg, params, device):
-    """Part a of :func:`front_door_phase`; returns (stats, engine)."""
+def inference_engine_part(reg, cfg, params, device, mesh=None,
+                          label="inference engine"):
+    """Part a of :func:`front_door_phase` (and, with ``mesh``, part c of
+    :func:`mesh_serving_phase`); returns (stats, engine)."""
     import torch
 
-    from deeplearning4j_tpu_torch.models.bert import make_infer_last_logits
+    from deeplearning4j_tpu_torch.models.bert import (
+        make_infer_last_logits, place_params)
     from deeplearning4j_tpu_torch.serving import CausalLMAdapter
 
     class Recording(CausalLMAdapter):
@@ -3313,10 +3370,10 @@ def inference_engine_part(reg, cfg, params, device):
     T, buckets, n_clients = 128, (1, 2, 4, 8, 16, 32), 64
     rng = np.random.default_rng(1)
     example = rng.integers(0, cfg.vocab_size, T).astype(np.int32)
-    adapter = Recording(params, cfg, device=device)
+    adapter = Recording(params, cfg, mesh, device=device)
     t0 = time.perf_counter()
     reg.deploy("bert", adapter, buckets=buckets, warmup_example=example)
-    eng = reg.engine("bert", name="bert-infer")
+    eng = reg.engine("bert", name="bert-infer", mesh=mesh)
     warm_s = time.perf_counter() - t0
     reqs = [rng.integers(0, cfg.vocab_size,
                          (int(rng.integers(1, 5)), T)).astype(np.int32)
@@ -3343,29 +3400,30 @@ def inference_engine_part(reg, cfg, params, device):
     n = read_launches()
     adapter.on = False
     check(all(o is not None for o in outs),
-          "inference engine: a client got no output")
+          f"{label}: a client got no output")
     check(all(o.shape == (r.shape[0], cfg.vocab_size) and np.isfinite(o).all()
               for o, r in zip(outs, reqs)),
-          "inference engine: output of the wrong shape or not finite")
+          f"{label}: output of the wrong shape or not finite")
     calls = adapter.calls
     check(n["mha_attention_packed"] == cfg.layers * len(calls),
-          f"inference engine: packed kernel launched "
+          f"{label}: packed kernel launched "
           f"{n['mha_attention_packed']} times for {len(calls)} dispatches "
           f"of {cfg.layers} layers")
     check(n["paged_decode_attention"] == 0,
-          "inference engine: the paged kernel launched")
+          f"{label}: the paged kernel launched")
     check(eng.compiled_signatures() <= len(buckets),
-          f"inference engine: {eng.compiled_signatures()} batch shapes "
+          f"{label}: {eng.compiled_signatures()} batch shapes "
           f"for {len(buckets)} buckets")
     # each dispatched batch against a direct call on the same padded batch
-    fwd = make_infer_last_logits(cfg)
+    fwd = make_infer_last_logits(cfg, mesh)
+    mine = params if mesh is None else place_params(params, cfg, mesh)
     row_out = {}
     for x, y in calls:
-        check(x.shape[0] in buckets, f"inference engine: batch of "
+        check(x.shape[0] in buckets, f"{label}: batch of "
               f"{x.shape[0]} rows is no bucket")
-        direct = fwd(params, torch.from_numpy(x).to(device)).cpu().numpy()
+        direct = fwd(mine, torch.from_numpy(x).to(device)).cpu().numpy()
         check(np.array_equal(direct, y),
-              f"inference engine: bucket batch of {x.shape[0]} differs from "
+              f"{label}: bucket batch of {x.shape[0]} differs from "
               f"the direct call (max {np.abs(direct - y).max()})")
         for j in range(x.shape[0]):
             row_out.setdefault(x[j].tobytes(), y[j])
@@ -3373,13 +3431,13 @@ def inference_engine_part(reg, cfg, params, device):
     for r, o in zip(reqs, outs):
         want = np.stack([row_out[row.tobytes()] for row in r])
         check(np.array_equal(o, want),
-              "inference engine: a request's rows are not its batch's rows")
-        own = fwd(params, torch.from_numpy(r).to(device)).cpu().numpy()
+              f"{label}: a request's rows are not its batch's rows")
+        own = fwd(mine, torch.from_numpy(r).to(device)).cpu().numpy()
         scale = np.abs(own).max(axis=1, keepdims=True)
         err = np.abs(o - own) / scale
         rel = max(rel, float(err.max()))
         check(err.max() <= 2.0 ** -5,
-              f"inference engine: unpadded rows differ by {err.max()} of "
+              f"{label}: unpadded rows differ by {err.max()} of "
               "the row's largest logit (limit 2^-5)")
     rows = sum(r.shape[0] for r in reqs)
     stats = {"ie_warmup_s": warm_s, "ie_requests": n_clients,
@@ -3392,11 +3450,211 @@ def inference_engine_part(reg, cfg, params, device):
              "ie_compiled_signatures": eng.compiled_signatures(),
              "ie_unpadded_max_rel_err": rel,
              "ie_packed_launches": n["mha_attention_packed"]}
-    log("inference engine: " + json.dumps(stats))
+    log(f"{label}: " + json.dumps(stats))
     return stats, eng
 
 
 # ---- the front door phase's hosts: one process each ----------------------
+def mesh_serving_phase(cfg, params, prompts, engine):
+    """The sharded serving engines at full width. (a) and (c) run at
+    world size 1 on NCCL (:func:`nccl_world`): every device operation's
+    plan goes through the plans' channel; the steps' sums and gathers
+    over a 'model' group of one rank are x itself, so they run no
+    collective (``models/bert.py`` ``_drive``):
+
+    a. The engine phase's model, mix and both pools through
+       ``GenerationEngine(mesh=make_mesh({"data": 1, "model": 1}))`` on
+       the fused route: every stream token-equal to the engine phase's,
+       rows 1 and 6 layers x prefills and layers x decode steps, one plan
+       a prefill and a decode step; decode tokens/s and TTFT p50 beside
+       the engine phase's, and the plans' broadcast ms a step.
+    b. :func:`virtual_ranks_part`: the sharded step bodies over 2 and 4
+       virtual 'model' ranks in one process.
+    c. ``InferenceEngine(mesh=)`` through a registry deployment of
+       ``CausalLMAdapter(params, cfg, mesh)`` (the front door phase's
+       part a on the mesh): every bucket batch bit-equal to a direct
+       ``make_infer_last_logits(cfg, mesh)`` call."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.serving import (
+        ModelRegistry, check_shutdown)
+
+    out = {}
+    with nccl_world():
+        mesh = make_mesh({"data": 1, "model": 1})
+        check(mesh.device_mesh is not None
+              and dist.get_backend(mesh.group("model")) == "nccl",
+              f"mesh serving: no NCCL groups on {mesh}")
+        runs = engine_phase(cfg, params, prompts, mesh=mesh,
+                            label="mesh serving")
+        out["engine"] = {}
+        for kv, run in runs.items():
+            base = engine[kv]
+            off = sum(a != b for a, b in zip(run["streams"],
+                                             base["streams"]))
+            check(off == 0, f"mesh serving {kv}: {off} of "
+                  f"{len(base['streams'])} streams differ from the engine "
+                  "phase's")
+            out["engine"][kv] = {
+                k: v for k, v in run.items() if k != "streams"}
+            out["engine"][kv].update(
+                meshless_decode_tokens_per_sec=base["decode_tokens_per_sec"],
+                meshless_ttft_ms_p50=base["ttft_ms_p50"],
+                meshless_decode_step_ms_mean=base["decode_step_ms_mean"])
+        reg = ModelRegistry()
+        try:
+            ie, eng = inference_engine_part(reg, cfg, params, "cuda",
+                                            mesh=mesh,
+                                            label="mesh inference engine")
+        finally:
+            reg.shutdown()
+        bad = check_shutdown(eng)
+        check(not bad, f"mesh inference engine: shutdown law: {bad}")
+        out["inference_engine"] = ie
+    out["virtual"] = kernel_checks(virtual_ranks_part)(cfg, params, prompts)
+    log(f"mesh serving ({CARD}): " + json.dumps(out))
+    return out
+
+
+# virtual 'model' ranks of the mesh serving phase's one-process loop
+VIRTUAL_RANKS = (2, 4)
+
+
+def sharded_steps(cfg, params, prompts, kv, ranks, device="cuda"):
+    """Four prompts prefilled into slots 0-3 of a 16-slot paged pool
+    (16-token blocks, ``kv`` storage), then one fused decode step over
+    all 16 slots, through the sharded step bodies of ``ranks`` virtual
+    'model' ranks in one process (:func:`drive_ranks`: each rank's body
+    on its ``place_params`` shards and its heads of the pool, the partial
+    sums added in rank order), or unsharded for ``ranks`` 0. Returns the
+    prefills' sampled tokens, the decode step's logits (S, vocab), its
+    ms (median of 5, host included), the pool's heads a rank and the
+    kernels' launches of the prefills and the first decode step (the
+    counts are set to 0 first)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import bert as tbert
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+    from deeplearning4j_tpu_torch.serving import prefill_buckets
+
+    S, B = 16, 16
+    meshes = [None] if not ranks else [
+        Mesh(np.arange(ranks), ("model",), rank=r) for r in range(ranks)]
+    ps = [tbert.compute_params(params if m is None else tbert.place_params(
+        params, cfg, m), cfg, device) for m in meshes]
+    caches = [tbert.init_kv_cache(cfg, S, cfg.max_seq, block_size=B,
+                                  kv_dtype=kv, device=device, mesh=m)
+              for m in meshes]
+    prefill = [tbert.make_paged_prefill(cfg, B, m, kv_dtype=kv)
+               for m in meshes]
+    decode = [tbert.make_paged_decode_logits(cfg, B, m, kv_dtype=kv,
+                                             paged_attention="fused")
+              for m in meshes]
+
+    def run(steps, *args):
+        if len(steps) == 1:
+            return steps[0](ps[0], caches[0], *args)
+        with torch.no_grad():
+            return tbert.drive_ranks([f.body(p, c, *args) for f, p, c in
+                                      zip(steps, ps, caches)])[0]
+
+    buckets = prefill_buckets(cfg.max_seq)
+    reset_launches()
+    tables = np.zeros((S, cfg.max_seq // B), np.int32)
+    lengths = np.zeros(S, np.int64)
+    tokens = np.zeros(S, np.int64)
+    nxt, tok0 = 1, []
+    for i, p in enumerate(prompts[:4]):
+        n = len(p)
+        bucket = next(b for b in buckets if b >= n)
+        mine = list(range(nxt, nxt + -(-(n + 1) // B)))
+        nxt += len(mine)
+        tables[i, :len(mine)] = mine
+        row = np.zeros(-(-bucket // B), np.int32)
+        row[:-(-n // B)] = mine[:-(-n // B)]
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = p
+        _, t = run(prefill, padded, row, n, np.array([0, i], np.uint32),
+                   0.0, 0, 0)
+        tok0.append(int(t))
+        tokens[i], lengths[i] = tok0[-1], n
+    zero = np.zeros(S, np.int64)
+    logits = run(decode, tables, lengths, tokens, zero, zero)
+    launches = read_launches()
+    times = []
+    for _ in range(5):   # the step rewrites the same K/V: it repeats
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(decode, tables, lengths, tokens, zero, zero)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return tok0, logits.float(), float(np.median(times)), \
+        caches[0]["layers"][0]["k"].shape[2], launches
+
+
+def virtual_ranks_part(cfg, params, prompts):
+    """Part b of :func:`mesh_serving_phase`: :func:`sharded_steps` over
+    2 and 4 virtual ranks (6 and 3 heads of 64 a rank) against the
+    unsharded step, on bf16 and int8 pools, then in fp32.
+
+    - bf16: the decode logits within twice the unsharded bf16 step's own
+      largest distance from its fp32 evaluation (the same weights and
+      pool storage, fp32 compute): a sharded step rounds each rank's
+      partial of a row-parallel product to bf16 before the sum, then the
+      sum, so each such layer takes one more bf16 rounding than the
+      unsharded step's fp32-accumulated product — the error budget of a
+      bf16 evaluation, twice;
+    - fp32 (fp32 pool): the prefills' tokens and the decode step's greedy
+      tokens of the four live slots equal the unsharded step's, and the
+      logits within 2^-13 of the largest |logit| (the sums reassociate);
+    - every sharded run: row 1 launches ranks x layers x 4 prefills and
+      row 6 ranks x layers (one decode step), on pools of heads / ranks
+      heads."""
+    import torch
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    out = {}
+    for kv in ("float32", "int8"):
+        _, base, base_ms, _, _ = sharded_steps(cfg, params, prompts, kv, 0)
+        _, ref32, _, _, _ = sharded_steps(cfg32, params, prompts, kv, 0)
+        own = 2 * float((base - ref32).abs().max())
+        for n in VIRTUAL_RANKS:
+            _, got, ms, heads, la = sharded_steps(cfg, params, prompts, kv,
+                                                  n)
+            case = f"bf16 {kv} pool, {n} ranks"
+            check(heads == cfg.heads // n,
+                  f"{case}: a rank's pool holds {heads} heads")
+            check(la["mha_attention_packed"] == n * cfg.layers * 4
+                  and la["paged_decode_attention"] == n * cfg.layers,
+                  f"{case}: launches {la}")
+            err = float((got - base).abs().max())
+            check(err <= own, f"{case}: logits {err} from the unsharded "
+                  f"step, beyond twice its own distance from fp32 ({own})")
+            out[case] = {"max_abs_err": err, "bound": own, "ms": ms,
+                         "unsharded_ms": base_ms, "heads_a_rank": heads,
+                         "launches": {k: la[k] for k in (
+                             "mha_attention_packed",
+                             "paged_decode_attention")}}
+    tok32, ref32, ms32, _, _ = sharded_steps(cfg32, params, prompts,
+                                             "float32", 0)
+    lim = 2.0 ** -13 * float(ref32.abs().max())
+    for n in VIRTUAL_RANKS:
+        tok, got, ms, _, _ = sharded_steps(cfg32, params, prompts,
+                                           "float32", n)
+        case = f"fp32, {n} ranks"
+        err = float((got - ref32).abs().max())
+        check(tok == tok32, f"{case}: prefill tokens {tok} against {tok32}")
+        check(torch.equal(got[:4].argmax(-1), ref32[:4].argmax(-1)),
+              f"{case}: greedy decode tokens differ")
+        check(err <= lim, f"{case}: logits {err} from the unsharded step "
+              f"(limit {lim})")
+        out[case] = {"max_abs_err": err, "bound": lim, "tokens_equal": True,
+                     "ms": ms, "unsharded_ms": ms32}
+    log("mesh serving virtual ranks: " + json.dumps(out))
+    return out
+
+
 def _cfg_json(cfg) -> str:
     d = dataclasses.asdict(cfg)
     for k, v in d.items():
@@ -4294,6 +4552,8 @@ def main() -> int:
                         engine["float32"]["decode_tokens_per_sec"])
     dis = timed_phase("disagg", disagg_phase, cfg, params, prompts, engine,
                       front)
+    mserve = timed_phase("mesh serving", mesh_serving_phase, cfg, params,
+                         prompts, engine)
     del params
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
@@ -4373,12 +4633,16 @@ def main() -> int:
             # the prefill host's, over HTTP (disagg b)
             kernels[-1]["launches_disagg"] = \
                 dis["rpc"]["hosts"][0]["packed_launches"]
+            kernels[-1]["launches_mesh_serving"] = \
+                mserve["engine"]["float32"]["packed_launches"]
         if name == "paged_decode_attention":
             kernels[-1]["launches_resilience_qos"] = resil["paged_launches"]
             kernels[-1]["launches_front_door"] = front["paged_launches"]
             # the decode host's, over HTTP (disagg b)
             kernels[-1]["launches_disagg"] = \
                 dis["rpc"]["hosts"][1]["paged_launches"]
+            kernels[-1]["launches_mesh_serving"] = \
+                mserve["engine"]["float32"]["paged_launches"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

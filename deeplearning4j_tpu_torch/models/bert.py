@@ -199,25 +199,41 @@ def _map_shardings(params, cfg: TransformerConfig, mesh: Mesh, fn):
     return walk(params, _shardings(cfg, mesh), False)
 
 
+def _padded_vocab(cfg: TransformerConfig, tp: int) -> int:
+    """The vocabulary rounded up to a multiple of the 'model' axis."""
+    return -(-cfg.vocab_size // tp) * tp
+
+
 def place_params(params, cfg: TransformerConfig, mesh: Mesh):
     """This rank's shards of a global parameter tree (every rank passes
     the same tree), per :func:`param_pspecs`, as new tensors. Raises when
-    the 'model' axis does not divide the heads, the MLP width or the
-    vocabulary."""
+    the 'model' axis does not divide the heads or the MLP width. A
+    vocabulary it does not divide (BERT's 30522 over 4) is zero-padded to
+    the next multiple first (Megatron's vocabulary padding): the token
+    table's padded rows are never looked up, and the logits of the
+    lm_head's padded columns are cut off after their gather."""
     tp = mesh.axis_size(MODEL_AXIS)
-    for n, what in ((cfg.heads, "heads"), (cfg.mlp_dim, "mlp_dim"),
-                    (cfg.vocab_size, "vocab_size")):
+    for n, what in ((cfg.heads, "heads"), (cfg.mlp_dim, "mlp_dim")):
         if n % tp:
             raise ValueError(f"{what}={n} does not split over "
                              f"{MODEL_AXIS}={tp}")
+    pad = _padded_vocab(cfg, tp) - cfg.vocab_size
+    if pad:
+        params = dict(params,
+                      tok_emb=F.pad(params["tok_emb"], (0, 0, 0, pad)),
+                      lm_head=F.pad(params["lm_head"], (0, pad)))
     return _map_shardings(params, cfg, mesh,
                           lambda s, x: s.shard(x).clone())
 
 
 def gather_params(params, cfg: TransformerConfig, mesh: Mesh):
     """The global parameter tree from every rank's :func:`place_params`
-    shards (a collective: every rank of the mesh calls it)."""
-    return _map_shardings(params, cfg, mesh, lambda s, x: s.gather(x))
+    shards (a collective: every rank of the mesh calls it), a padded
+    vocabulary cut back."""
+    out = _map_shardings(params, cfg, mesh, lambda s, x: s.gather(x))
+    V = cfg.vocab_size
+    return dict(out, tok_emb=out["tok_emb"][:V],
+                lm_head=out["lm_head"][:, :V])
 
 
 def params_from_numpy(tree, device=None):
@@ -359,13 +375,114 @@ def _attention(q, k, v, cfg: TransformerConfig,
     return fn(q, k, v, group, cfg.causal)
 
 
-def _row_dense(x, p, mesh: Optional[Mesh]):
-    """:func:`_dense` of a row-parallel layer: the rank's partial product
-    summed over 'model', then the bias, added once."""
-    if mesh is None:
-        return _dense(x, p)
-    return reduce_sum(x @ p["kernel"].to(x.dtype), [mesh.group(MODEL_AXIS)]) \
-        + p["bias"].to(x.dtype)
+# --------------------------------------------------------------------------
+# Per-rank step bodies
+# --------------------------------------------------------------------------
+#
+# Under a mesh a step runs per rank: the heads, the MLP's hidden width and
+# the vocabulary ride 'model'. A step's body is a generator: where a rank
+# needs the whole of a value the ranks hold parts of, it yields a request
+# and resumes with the answer —
+#
+#   ("sum", x)     the ranks' partials x summed (a row-parallel product,
+#                  the vocabulary-split embedding);
+#   ("gather", x)  the ranks' blocks of x's last dim in rank order (the
+#                  vocabulary-split logits);
+#   ("copy", x)    x whole on every rank, its gradient summed over the
+#                  ranks (a column-parallel layer's input, for training).
+#
+# :func:`_drive` answers them with the model axis' collectives (without a
+# mesh, with x itself); :func:`drive_ranks` answers them for virtual ranks
+# in one process. The distributed step and the one-process loop run the
+# same body.
+
+
+def _drive(body, mesh: Optional[Mesh]):
+    """Run one rank's step ``body`` (a started-or-not generator), each
+    request answered over this rank's 'model' group; returns the body's
+    result. Without autograd a sum is reduced in place (a body yields a
+    partial it made for the request and no longer holds), and a 'model'
+    group of one rank answers every request with x itself: it has
+    nothing to sum or gather, and the bits are the same."""
+    group = None if mesh is None else mesh.group(MODEL_AXIS)
+    if group is not None and not torch.is_grad_enabled() \
+            and torch.distributed.get_world_size(group) == 1:
+        group = None
+    try:
+        req = next(body)
+        while True:
+            kind, x = req
+            if group is not None:
+                if kind == "sum" and not torch.is_grad_enabled():
+                    torch.distributed.all_reduce(x, group=group)
+                elif kind == "sum":
+                    x = reduce_sum(x, [group])
+                elif kind == "gather":
+                    x = gather_last(x, group)
+                else:
+                    x = copy_to(x, group)
+            req = body.send(x)
+    except StopIteration as done:
+        return done.value
+
+
+def drive_ranks(bodies):
+    """Run the bodies of one step's virtual 'model' ranks in one process,
+    in lockstep: each ``"sum"`` adds the ranks' partials in rank order
+    (``((x0 + x1) + x2) + ...``), each ``"gather"`` concatenates their
+    blocks in rank order, each ``"copy"`` hands every rank its own x.
+    Returns every rank's result, in rank order."""
+    reqs = []
+    for b in bodies:
+        try:
+            reqs.append(next(b))
+        except StopIteration as done:
+            reqs.append(done)
+    while True:
+        done = [r for r in reqs if isinstance(r, StopIteration)]
+        if done:
+            if len(done) != len(reqs):
+                raise RuntimeError("virtual ranks left the step apart")
+            return [r.value for r in reqs]
+        kinds = {r[0] for r in reqs}
+        if len(kinds) != 1:
+            raise RuntimeError(f"virtual ranks asked {sorted(kinds)} at "
+                               "one point of the step")
+        kind = reqs[0][0]
+        xs = [x for _, x in reqs]
+        if kind == "sum":
+            total = xs[0]
+            for x in xs[1:]:
+                total = total + x
+            answers = [total] * len(xs)
+        elif kind == "gather":
+            answers = [torch.cat(xs, dim=-1)] * len(xs)
+        else:
+            answers = xs
+        nxt = []
+        for b, a in zip(bodies, answers):
+            try:
+                nxt.append(b.send(a))
+            except StopIteration as stop:
+                nxt.append(stop)
+        reqs = nxt
+
+
+def _row_out(x, p):
+    """Body steps of a row-parallel layer: the rank's partial product
+    summed over 'model', then the bias, added once (without a mesh,
+    exactly :func:`_dense`)."""
+    s = yield ("sum", x @ p["kernel"].to(x.dtype))
+    return s + p["bias"].to(x.dtype)
+
+
+def _logits_steps(x, params, cfg: TransformerConfig):
+    """Body steps of the lm_head: the rank's vocabulary block of the
+    logits gathered over 'model' in rank order, in the compute dtype, cut
+    to ``cfg.vocab_size`` (a vocabulary :func:`place_params` padded to
+    split evenly)."""
+    out = yield ("gather", x @ params["lm_head"].to(x.dtype))
+    return out[..., :cfg.vocab_size]
 
 
 def _to_model(x, mesh: Optional[Mesh]):
@@ -374,13 +491,24 @@ def _to_model(x, mesh: Optional[Mesh]):
     return x if mesh is None else copy_to(x, mesh.group(MODEL_AXIS))
 
 
-def _block(params, x, cfg: TransformerConfig, mesh: Optional[Mesh] = None,
-           return_kv: bool = False):
+def _local_heads(cfg: TransformerConfig, mesh: Optional[Mesh]) -> int:
+    """The heads a rank holds: ``cfg.heads`` over the 'model' axis."""
+    tp = _axes(mesh)[1]
+    if cfg.heads % tp:
+        raise ValueError(f"heads={cfg.heads} does not split over "
+                         f"{MODEL_AXIS}={tp}")
+    return cfg.heads // tp
+
+
+def _block_steps(params, x, cfg: TransformerConfig,
+                 mesh: Optional[Mesh] = None, return_kv: bool = False):
+    """One transformer block as a rank's body (see :func:`_drive`): the
+    rank's heads of attention and its block of the MLP."""
     B, T, _ = x.shape
     dp, tp, cp = _axes(mesh)
     heads = cfg.heads // tp
     width = heads * cfg.head_dim
-    h = _to_model(_layernorm(x, params["ln1"]), mesh)
+    h = yield ("copy", _layernorm(x, params["ln1"]))
     qkv = _dense(h, params["qkv"])
     q, k, v = qkv.split(width, dim=-1)
     if return_kv:
@@ -397,20 +525,26 @@ def _block(params, x, cfg: TransformerConfig, mesh: Optional[Mesh] = None,
             return t.reshape(B, T, heads, cfg.head_dim).transpose(1, 2)
         o = _attention(split(q), split(k), split(v), cfg, mesh)
         o = o.transpose(1, 2).reshape(B, T, width)
-    x = x + _row_dense(o, params["attn_out"], mesh)
-    h = _to_model(_layernorm(x, params["ln2"]), mesh)
+    x = x + (yield from _row_out(o, params["attn_out"]))
+    h = yield ("copy", _layernorm(x, params["ln2"]))
     h = F.gelu(_dense(h, params["mlp_in"]), approximate="tanh")
-    x = x + _row_dense(h, params["mlp_out"], mesh)
+    x = x + (yield from _row_out(h, params["mlp_out"]))
     if return_kv:
         return x, kv_out[0], kv_out[1]
     return x
 
 
-def _embed(params, token_ids, positions, cfg: TransformerConfig,
-           mesh: Optional[Mesh] = None):
-    """Token plus position embeddings in the compute dtype. Under a mesh
-    the token table is this rank's block of the vocabulary: ids outside
-    it give zero rows, and the rows sum over 'model' (in fp32)."""
+def _block(params, x, cfg: TransformerConfig, mesh: Optional[Mesh] = None,
+           return_kv: bool = False):
+    return _drive(_block_steps(params, x, cfg, mesh, return_kv), mesh)
+
+
+def _embed_steps(params, token_ids, positions, cfg: TransformerConfig,
+                 mesh: Optional[Mesh] = None):
+    """Token plus position embeddings in the compute dtype, as a rank's
+    body. Under a mesh the token table is this rank's block of the
+    vocabulary: ids outside it give zero rows, and the rows sum over
+    'model' (in the table's dtype)."""
     emb = params["tok_emb"]
     if mesh is None:
         tok = emb[token_ids]
@@ -418,9 +552,14 @@ def _embed(params, token_ids, positions, cfg: TransformerConfig,
         V = emb.shape[0]
         local = token_ids - mesh.axis_index(MODEL_AXIS) * V
         inside = (local >= 0) & (local < V)
-        tok = reduce_sum(emb[local.clamp(0, V - 1)] * inside[..., None],
-                         [mesh.group(MODEL_AXIS)])
+        tok = yield ("sum", emb[local.clamp(0, V - 1)] * inside[..., None])
     return tok.to(cfg.dtype) + params["pos_emb"][positions].to(cfg.dtype)
+
+
+def _embed(params, token_ids, positions, cfg: TransformerConfig,
+           mesh: Optional[Mesh] = None):
+    return _drive(_embed_steps(params, token_ids, positions, cfg, mesh),
+                  mesh)
 
 
 def encode(params, token_ids, cfg: TransformerConfig,
@@ -463,7 +602,7 @@ def _forward_raw(params, token_ids, cfg: TransformerConfig,
     x = _to_model(encode(params, token_ids, cfg, mesh), mesh)
     logits = x @ params["lm_head"].to(x.dtype)
     return logits if mesh is None else gather_last(
-        logits, mesh.group(MODEL_AXIS))
+        logits, mesh.group(MODEL_AXIS))[..., :cfg.vocab_size]
 
 
 @torch.no_grad()
@@ -694,9 +833,12 @@ def init_kv_cache(cfg: TransformerConfig, slots: int, max_len: int,
                   dtype: Optional[torch.dtype] = None,
                   block_size: Optional[int] = None,
                   num_blocks: Optional[int] = None,
-                  kv_dtype: str = "float32", device=None) -> Dict[str, Any]:
+                  kv_dtype: str = "float32", device=None,
+                  mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """Allocate the generation cache in ``dtype`` (default the compute
-    dtype). Two layouts, as in the reference:
+    dtype); under ``mesh`` only this rank's ``heads // model`` heads (the
+    block of :func:`kv_cache_pspecs` / :func:`paged_kv_cache_pspecs`).
+    Two layouts, as in the reference:
 
     - ``block_size=None``: the contiguous per-slot layout ``{"layers":
       [{"k", "v"}: (slots, max_len, heads, head_dim)], "lengths": (slots,)
@@ -718,12 +860,13 @@ def init_kv_cache(cfg: TransformerConfig, slots: int, max_len: int,
     validate_kv_dtype(kv_dtype, block_size)
     dev = default_device(device)
     dt = cfg.dtype if dtype is None else dtype
+    heads = _local_heads(cfg, mesh)
     if block_size is None:
         if num_blocks is not None:
             raise ValueError(
                 f"num_blocks={num_blocks} requires block_size: the block "
                 "pool is a paged-layout concept")
-        shape = (slots, max_len, cfg.heads, cfg.head_dim)
+        shape = (slots, max_len, heads, cfg.head_dim)
         return {"layers": [
             {"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev)}
@@ -736,7 +879,7 @@ def init_kv_cache(cfg: TransformerConfig, slots: int, max_len: int,
         raise ValueError(
             f"num_blocks must be >= 2 (block 0 is the reserved scratch "
             f"block), got {num_blocks}")
-    shape = (num_blocks, block_size, cfg.heads, cfg.head_dim)
+    shape = (num_blocks, block_size, heads, cfg.head_dim)
     if kv_dtype == "int8":
         sshape = shape[:3]
         return {"layers": [
@@ -762,6 +905,64 @@ def grow_block_table(tables: np.ndarray, slot: int, n_entries: int,
             f"{tables.shape[1]} entries) — cannot map block {block}")
     tables[slot, n_entries] = block
     return n_entries + 1
+
+
+def kv_cache_pspecs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """PartitionSpecs of the contiguous cache, the reference's: heads over
+    'model' (the column-parallel qkv's layout), slots and positions whole.
+    Slots stay off 'data' on purpose: a prefill writes one slot, which a
+    slot-split cache would turn into a gather per admission."""
+    kv = P(None, None, MODEL_AXIS, None)
+    return {"layers": [{"k": kv, "v": kv} for _ in range(cfg.layers)],
+            "lengths": P()}
+
+
+def paged_kv_cache_pspecs(cfg: TransformerConfig,
+                          kv_dtype: str = "float32") -> Dict[str, Any]:
+    """PartitionSpecs of the paged block pool, the reference's: heads over
+    'model', blocks and in-block positions whole (the host's block table
+    indexes a whole block axis, so paging adds no collective); an int8
+    pool's per-token-per-head scales split their heads the same way."""
+    kv = P(None, None, MODEL_AXIS, None)
+    layer = {"k": kv, "v": kv}
+    if kv_dtype == "int8":
+        layer = dict(layer, k_scale=P(None, None, MODEL_AXIS),
+                     v_scale=P(None, None, MODEL_AXIS))
+    return {"layers": [dict(layer) for _ in range(cfg.layers)]}
+
+
+def draft_kv_cache_pspecs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """PartitionSpecs of the draft cache: :func:`kv_cache_pspecs` without
+    the lengths."""
+    kv = P(None, None, MODEL_AXIS, None)
+    return {"layers": [{"k": kv, "v": kv} for _ in range(cfg.layers)]}
+
+
+def _place(tree, shardings):
+    """Each leaf's block under its sharding, as a new tensor."""
+    if isinstance(tree, dict):
+        return {k: _place(tree[k], shardings[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [_place(a, b) for a, b in zip(tree, shardings)]
+    return shardings.shard(tree).clone()
+
+
+def place_kv_cache(cache, cfg: TransformerConfig, mesh: Mesh):
+    """This rank's block of a global generation cache of any layout (the
+    contiguous one carries ``lengths``, the paged pool does not, an int8
+    pool adds scales), as new tensors."""
+    if "lengths" in cache:
+        spec = kv_cache_pspecs(cfg)
+    else:
+        kv_dtype = "int8" if "k_scale" in cache["layers"][0] else "float32"
+        spec = paged_kv_cache_pspecs(cfg, kv_dtype)
+    return _place(cache, tree_shardings(mesh, spec))
+
+
+def place_draft_kv_cache(cache, cfg: TransformerConfig, mesh: Mesh):
+    """This rank's block of a global draft cache, per
+    :func:`draft_kv_cache_pspecs`."""
+    return _place(cache, tree_shardings(mesh, draft_kv_cache_pspecs(cfg)))
 
 
 def sample_tokens(logits, keys, steps, temperatures, top_ks):
@@ -814,7 +1015,21 @@ def _require_causal(cfg: TransformerConfig):
                          "TransformerConfig(causal=True)")
 
 
+def _stepped(body, mesh: Optional[Mesh]):
+    """A step function from its per-rank ``body`` (a generator function
+    taking the step's arguments): run without autograd through
+    :func:`_drive`. The body stays reachable as ``step.body`` for
+    :func:`drive_ranks`."""
+    @torch.no_grad()
+    def step(*args):
+        return _drive(body(*args), mesh)
+
+    step.body = body
+    return step
+
+
 def make_paged_prefill(cfg: TransformerConfig, block_size: int,
+                       mesh: Optional[Mesh] = None,
                        kv_dtype: str = "float32"):
     """The paged prefill: one padded prompt through the standard forward
     (the same ``_block``), its per-layer K/V written into the physical
@@ -825,13 +1040,19 @@ def make_paged_prefill(cfg: TransformerConfig, block_size: int,
     ``block_row`` (ceil(T_bucket/block_size),) physical block ids whose
     entries past the prompt's blocks name scratch block 0, ``length`` the
     real prompt length and ``step`` the sample index the draw folds into
-    the key. The pool is updated in place; int8 pools quantize on write."""
+    the key. The pool is updated in place; int8 pools quantize on write.
+
+    Under ``mesh`` every rank runs it on its :func:`place_params` shards
+    and its heads of the pool (:func:`init_kv_cache` with ``mesh``) with
+    the same host arguments: the packed kernel on the rank's heads, the
+    row-parallel products summed over 'model', the logits gathered, so
+    every rank samples the same token."""
     _require_causal(cfg)
     validate_kv_dtype(kv_dtype, block_size)
+    heads = _local_heads(cfg, mesh)
 
-    @torch.no_grad()
-    def prefill(params, cache, tokens, block_row, length, key, temperature,
-                top_k, step):
+    def body(params, cache, tokens, block_row, length, key, temperature,
+             top_k, step):
         dev = params["tok_emb"].device
         tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
         block_row = torch.as_tensor(np.asarray(block_row),
@@ -839,13 +1060,15 @@ def make_paged_prefill(cfg: TransformerConfig, block_size: int,
         _, T = tokens.shape
         nb = block_row.shape[0]
         pad = nb * block_size - T
-        x = _embed(params, tokens, torch.arange(T, device=dev)[None], cfg)
+        x = yield from _embed_steps(
+            params, tokens, torch.arange(T, device=dev)[None], cfg, mesh)
         for bp, lc in zip(params["blocks"], cache["layers"]):
-            x, k, v = _block(bp, x, cfg, return_kv=True)
+            x, k, v = yield from _block_steps(bp, x, cfg, mesh,
+                                              return_kv=True)
             kb = F.pad(k[0], (0, 0, 0, 0, 0, pad)).reshape(
-                nb, block_size, cfg.heads, cfg.head_dim)
+                nb, block_size, heads, cfg.head_dim)
             vb = F.pad(v[0], (0, 0, 0, 0, 0, pad)).reshape(
-                nb, block_size, cfg.heads, cfg.head_dim)
+                nb, block_size, heads, cfg.head_dim)
             if kv_dtype == "int8":
                 kq, ks = quantize_kv(kb)
                 vq, vs = quantize_kv(vb)
@@ -858,11 +1081,39 @@ def make_paged_prefill(cfg: TransformerConfig, block_size: int,
                 lc["v"][block_row] = vb.to(lc["v"].dtype)
         x = _layernorm(x, params["ln_f"])
         last = x[0, int(length) - 1]
-        logits = (last @ params["lm_head"].to(last.dtype)).float()
+        logits = (yield from _logits_steps(last, params, cfg)).float()
         token0 = sample_token(logits, key, temperature, top_k, step)
         return cache, token0
 
-    return prefill
+    return _stepped(body, mesh)
+
+
+def _paged_attention_mesh_spec(cfg: TransformerConfig, mesh: Mesh):
+    """PartitionSpecs of the fused paged-attention kernel run per rank
+    under ``mesh``, the reference's: heads over 'model' (the column-
+    parallel qkv's layout), blocks, tables and positions whole — the
+    kernel runs on each rank's heads with no collective. None when the
+    heads do not split over the axis."""
+    tp = mesh.axis_size(MODEL_AXIS)
+    if cfg.heads % tp:
+        return None
+    m = MODEL_AXIS if MODEL_AXIS in mesh.shape else None
+    return {"q": P(None, m, None), "pool": P(None, None, m, None),
+            "scale": P(None, None, m), "repl": P()}
+
+
+def _check_paged_route(cfg: TransformerConfig, mesh: Optional[Mesh],
+                       paged_attention: str):
+    if paged_attention not in ("gather", "fused"):
+        raise ValueError(
+            f"paged_attention must be 'gather' or 'fused', "
+            f"got {paged_attention!r}")
+    if paged_attention == "fused" and mesh is not None \
+            and _paged_attention_mesh_spec(cfg, mesh) is None:
+        raise ValueError(
+            f"paged_attention='fused' cannot shard {cfg.heads} heads over "
+            f"the mesh's {mesh.axis_size(MODEL_AXIS)}-way '{MODEL_AXIS}' "
+            "axis; use paged_attention='gather' or a dividing mesh")
 
 
 def _paged_attention(cfg: TransformerConfig, block_size: int,
@@ -873,13 +1124,14 @@ def _paged_attention(cfg: TransformerConfig, block_size: int,
     ``lc``, and returns the (S, heads, D) outputs: per query one
     :func:`paged_decode_attention` launch on the ``"fused"`` route; on the
     ``"gather"`` route ``pool[tables]`` gathered once as (S, L, heads, D)
-    and, per query, the masked einsum attention. Every query runs at the
-    decode step's own shapes, so the verify step's k+1 positions each get
-    the bits the decode step would give them."""
+    and, per query, the masked einsum attention. ``heads`` is the pool's
+    (a rank's under a mesh). Every query runs at the decode step's own
+    shapes, so the verify step's k+1 positions each get the bits the
+    decode step would give them."""
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
     def attend(qs, lc, tables, poss):
-        S = qs[0].shape[0]
+        S, H, D = qs[0].shape
         L = tables.shape[1] * block_size
         if paged_attention == "fused":
             return [paged_decode_attention(
@@ -889,13 +1141,13 @@ def _paged_attention(cfg: TransformerConfig, block_size: int,
                 for q, pos in zip(qs, poss)]
         dt = qs[0].dtype
         tl = tables.long()
-        gk = lc["k"][tl].reshape(S, L, cfg.heads, cfg.head_dim)
-        gv = lc["v"][tl].reshape(S, L, cfg.heads, cfg.head_dim)
+        gk = lc["k"][tl].reshape(S, L, H, D)
+        gv = lc["v"][tl].reshape(S, L, H, D)
         if quantized:
             gk = (gk.float() * lc["k_scale"][tl].reshape(
-                S, L, cfg.heads)[..., None]).to(dt)
+                S, L, H)[..., None]).to(dt)
             gv = (gv.float() * lc["v_scale"][tl].reshape(
-                S, L, cfg.heads)[..., None]).to(dt)
+                S, L, H)[..., None]).to(dt)
         return [_masked_attention(q, gk, gv, pos, scale, cfg)
                 for q, pos in zip(qs, poss)]
 
@@ -915,7 +1167,67 @@ def _masked_attention(q, k, v, pos, scale: float, cfg: TransformerConfig):
     return torch.einsum("shl,slhd->shd", p, v.to(p.dtype))
 
 
+def _paged_decode_logits_body(cfg: TransformerConfig, block_size: int,
+                              kv_dtype: str, paged_attention: str,
+                              mesh: Optional[Mesh]):
+    quantized = kv_dtype == "int8"
+    attend = _paged_attention(cfg, block_size, quantized, paged_attention)
+    heads = _local_heads(cfg, mesh)
+    width = heads * cfg.head_dim
+
+    def body(params, cache, tables, lengths, tokens, cow_src, cow_dst):
+        dev = params["tok_emb"].device
+        tables_np = np.asarray(tables, np.int32)
+        S = tables_np.shape[0]
+        L = tables_np.shape[1] * block_size
+        pos_np = np.clip(np.asarray(lengths, np.int64), 0,
+                         min(L, cfg.max_seq) - 1)
+        blk = tables_np[np.arange(S), pos_np // block_size]
+        cow_src = np.asarray(cow_src, np.int64)
+        cow_dst = np.asarray(cow_dst, np.int64)
+        cow = np.flatnonzero(cow_src != cow_dst)
+        tables_t = torch.as_tensor(tables_np, device=dev)
+        pos_t = torch.as_tensor(pos_np.astype(np.int32), device=dev)
+        pb = torch.as_tensor(blk.astype(np.int64), device=dev)
+        off = torch.as_tensor(pos_np % block_size, device=dev)
+        x = yield from _embed_steps(
+            params, torch.as_tensor(np.asarray(tokens, np.int64),
+                                    device=dev), pos_t.long(), cfg, mesh)
+        for bp, lc in zip(params["blocks"], cache["layers"]):
+            if cow.size:
+                src = torch.as_tensor(cow_src[cow], device=dev)
+                dst = torch.as_tensor(cow_dst[cow], device=dev)
+                for name in lc:
+                    lc[name][dst] = lc[name][src]
+            h = _layernorm(x, bp["ln1"])
+            q, k, v = _dense(h, bp["qkv"]).split(width, dim=-1)
+            q = q.reshape(S, heads, cfg.head_dim).contiguous()
+            k = k.reshape(S, heads, cfg.head_dim)
+            v = v.reshape(S, heads, cfg.head_dim)
+            if quantized:
+                kq, ks = quantize_kv(k)
+                vq, vs = quantize_kv(v)
+                lc["k"][pb, off] = kq
+                lc["v"][pb, off] = vq
+                lc["k_scale"][pb, off] = ks
+                lc["v_scale"][pb, off] = vs
+            else:
+                lc["k"][pb, off] = k.to(lc["k"].dtype)
+                lc["v"][pb, off] = v.to(lc["v"].dtype)
+            o = attend([q], lc, tables_t, [pos_t])[0].reshape(
+                S, width).to(x.dtype)
+            x = x + (yield from _row_out(o, bp["attn_out"]))
+            h = _layernorm(x, bp["ln2"])
+            h = F.gelu(_dense(h, bp["mlp_in"]), approximate="tanh")
+            x = x + (yield from _row_out(h, bp["mlp_out"]))
+        x = _layernorm(x, params["ln_f"])
+        return (yield from _logits_steps(x, params, cfg)).float()
+
+    return body
+
+
 def make_paged_decode_logits(cfg: TransformerConfig, block_size: int,
+                             mesh: Optional[Mesh] = None,
                              kv_dtype: str = "float32",
                              paged_attention: str = "gather"):
     """The paged decode step up to the logits: one token for every slot.
@@ -933,70 +1245,20 @@ def make_paged_decode_logits(cfg: TransformerConfig, block_size: int,
       and run the einsum attention (the reference's default route);
     - ``"fused"``: the :func:`paged_decode_attention` kernel walks each
       slot's blocks without materializing the gathered view, with int8
-      dequantization in the same pass."""
+      dequantization in the same pass.
+
+    Under ``mesh`` per rank, on its heads of the pool (as
+    :func:`make_paged_prefill`); ``"fused"`` raises ``ValueError`` when
+    the heads do not split over 'model', as the reference does."""
     _require_causal(cfg)
     validate_kv_dtype(kv_dtype, block_size)
-    if paged_attention not in ("gather", "fused"):
-        raise ValueError(
-            f"paged_attention must be 'gather' or 'fused', "
-            f"got {paged_attention!r}")
-    quantized = kv_dtype == "int8"
-    attend = _paged_attention(cfg, block_size, quantized, paged_attention)
-
-    @torch.no_grad()
-    def decode_logits(params, cache, tables, lengths, tokens, cow_src,
-                      cow_dst):
-        dev = params["tok_emb"].device
-        tables_np = np.asarray(tables, np.int32)
-        S = tables_np.shape[0]
-        L = tables_np.shape[1] * block_size
-        pos_np = np.clip(np.asarray(lengths, np.int64), 0,
-                         min(L, cfg.max_seq) - 1)
-        blk = tables_np[np.arange(S), pos_np // block_size]
-        cow_src = np.asarray(cow_src, np.int64)
-        cow_dst = np.asarray(cow_dst, np.int64)
-        cow = np.flatnonzero(cow_src != cow_dst)
-        tables_t = torch.as_tensor(tables_np, device=dev)
-        pos_t = torch.as_tensor(pos_np.astype(np.int32), device=dev)
-        pb = torch.as_tensor(blk.astype(np.int64), device=dev)
-        off = torch.as_tensor(pos_np % block_size, device=dev)
-        x = _embed(params, torch.as_tensor(np.asarray(tokens, np.int64),
-                                           device=dev), pos_t.long(), cfg)
-        H = cfg.hidden
-        for bp, lc in zip(params["blocks"], cache["layers"]):
-            if cow.size:
-                src = torch.as_tensor(cow_src[cow], device=dev)
-                dst = torch.as_tensor(cow_dst[cow], device=dev)
-                for name in lc:
-                    lc[name][dst] = lc[name][src]
-            h = _layernorm(x, bp["ln1"])
-            q, k, v = _dense(h, bp["qkv"]).split(H, dim=-1)
-            q = q.reshape(S, cfg.heads, cfg.head_dim).contiguous()
-            k = k.reshape(S, cfg.heads, cfg.head_dim)
-            v = v.reshape(S, cfg.heads, cfg.head_dim)
-            if quantized:
-                kq, ks = quantize_kv(k)
-                vq, vs = quantize_kv(v)
-                lc["k"][pb, off] = kq
-                lc["v"][pb, off] = vq
-                lc["k_scale"][pb, off] = ks
-                lc["v_scale"][pb, off] = vs
-            else:
-                lc["k"][pb, off] = k.to(lc["k"].dtype)
-                lc["v"][pb, off] = v.to(lc["v"].dtype)
-            o = attend([q], lc, tables_t, [pos_t])[0].reshape(S, H).to(
-                x.dtype)
-            x = x + _dense(o, bp["attn_out"])
-            h = _layernorm(x, bp["ln2"])
-            h = F.gelu(_dense(h, bp["mlp_in"]), approximate="tanh")
-            x = x + _dense(h, bp["mlp_out"])
-        x = _layernorm(x, params["ln_f"])
-        return (x @ params["lm_head"].to(x.dtype)).float()
-
-    return decode_logits
+    _check_paged_route(cfg, mesh, paged_attention)
+    return _stepped(_paged_decode_logits_body(
+        cfg, block_size, kv_dtype, paged_attention, mesh), mesh)
 
 
 def make_paged_decode_step(cfg: TransformerConfig, block_size: int,
+                           mesh: Optional[Mesh] = None,
                            kv_dtype: str = "float32",
                            paged_attention: str = "gather"):
     """THE paged decode step: :func:`make_paged_decode_logits` followed by
@@ -1005,18 +1267,22 @@ def make_paged_decode_step(cfg: TransformerConfig, block_size: int,
     ``decode_step(params, cache, tables, lengths, tokens, keys, steps,
     temperatures, top_ks, cow_src, cow_dst) -> (cache, next_tokens)``
     with the pool updated in place and next_tokens (slots,) int64 on the
-    params' device."""
-    decode_logits = make_paged_decode_logits(cfg, block_size, kv_dtype,
-                                             paged_attention)
+    params' device (under ``mesh`` every rank samples the same ids from
+    the gathered logits)."""
+    _require_causal(cfg)
+    validate_kv_dtype(kv_dtype, block_size)
+    _check_paged_route(cfg, mesh, paged_attention)
+    logits_body = _paged_decode_logits_body(cfg, block_size, kv_dtype,
+                                            paged_attention, mesh)
 
-    def decode_step(params, cache, tables, lengths, tokens, keys, steps,
-                    temperatures, top_ks, cow_src, cow_dst):
-        logits = decode_logits(params, cache, tables, lengths, tokens,
-                               cow_src, cow_dst)
+    def body(params, cache, tables, lengths, tokens, keys, steps,
+             temperatures, top_ks, cow_src, cow_dst):
+        logits = yield from logits_body(params, cache, tables, lengths,
+                                        tokens, cow_src, cow_dst)
         return cache, sample_tokens(logits, keys, steps, temperatures,
                                     top_ks)
 
-    return decode_step
+    return _stepped(body, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -1024,22 +1290,25 @@ def make_paged_decode_step(cfg: TransformerConfig, block_size: int,
 # --------------------------------------------------------------------------
 
 
-def _prefill_rows(params, cache, tokens, slot: int, cfg: TransformerConfig):
-    """One padded prompt through the standard forward (``_block``, so the
-    packed kernel serves it under ``attention_impl="flash"``), its per-layer
-    K/V written into row ``slot`` of a contiguous cache from position 0.
-    Returns the final hidden states (1, T, hidden)."""
+def _prefill_rows(params, cache, tokens, slot: int, cfg: TransformerConfig,
+                  mesh: Optional[Mesh] = None):
+    """Body steps of one padded prompt through the standard forward
+    (``_block``, so the packed kernel serves it under ``attention_impl=
+    "flash"``), its per-layer K/V written into row ``slot`` of a
+    contiguous cache from position 0. Returns the final hidden states
+    (1, T, hidden)."""
     dev = params["tok_emb"].device
     _, T = tokens.shape
-    x = _embed(params, tokens, torch.arange(T, device=dev)[None], cfg)
+    x = yield from _embed_steps(params, tokens,
+                                torch.arange(T, device=dev)[None], cfg, mesh)
     for bp, lc in zip(params["blocks"], cache["layers"]):
-        x, k, v = _block(bp, x, cfg, return_kv=True)
+        x, k, v = yield from _block_steps(bp, x, cfg, mesh, return_kv=True)
         lc["k"][slot, :T] = k[0].to(lc["k"].dtype)
         lc["v"][slot, :T] = v[0].to(lc["v"].dtype)
     return x
 
 
-def make_prefill(cfg: TransformerConfig):
+def make_prefill(cfg: TransformerConfig, mesh: Optional[Mesh] = None):
     """The contiguous prefill: one padded prompt written into cache row
     ``slot``, ``lengths[slot]`` set, and token 0 sampled.
 
@@ -1047,54 +1316,58 @@ def make_prefill(cfg: TransformerConfig):
     step=0) -> (cache, token0)`` with tokens (1, T_bucket) integer and
     ``length`` the real prompt length; ``step`` is the sample index the
     draw folds into the key (0 for a fresh stream, as the reference's
-    draws). The cache is updated in place."""
+    draws). The cache is updated in place; under ``mesh`` per rank, on
+    its heads."""
     _require_causal(cfg)
+    _local_heads(cfg, mesh)
 
-    @torch.no_grad()
-    def prefill(params, cache, tokens, slot, length, key, temperature,
-                top_k, step=0):
+    def body(params, cache, tokens, slot, length, key, temperature, top_k,
+             step=0):
         dev = params["tok_emb"].device
         tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
-        x = _prefill_rows(params, cache, tokens, int(slot), cfg)
+        x = yield from _prefill_rows(params, cache, tokens, int(slot), cfg,
+                                     mesh)
         x = _layernorm(x, params["ln_f"])
         last = x[0, int(length) - 1]
-        logits = (last @ params["lm_head"].to(last.dtype)).float()
+        logits = (yield from _logits_steps(last, params, cfg)).float()
         token0 = sample_token(logits, key, temperature, top_k, step)
         cache["lengths"][int(slot)] = int(length)
         return cache, token0
 
-    return prefill
+    return _stepped(body, mesh)
 
 
-def _contiguous_logits(params, layers, tokens, pos, cfg: TransformerConfig):
-    """One token per slot through contiguous (slots, L, heads, D) cache
-    layers: per layer the new K/V written at ``pos`` (S,) in place, then
-    the masked einsum attention over the slot's own row. Returns (S,
-    vocab) fp32 logits."""
+def _contiguous_logits(params, layers, tokens, pos, cfg: TransformerConfig,
+                       mesh: Optional[Mesh] = None):
+    """Body steps of one token per slot through contiguous (slots, L,
+    heads, D) cache layers: per layer the new K/V written at ``pos`` (S,)
+    in place, then the masked einsum attention over the slot's own row.
+    Returns (S, vocab) fp32 logits."""
     S = tokens.shape[0]
-    H = cfg.hidden
+    heads = _local_heads(cfg, mesh)
+    width = heads * cfg.head_dim
     rows = torch.arange(S, device=tokens.device)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     pos_l = pos.long()
-    x = _embed(params, tokens, pos_l, cfg)
+    x = yield from _embed_steps(params, tokens, pos_l, cfg, mesh)
     for bp, lc in zip(params["blocks"], layers):
         h = _layernorm(x, bp["ln1"])
-        q, k, v = _dense(h, bp["qkv"]).split(H, dim=-1)
-        q = q.reshape(S, cfg.heads, cfg.head_dim)
-        lc["k"][rows, pos_l] = k.reshape(S, cfg.heads, cfg.head_dim).to(
+        q, k, v = _dense(h, bp["qkv"]).split(width, dim=-1)
+        q = q.reshape(S, heads, cfg.head_dim)
+        lc["k"][rows, pos_l] = k.reshape(S, heads, cfg.head_dim).to(
             lc["k"].dtype)
-        lc["v"][rows, pos_l] = v.reshape(S, cfg.heads, cfg.head_dim).to(
+        lc["v"][rows, pos_l] = v.reshape(S, heads, cfg.head_dim).to(
             lc["v"].dtype)
         o = _masked_attention(q, lc["k"], lc["v"], pos, scale, cfg)
-        x = x + _dense(o.reshape(S, H), bp["attn_out"])
+        x = x + (yield from _row_out(o.reshape(S, width), bp["attn_out"]))
         h = _layernorm(x, bp["ln2"])
         h = F.gelu(_dense(h, bp["mlp_in"]), approximate="tanh")
-        x = x + _dense(h, bp["mlp_out"])
+        x = x + (yield from _row_out(h, bp["mlp_out"]))
     x = _layernorm(x, params["ln_f"])
-    return (x @ params["lm_head"].to(x.dtype)).float()
+    return (yield from _logits_steps(x, params, cfg)).float()
 
 
-def make_decode_step(cfg: TransformerConfig):
+def make_decode_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None):
     """THE contiguous decode step: one token for every slot, live or dead.
 
     ``decode_step(params, cache, tokens, live, keys, steps, temperatures,
@@ -1103,26 +1376,26 @@ def make_decode_step(cfg: TransformerConfig):
     goes at ``pos = clip(lengths, 0, max_len - 1)`` on the device, the
     query attends positions 0..pos of its own row, and ``lengths`` grows
     by one where ``live`` (dead slots compute masked garbage and keep
-    their lengths)."""
+    their lengths). Under ``mesh`` per rank, on its heads."""
     _require_causal(cfg)
+    _local_heads(cfg, mesh)
 
-    @torch.no_grad()
-    def decode_step(params, cache, tokens, live, keys, steps, temperatures,
-                    top_ks):
+    def body(params, cache, tokens, live, keys, steps, temperatures,
+             top_ks):
         dev = params["tok_emb"].device
         lengths = cache["lengths"]
         L = cache["layers"][0]["k"].shape[1]
         pos = lengths.clamp(0, L - 1)
-        logits = _contiguous_logits(
+        logits = yield from _contiguous_logits(
             params, cache["layers"],
             torch.as_tensor(np.asarray(tokens, np.int64), device=dev), pos,
-            cfg)
+            cfg, mesh)
         lengths += torch.as_tensor(np.asarray(live, bool),
                                    device=dev).to(lengths.dtype)
         return cache, sample_tokens(logits, keys, steps, temperatures,
                                     top_ks)
 
-    return decode_step
+    return _stepped(body, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -1132,18 +1405,20 @@ def make_decode_step(cfg: TransformerConfig):
 
 def init_draft_kv_cache(cfg: TransformerConfig, slots: int, max_len: int,
                         dtype: Optional[torch.dtype] = None,
-                        device=None) -> Dict[str, Any]:
+                        device=None,
+                        mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """The draft model's contiguous cache ``{"layers": [{"k", "v"}:
     (slots, max_len, heads, head_dim)]}`` without device lengths: the
     scheduler passes each call's lengths from the host, so rewinding a
-    rejected tail is passing a smaller length."""
+    rejected tail is passing a smaller length. Under ``mesh`` this rank's
+    heads only (:func:`draft_kv_cache_pspecs`)."""
     if max_len > cfg.max_seq:
         raise ValueError(
             f"max_len {max_len} exceeds the draft model's positional "
             f"table max_seq={cfg.max_seq}")
     dev = default_device(device)
     dt = cfg.dtype if dtype is None else dtype
-    shape = (slots, max_len, cfg.heads, cfg.head_dim)
+    shape = (slots, max_len, _local_heads(cfg, mesh), cfg.head_dim)
     return {"layers": [{"k": torch.zeros(shape, dtype=dt, device=dev),
                         "v": torch.zeros(shape, dtype=dt, device=dev)}
                        for _ in range(cfg.layers)]}
@@ -1155,24 +1430,25 @@ def _require_causal_draft(cfg: TransformerConfig):
                          "TransformerConfig(causal=True)")
 
 
-def make_draft_prefill(cfg: TransformerConfig):
+def make_draft_prefill(cfg: TransformerConfig, mesh: Optional[Mesh] = None):
     """``draft_prefill(params, cache, tokens, slot) -> cache``: one padded
     prompt through the draft's standard forward, its K/V written into row
     ``slot``. No sampling: the first proposal comes from
-    :func:`make_draft_step` fed the target's last token."""
+    :func:`make_draft_step` fed the target's last token. Under ``mesh``
+    per rank, on its heads."""
     _require_causal_draft(cfg)
+    _local_heads(cfg, mesh)
 
-    @torch.no_grad()
-    def draft_prefill(params, cache, tokens, slot):
+    def body(params, cache, tokens, slot):
         dev = params["tok_emb"].device
         tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
-        _prefill_rows(params, cache, tokens, int(slot), cfg)
+        yield from _prefill_rows(params, cache, tokens, int(slot), cfg, mesh)
         return cache
 
-    return draft_prefill
+    return _stepped(body, mesh)
 
 
-def make_draft_step(cfg: TransformerConfig):
+def make_draft_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None):
     """THE draft step: one proposed token per slot.
 
     ``draft_step(params, cache, tokens, lengths, keys, steps, temperatures,
@@ -1181,24 +1457,24 @@ def make_draft_step(cfg: TransformerConfig):
     compute garbage the scheduler ignores), ``pos`` clipped to
     ``min(max_len, max_seq) - 1``. ``steps`` carries the TARGET's token
     index of each proposal, so the draw folds the key and step the verify
-    folds."""
+    folds. Under ``mesh`` per rank, on its heads."""
     _require_causal_draft(cfg)
+    _local_heads(cfg, mesh)
 
-    @torch.no_grad()
-    def draft_step(params, cache, tokens, lengths, keys, steps,
-                   temperatures, top_ks):
+    def body(params, cache, tokens, lengths, keys, steps, temperatures,
+             top_ks):
         dev = params["tok_emb"].device
         L = cache["layers"][0]["k"].shape[1]
         pos = np.clip(np.asarray(lengths, np.int64), 0,
                       min(L, cfg.max_seq) - 1)
-        logits = _contiguous_logits(
+        logits = yield from _contiguous_logits(
             params, cache["layers"],
             torch.as_tensor(np.asarray(tokens, np.int64), device=dev),
-            torch.as_tensor(pos.astype(np.int32), device=dev), cfg)
+            torch.as_tensor(pos.astype(np.int32), device=dev), cfg, mesh)
         return cache, sample_tokens(logits, keys, steps, temperatures,
                                     top_ks)
 
-    return draft_step
+    return _stepped(body, mesh)
 
 
 def _rows_dense(x, p):
@@ -1211,6 +1487,18 @@ def _rows_dense(x, p):
     return torch.stack([xj @ w for xj in x]) + p["bias"].to(x.dtype)
 
 
+def _rows_out(x, p):
+    """Body steps of :func:`_rows_dense` for a row-parallel layer: each
+    position's partial product summed over 'model' on its own, at the
+    decode step's shape (a collective's algorithm, and with it its
+    summation order, may depend on the size), then the bias."""
+    w = p["kernel"].to(x.dtype)
+    rows = []
+    for xj in x:
+        rows.append((yield ("sum", xj @ w)))
+    return torch.stack(rows) + p["bias"].to(x.dtype)
+
+
 def _rows_layernorm(x, p):
     """:func:`_layernorm` of each position's (S, hidden) rows of
     position-major x (T, S, hidden) on its own, so each row comes out
@@ -1220,6 +1508,7 @@ def _rows_layernorm(x, p):
 
 
 def make_verify_step(cfg: TransformerConfig, block_size: int, k: int,
+                     mesh: Optional[Mesh] = None,
                      kv_dtype: str = "float32",
                      paged_attention: str = "gather"):
     """THE speculative verify step: k+1 positions per slot scored in one
@@ -1242,9 +1531,10 @@ def make_verify_step(cfg: TransformerConfig, block_size: int, k: int,
     leading ``tokens[:, j+1] == samples[:, j]``.
 
     Each position runs at the decode step's shapes (position-major rows,
-    the matrix products one position at a time, :func:`_rows_dense`), so
-    ``samples[:, j]`` is bit for bit what the decode step would sample
-    there: a speculative stream equals the plain one."""
+    the matrix products, their sums over 'model' and the logits' gather
+    one position at a time), so ``samples[:, j]`` is bit for bit what the
+    decode step would sample there: a speculative stream equals the plain
+    one. Under ``mesh`` per rank, on its heads."""
     _require_causal(cfg)
     if k < 1:
         raise ValueError(
@@ -1252,17 +1542,15 @@ def make_verify_step(cfg: TransformerConfig, block_size: int, k: int,
             "k == 0 IS the plain decode_step; the engine falls back to "
             "it rather than minting a degenerate verify executable")
     validate_kv_dtype(kv_dtype, block_size)
-    if paged_attention not in ("gather", "fused"):
-        raise ValueError(
-            f"paged_attention must be 'gather' or 'fused', "
-            f"got {paged_attention!r}")
+    _check_paged_route(cfg, mesh, paged_attention)
     T = k + 1
     quantized = kv_dtype == "int8"
     attend = _paged_attention(cfg, block_size, quantized, paged_attention)
+    heads = _local_heads(cfg, mesh)
+    width = heads * cfg.head_dim
 
-    @torch.no_grad()
-    def verify_step(params, cache, tables, lengths, tokens, keys, steps,
-                    temperatures, top_ks, cow_src, cow_dst):
+    def body(params, cache, tables, lengths, tokens, keys, steps,
+             temperatures, top_ks, cow_src, cow_dst):
         dev = params["tok_emb"].device
         tables_np = np.asarray(tables, np.int32)
         S, nb = tables_np.shape
@@ -1283,9 +1571,9 @@ def make_verify_step(cfg: TransformerConfig, block_size: int, k: int,
         cow = np.flatnonzero(cow_src != cow_dst)
         tables_t = torch.as_tensor(tables_np, device=dev)
         tok = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
-        x = _embed(params, tok.T, read.long(), cfg)        # (T, S, hidden)
-        H = cfg.hidden
-        hd = (cfg.heads, cfg.head_dim)
+        x = yield from _embed_steps(params, tok.T, read.long(), cfg,
+                                    mesh)                    # (T, S, hidden)
+        hd = (heads, cfg.head_dim)
         for bp, lc in zip(params["blocks"], cache["layers"]):
             if cow.size:
                 src = torch.as_tensor(cow_src[cow], device=dev)
@@ -1293,7 +1581,7 @@ def make_verify_step(cfg: TransformerConfig, block_size: int, k: int,
                 for name in lc:
                     lc[name][dst] = lc[name][src]
             h = _rows_layernorm(x, bp["ln1"])
-            q, kx, vx = _rows_dense(h, bp["qkv"]).split(H, dim=-1)
+            q, kx, vx = _rows_dense(h, bp["qkv"]).split(width, dim=-1)
             kx = kx.reshape(T, S, *hd)
             vx = vx.reshape(T, S, *hd)
             if quantized:
@@ -1308,14 +1596,16 @@ def make_verify_step(cfg: TransformerConfig, block_size: int, k: int,
                 lc["v"][pb, off] = vx.to(lc["v"].dtype)
             qs = [q[j].reshape(S, *hd).contiguous() for j in range(T)]
             o = torch.stack(attend(qs, lc, tables_t, list(read)))
-            x = x + _rows_dense(o.reshape(T, S, H).to(x.dtype),
-                                bp["attn_out"])
+            x = x + (yield from _rows_out(o.reshape(T, S, width).to(x.dtype),
+                                          bp["attn_out"]))
             h = _rows_layernorm(x, bp["ln2"])
             h = F.gelu(_rows_dense(h, bp["mlp_in"]), approximate="tanh")
-            x = x + _rows_dense(h, bp["mlp_out"])
+            x = x + (yield from _rows_out(h, bp["mlp_out"]))
         x = _rows_layernorm(x, params["ln_f"])
-        w = params["lm_head"].to(x.dtype)
-        logits = torch.stack([xj @ w for xj in x]).float()   # (T, S, V)
+        rows = []
+        for xj in x:
+            rows.append((yield from _logits_steps(xj, params, cfg)))
+        logits = torch.stack(rows).float()                   # (T, S, V)
         keys = np.asarray(keys, np.uint32).reshape(S, 2)
         samples = sample_tokens(
             logits.reshape(T * S, -1), np.tile(keys, (T, 1)),
@@ -1328,4 +1618,4 @@ def make_verify_step(cfg: TransformerConfig, block_size: int, k: int,
         accepted = torch.cumprod(matches, dim=1).sum(dim=1)
         return cache, samples, accepted
 
-    return verify_step
+    return _stepped(body, mesh)

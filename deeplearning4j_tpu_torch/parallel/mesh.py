@@ -54,16 +54,23 @@ class Mesh:
     group initialized, ``device_mesh`` is the
     ``torch.distributed.device_mesh.DeviceMesh`` that owns one process
     group per axis; without one (one process) it is None and every axis
-    has size 1, so no collective is ever needed."""
+    has size 1, so no collective is ever needed. ``rank`` places a
+    mesh without a process group at another device of its grid: a
+    virtual rank of a one-process loop over the grid (its shards and
+    coordinates are that rank's; it has no groups)."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
-                 device_mesh=None):
+                 device_mesh=None, rank: Optional[int] = None):
         self.devices = devices
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               devices.shape))
         self.device_mesh = device_mesh
-        me = dist.get_rank() if device_mesh is not None else 0
+        if rank is not None and device_mesh is not None:
+            raise ValueError("a mesh with process groups is this process's "
+                             "rank's; rank= places a mesh without them")
+        me = dist.get_rank() if device_mesh is not None \
+            else (0 if rank is None else int(rank))
         where = np.argwhere(devices == me)
         self._coord = tuple(int(c) for c in where[0]) if len(where) else None
 

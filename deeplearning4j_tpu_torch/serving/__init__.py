@@ -6,7 +6,9 @@ the resilience layer (retries, breaker, watchdog, fault injection);
 request tracing, the resource ledger, paging and metrics; and the fleet
 tier — the cluster directory and hedging front door, disaggregated
 prefill/decode with KV page migration, the HTTP RPC data plane, the load
-generator and the time-series cost models."""
+generator and the time-series cost models. Both engines serve a model
+sharded over a mesh of ranks (``mesh=``): one rank schedules, every rank
+launches (:mod:`.sharded`)."""
 from deeplearning4j_tpu_torch.serving.admission import (  # noqa: F401
     DEFAULT_TENANT, AdmissionController, ClusterCapacityError,
     DeadlineExceededError, HostDrainingError, HostUnavailableError,
@@ -64,6 +66,9 @@ from deeplearning4j_tpu_torch.serving.rpc import (  # noqa: F401
     HostRpcServer, KvMigrateRequest, KvMigrateResponse, RemoteHost,
     RemoteStream, RpcRequest, RpcResponse, RpcStreamChunk,
     rejected_from_wire,
+)
+from deeplearning4j_tpu_torch.serving.sharded import (  # noqa: F401
+    MeshBrokenError, PlanChannel,
 )
 from deeplearning4j_tpu_torch.serving.timeseries import (  # noqa: F401
     TimeSeriesStore, cheapest_cell, config_key, fit_cost_models,

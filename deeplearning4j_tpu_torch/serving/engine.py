@@ -24,8 +24,15 @@ call on the same padded bucket batch.
 Resilience and observability are the generation engine's
 (:class:`~.resilience.ResilientEngineMixin`): the ``engine.dispatch`` and
 ``engine.warmup`` fault points, bounded retry, the breaker, the watchdog,
-the NaN/inf output screen, tracing and the resource ledger. A ``mesh`` is
-not accepted yet.
+the NaN/inf output screen, tracing and the resource ledger.
+
+Under a ``mesh`` (:mod:`deeplearning4j_tpu_torch.parallel.mesh`) every
+rank of the mesh builds the engine with the same arguments over an
+adapter that shards its model on the mesh (``CausalLMAdapter(mesh=)``).
+The mesh's first rank batches the requests, pads each batch to a bucket
+that is a multiple of the 'data' axis, and sends the padded batch to the
+other ranks before its own call (serving/sharded.py); every rank calls
+the adapter on the same batch, and each receives the whole output.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS
 from deeplearning4j_tpu_torch.profiler import OpProfiler
 from deeplearning4j_tpu_torch.serving.admission import (
     AdmissionController, DeadlineExceededError, HostDrainingError,
@@ -49,6 +57,8 @@ from deeplearning4j_tpu_torch.serving.resilience import (
     CircuitBreaker, CircuitOpenError, PoisonedResultError,
     ResilientEngineMixin, RetryPolicy, WatchdogTimeoutError,
 )
+from deeplearning4j_tpu_torch.serving.sharded import (
+    PlanChannel, bind_card, card_of, driver_only)
 from deeplearning4j_tpu_torch.serving.tracing import terminal_reason
 
 
@@ -83,8 +93,10 @@ class InferenceEngine(ResilientEngineMixin):
     dispatch output, ``qos`` (serving/qos.py ``QosPolicy``) swaps
     admission's FIFO for priority-strict weighted-fair queueing with
     per-tenant quotas and SLO-burn shedding, ``retry_budget`` bounds retry
-    amplification. ``mesh`` raises: sharded serving comes with the mesh
-    slice of the port."""
+    amplification. ``mesh`` serves a model sharded over a mesh of ranks
+    (every rank builds the engine; the first takes the submits, the
+    others follow its batches): the ladder's rungs are multiples of the
+    mesh's 'data' size (serving/sharded.py)."""
 
     _COMPONENT = "serving.InferenceEngine"
     _FAILURE_NOUN = "dispatch"
@@ -105,27 +117,29 @@ class InferenceEngine(ResilientEngineMixin):
         from deeplearning4j_tpu_torch.serving.registry import (
             ModelAdapter, as_adapter)
 
-        if mesh is not None:
-            raise ValueError(
-                "InferenceEngine(mesh=...) is not supported by the port yet: "
-                "the sharded serving engines are not ported (the mesh in "
-                "parallel/mesh.py serves training) — serve on one device")
         self.adapter = model if isinstance(model, ModelAdapter) \
             else as_adapter(model)
-        self.mesh = None
+        self.mesh = mesh
+        self._n = mesh.axis_size(DATA_AXIS) if mesh is not None else 1
         self.device = getattr(self.adapter, "device", None)
+        if self.device is not None:
+            self.device = card_of(self.device)
         if max_batch_size <= 0:
             raise ValueError("max_batch_size must be positive")
         self.max_batch_size = max_batch_size
         self.max_wait_ms = max_wait_ms
         if buckets is None:
-            self.buckets = bucket_ladder(max_batch_size)
+            self.buckets = bucket_ladder(max_batch_size, multiple_of=self._n)
         else:
             self.buckets = tuple(sorted(set(int(b) for b in buckets)))
             if not self.buckets or self.buckets[-1] < max_batch_size:
                 raise ValueError(
                     f"buckets {self.buckets} must cover max_batch_size "
                     f"{max_batch_size}")
+            if any(b % self._n for b in self.buckets):
+                raise ValueError(
+                    f"every bucket must be a multiple of the mesh data-axis "
+                    f"size {self._n}: {self.buckets}")
         self.name = name
         self.metrics = metrics or ServingMetrics()
         self.profiler = profiler or OpProfiler.getInstance()
@@ -151,6 +165,13 @@ class InferenceEngine(ResilientEngineMixin):
                               retry_budget=retry_budget,
                               tracer=tracer, recorder=recorder)
         self._inflight: List[Request] = []
+        self._plan = PlanChannel(mesh) if mesh is not None else None
+        if self._plan is not None and not self._plan.is_driver:
+            # a follower: the driver's batches come as plans
+            self._thread = None
+            self._plan.follow(self._follow)
+            track_engine(self)
+            return
         self._thread = threading.Thread(
             target=self._loop, args=(0,),
             name=f"serving-dispatcher[{self.name}]", daemon=True)
@@ -172,8 +193,15 @@ class InferenceEngine(ResilientEngineMixin):
         self._stop.set()
         self._admission.close()
         self._recorder.record("engine.shutdown", engine=self.name)
-        if wait and self._thread.is_alive():
+        if self._thread is not None and wait and self._thread.is_alive():
             self._thread.join(timeout=5.0)
+        if self._plan is not None and (wait or self._plan.is_driver):
+            self._plan.close()   # the driver's last plan; a follower waits
+
+    @property
+    def is_driver(self) -> bool:
+        """False on a mesh engine's followers (submit raises there)."""
+        return self._plan is None or self._plan.is_driver
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Graceful drain (the host-leave protocol's engine half): new
@@ -195,7 +223,10 @@ class InferenceEngine(ResilientEngineMixin):
         and ``priority`` attribute the request for QoS (accounting labels
         only without a ``qos=`` policy). ``trace_link``/``trace_parent``
         attach the request's trace to a cross-host parent (see
-        serving/rpc.py); by default it is a local root."""
+        serving/rpc.py); by default it is a local root. On a mesh only
+        the driver takes submits."""
+        if not self.is_driver:
+            raise driver_only(self, "submit")
         arr = np.asarray(x)
         if arr.ndim < 1 or arr.shape[0] == 0:
             raise ValueError("submit() needs a batch-major array with >=1 row")
@@ -259,6 +290,7 @@ class InferenceEngine(ResilientEngineMixin):
         ``_epoch``: this (possibly wedged) thread exits at its next check
         instead of racing its replacement, and result delivery tolerates
         futures the watchdog already failed."""
+        bind_card(self.device)
         while not self._stop.is_set() and self._epoch == epoch:
             if self._watchdog is not None:
                 self._watchdog.beat()
@@ -385,10 +417,24 @@ class InferenceEngine(ResilientEngineMixin):
         and bounded retry. Safe to retry because futures resolve only after
         the final outcome — a retried batch cannot deliver twice."""
         def call():
-            return np.asarray(inject("engine.dispatch", self.adapter.infer,
-                                     x))
+            return np.asarray(inject("engine.dispatch", self._run, x))
 
         return self._retry_call(call)
+
+    def _run(self, x: np.ndarray):
+        """The adapter's call on one padded batch; on a mesh the batch
+        goes to the other ranks first, and each calls its adapter too."""
+        if self._plan is None:
+            return self.adapter.infer(x)
+        return self._plan.run({"op": "infer", "x": x},
+                              lambda: self.adapter.infer(x))
+
+    def _follow(self, plan: dict):
+        """A follower's half of the driver's batch."""
+        bind_card(self.device)
+        if plan["op"] != "infer":
+            raise ValueError(f"unknown plan {plan['op']!r}")
+        self.adapter.infer(plan["x"])
 
     # ------------------------------------------- ResilientEngineMixin hooks
     def _retry_traces(self):
@@ -496,9 +542,12 @@ class InferenceEngine(ResilientEngineMixin):
         batch dim), through the ``engine.warmup`` fault point: the
         reference compiles each bucket's executable here; the port's
         first call at each shape sets up cuBLAS's plans and the caching
-        allocator's blocks, off the live traffic's path."""
+        allocator's blocks, off the live traffic's path. A mesh engine's
+        followers return at once: they run the driver's warmup batches."""
         from deeplearning4j_tpu_torch.serving.registry import tile_rows
 
+        if not self.is_driver:
+            return self
         ex = np.asarray(example_row)
         self._check_row_sig(ex.shape, ex.dtype)
         for bucket in self.buckets:
@@ -508,7 +557,7 @@ class InferenceEngine(ResilientEngineMixin):
                 self._seen_buckets.add(bucket)
             with self.profiler.span("serving.warmup", engine=self.name,
                                     bucket=bucket):
-                np.asarray(inject("engine.warmup", self.adapter.infer, x))
+                np.asarray(inject("engine.warmup", self._run, x))
             self.metrics.record_bucket(bucket, 0, first_time)
         return self
 

@@ -80,9 +80,21 @@ disaggregated prefill/decode (serving/disagg.py): ``submit(capture_pages=
 True)`` exports a retiring stream's blocks (:meth:`GenerationEngine.
 take_captured_pages`), and :meth:`GenerationEngine.import_pages` parks
 another host's pages for a ``submit(swap_key=...)`` that re-seats them
-through the swap-in path. Not ported yet: meshes. The reference's
-``compiled_signatures`` and ``draft_compiled_signatures`` count XLA
-executables; the port runs eagerly and has none to count.
+through the swap-in path. The reference's ``compiled_signatures`` and
+``draft_compiled_signatures`` count XLA executables; the port runs
+eagerly and has none to count.
+
+Sharded serving (``mesh=``, a mesh of ranks from
+:func:`~deeplearning4j_tpu_torch.parallel.mesh.make_mesh`): every rank
+of the mesh builds the engine with the same arguments. Heads and the MLP
+ride 'model' (``place_params``; each rank's pool holds its ``heads //
+model`` heads) and 'data' replicates, as in the reference. The mesh's
+first rank is the driver: it runs the scheduler above and sends each
+device operation's plan to the other ranks, which launch the same step on
+their shards (:mod:`.sharded`); ``submit`` works only on the driver. A
+swap-out parks each rank's own heads under one ticket; an export gathers
+each block's heads to every rank, so another engine imports one-device
+pages.
 """
 from __future__ import annotations
 
@@ -104,8 +116,11 @@ from deeplearning4j_tpu_torch.models.bert import (
     compute_params, grow_block_table, init_draft_kv_cache, init_kv_cache,
     make_decode_step, make_draft_prefill, make_draft_step,
     make_paged_decode_step, make_paged_prefill, make_prefill,
-    make_verify_step, validate_block_size, validate_kv_dtype)
+    make_verify_step, paged_kv_cache_pspecs, place_params,
+    validate_block_size, validate_kv_dtype)
 from deeplearning4j_tpu_torch.models.random import prng_key
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    CONTEXT_AXIS, DATA_AXIS, MODEL_AXIS)
 from deeplearning4j_tpu_torch.profiler import OpProfiler
 from deeplearning4j_tpu_torch.serving.admission import (
     DEFAULT_TENANT, AdmissionController, HostDrainingError,
@@ -121,10 +136,34 @@ from deeplearning4j_tpu_torch.serving.qos import (
     PRIORITIES, SloBurnGovernor, SpecAcceptanceGovernor, resolve_qos)
 from deeplearning4j_tpu_torch.serving.resilience import (
     CircuitBreaker, ResilientEngineMixin, RetryPolicy, WatchdogTimeoutError)
+from deeplearning4j_tpu_torch.serving.sharded import (
+    PlanChannel, bind_card, card_of, driver_only)
 from deeplearning4j_tpu_torch.serving.tracing import terminal_reason
 
 _DONE = object()
 _UNSET = object()   # submit()'s "use the engine default" eos sentinel
+
+
+# a step's point -> (step function, its params, the pool's cache it runs
+# on), read off the engine and the pool: the driver and the followers of
+# a mesh engine launch through the same table
+_STEPS = {
+    "generation.prefill": ("_prefill", "params", "cache"),
+    "generation.decode_step": ("_decode", "params", "cache"),
+    "generation.verify_step": ("_verify", "params", "cache"),
+    "generation.draft_prefill": ("_draft_prefill", "_draft_params",
+                                 "draft_cache"),
+    "generation.draft_step": ("_draft_step", "_draft_params",
+                              "draft_cache"),
+}
+
+
+class _Parked(list):
+    """A mesh engine's swapped-out blocks: this rank's per-layer host
+    buffers, and the ticket under which every other rank parked its own
+    heads of the same blocks."""
+
+    ticket: int = -1
 
 
 def _host(x) -> np.ndarray:
@@ -343,6 +382,8 @@ class _Pool:
     block_waiter: Optional[Tuple[Request, int, str]] = None
     # the request in prefill: a restart fails it with the live slots
     inflight_prefill: Optional[Request] = None
+    # a mesh engine's plans name the pool they bind by this key
+    key: int = 0
 
     def live_count(self) -> int:
         return sum(s is not None for s in self.slots)
@@ -414,14 +455,20 @@ class GenerationEngine(ResilientEngineMixin):
     the ``serving.*`` spans; ``screen_outputs`` fails an iteration whose
     sampled ids are out of vocab or non-finite.
 
-    The engine keeps one compute-dtype copy of the weights on ``device``,
-    made once here (:func:`~deeplearning4j_tpu_torch.models.bert.
-    compute_params`); ``device`` defaults to ``"cuda"``."""
+    ``mesh`` shards the model over a mesh of ranks (every rank of it
+    builds the engine with the same arguments and global params; the
+    first rank takes the submits, the others follow its plans,
+    :mod:`.sharded`).
+
+    The engine keeps one compute-dtype copy of the weights (under a mesh,
+    of this rank's shards) on ``device``, made once here
+    (:func:`~deeplearning4j_tpu_torch.models.bert.compute_params`);
+    ``device`` defaults to ``"cuda"``."""
 
     _COMPONENT = "serving.GenerationEngine"
     _FAILURE_NOUN = "prefill/decode"
 
-    def __init__(self, params, cfg, *, slots: int = 8,
+    def __init__(self, params, cfg, *, mesh=None, slots: int = 8,
                  max_len: Optional[int] = None,
                  buckets: Optional[Sequence[int]] = None,
                  cache_dtype: Optional[torch.dtype] = None,
@@ -452,8 +499,15 @@ class GenerationEngine(ResilientEngineMixin):
                 "causal=True) — a bidirectional encoder has no decode order")
         if slots <= 0:
             raise ValueError("slots must be positive")
-        self.device = default_device(device)
+        if mesh is not None and mesh.axis_size(CONTEXT_AXIS) > 1:
+            raise ValueError(
+                f"GenerationEngine shards heads over '{MODEL_AXIS}' and "
+                f"replicates '{DATA_AXIS}'; a '{CONTEXT_AXIS}' axis of "
+                f"{mesh.axis_size(CONTEXT_AXIS)} is not served (a prompt "
+                "prefills whole on every rank)")
+        self.device = card_of(default_device(device))
         self.cfg = cfg
+        self.mesh = mesh
         self.slots = slots
         self.max_len = max_len if max_len is not None else cfg.max_seq
         self.buckets = (tuple(sorted(set(int(b) for b in buckets)))
@@ -506,10 +560,10 @@ class GenerationEngine(ResilientEngineMixin):
                 int(swap_capacity_blocks) if swap_capacity_blocks
                 is not None else self.num_blocks) \
                 if swap_threshold_blocks is not None else None
-            self._prefill = make_paged_prefill(cfg, self.block_size,
+            self._prefill = make_paged_prefill(cfg, self.block_size, mesh,
                                                kv_dtype=self.kv_dtype)
             self._decode = make_paged_decode_step(
-                cfg, self.block_size, kv_dtype=self.kv_dtype,
+                cfg, self.block_size, mesh, kv_dtype=self.kv_dtype,
                 paged_attention=paged_attention)
         else:
             # int8 storage is a block-pool concept: validated against the
@@ -546,9 +600,11 @@ class GenerationEngine(ResilientEngineMixin):
             self.block_size = None
             self.num_blocks = None
             self.max_blocks_per_slot = None
-            self._prefill = make_prefill(cfg)
-            self._decode = make_decode_step(cfg)
+            self._prefill = make_prefill(cfg, mesh)
+            self._decode = make_decode_step(cfg, mesh)
         self._cache_dtype = cache_dtype
+        if mesh is not None:
+            params = place_params(params, cfg, mesh)
         self.params = compute_params(params, cfg, self.device)
         # shared-prefix registry, and the queue of prefixes waiting for
         # their prefill (run by the scheduler thread, which owns the pool)
@@ -586,18 +642,20 @@ class GenerationEngine(ResilientEngineMixin):
                     f"{self.max_len} — the draft must cover every prompt "
                     "bucket position")
             self._draft_cfg = dcfg
-            self._draft_params = compute_params(speculative.draft_params,
-                                                dcfg, self.device)
+            dparams = speculative.draft_params
+            if mesh is not None:
+                dparams = place_params(dparams, dcfg, mesh)
+            self._draft_params = compute_params(dparams, dcfg, self.device)
             # the draft writes K/V up to position length + k - 1, within
             # its positional table (proposals near the end degrade to
             # garbage the verify rejects, never to wrong tokens)
             self._draft_max_len = min(self.max_len + speculative.k,
                                       dcfg.max_seq)
-            self._draft_prefill = make_draft_prefill(dcfg)
-            self._draft_step = make_draft_step(dcfg)
+            self._draft_prefill = make_draft_prefill(dcfg, mesh)
+            self._draft_step = make_draft_step(dcfg, mesh)
             self._verify = make_verify_step(
-                cfg, self.block_size, speculative.k, kv_dtype=self.kv_dtype,
-                paged_attention=paged_attention)
+                cfg, self.block_size, speculative.k, mesh,
+                kv_dtype=self.kv_dtype, paged_attention=paged_attention)
             self._draft_breaker = CircuitBreaker(name=f"{name}.draft")
             self._spec_governor = SpecAcceptanceGovernor(
                 speculative.min_acceptance, speculative.min_proposed)
@@ -622,6 +680,20 @@ class GenerationEngine(ResilientEngineMixin):
         self._init_resilience(retry_policy=retry_policy, breaker=breaker,
                               retry_budget=retry_budget,
                               tracer=tracer, recorder=recorder)
+        # a mesh engine's plan channel (serving/sharded.py): the driver
+        # sends every device operation's plan, a follower runs them
+        self._plan = PlanChannel(mesh) if mesh is not None else None
+        self._pool_keys = itertools.count()
+        if self._plan is not None and not self._plan.is_driver:
+            # a follower: its pools and parked blocks come plan by plan
+            self._pool = _Pool(epoch=0, cache={}, slots=[None] * slots)
+            self._fpools: Dict[int, _Pool] = {}
+            self._fparked: Dict[int, List[Dict[str, Any]]] = {}
+            self._thread = None
+            self._plan.follow(self._follow)
+            track_engine(self)
+            return
+        self._tickets = itertools.count()
         self._pool = self._new_pool()
         self._pool_gauges()
         self._thread = threading.Thread(
@@ -660,8 +732,23 @@ class GenerationEngine(ResilientEngineMixin):
             except InvalidStateError:
                 pass
         self._recorder.record("engine.shutdown", engine=self.name)
-        if wait and self._thread.is_alive():
+        if self._thread is not None and wait and self._thread.is_alive():
             self._thread.join(timeout=30.0)
+        if self._plan is not None and (wait or self._plan.is_driver):
+            # the driver's shutdown plan, after its last launch; a
+            # follower waits for it
+            self._plan.close()
+
+    @property
+    def is_driver(self) -> bool:
+        """False on a mesh engine's followers: they run the driver's
+        plans, and submit, generate and register_prefix raise there."""
+        return self._plan is None or self._plan.is_driver
+
+    def plan_stats(self) -> Optional[dict]:
+        """A mesh engine's plans sent so far and the milliseconds their
+        broadcasts took (the driver's); None without a mesh."""
+        return None if self._plan is None else self._plan.stats()
 
     @property
     def drained(self) -> bool:
@@ -748,7 +835,10 @@ class GenerationEngine(ResilientEngineMixin):
         cross-host parent (the trace context serving/rpc.py forwards):
         the engine's ``RequestTrace`` stays a full local timeline that
         names the front-door trace it is a leg of, so the cluster
-        aggregator can stitch the legs. By default it is a local root."""
+        aggregator can stitch the legs. By default it is a local root.
+        On a mesh engine only the driver takes submits."""
+        if not self.is_driver:
+            raise driver_only(self, "submit")
         tenant, priority = resolve_qos(self.qos, tenant, priority)
         toks = np.ascontiguousarray(np.asarray(prompt, np.int32).ravel())
         if toks.size == 0:
@@ -890,6 +980,8 @@ class GenerationEngine(ResilientEngineMixin):
         scheduler thread, which owns the pool: this call blocks until the
         prefix is resident. After a cache rebuild the registration
         survives and the next stream naming it re-prefills it."""
+        if not self.is_driver:
+            raise driver_only(self, "register_prefix")
         if not self.paged:
             raise ValueError("register_prefix requires the paged KV cache "
                              "(GenerationEngine(paged=True))")
@@ -994,17 +1086,35 @@ class GenerationEngine(ResilientEngineMixin):
     def _prefix_cache(self) -> Optional[PrefixCache]:
         return self._pool.prefix_cache
 
-    def _new_pool(self) -> _Pool:
-        """Allocate a pool that shares nothing with any earlier one: the
-        KV cache, empty slots and, paged, a fresh allocator, zeroed block
-        tables and an empty prefix cache; a speculative engine's draft
+    def _launch(self, plan: dict, fn):
+        """``fn()``, the driver's half of a device operation: on a mesh
+        engine its plan goes to the followers first."""
+        return fn() if self._plan is None else self._plan.run(plan, fn)
+
+    def _alloc_caches(self) -> _Pool:
+        """A pool's device state, which every rank of a mesh allocates:
+        the KV cache (this rank's heads) and a speculative engine's draft
         cache."""
-        pool = _Pool(epoch=self._epoch, slots=[None] * self.slots,
+        return _Pool(epoch=self._epoch, slots=[None] * self.slots,
                      cache=init_kv_cache(
                          self.cfg, self.slots, self.max_len,
                          dtype=self._cache_dtype, block_size=self.block_size,
                          num_blocks=self.num_blocks, kv_dtype=self.kv_dtype,
-                         device=self.device))
+                         device=self.device, mesh=self.mesh),
+                     draft_cache=self._new_draft_cache()
+                     if self._spec is not None else None)
+
+    def _new_pool(self) -> _Pool:
+        """Allocate a pool that shares nothing with any earlier one: the
+        KV cache, empty slots and, paged, a fresh allocator, zeroed block
+        tables and an empty prefix cache; a speculative engine's draft
+        cache. A mesh engine's followers allocate theirs under the same
+        key, and drop it once the driver's pool is collected."""
+        key = next(self._pool_keys)
+        pool = self._launch({"op": "pool", "pool": key}, self._alloc_caches)
+        pool.key = key
+        if self._plan is not None:
+            self._plan.drop_later(pool, "pool", key)
         if self.paged:
             pool.allocator = BlockAllocator(self.num_blocks, reserved=1)
             pool.tables = np.zeros((self.slots, self.max_blocks_per_slot),
@@ -1012,8 +1122,6 @@ class GenerationEngine(ResilientEngineMixin):
             if self.prefix_cache_blocks:
                 pool.prefix_cache = PrefixCache(
                     pool.allocator, self.block_size, self.prefix_cache_blocks)
-        if self._spec is not None:
-            pool.draft_cache = self._new_draft_cache()
         return pool
 
     def _swap_pool(self, pool: _Pool, restart: bool = False) -> _Pool:
@@ -1064,7 +1172,8 @@ class GenerationEngine(ResilientEngineMixin):
         a failed draft call. Live slots become draft-cold; the caller
         marks them."""
         return init_draft_kv_cache(self._draft_cfg, self.slots,
-                                   self._draft_max_len, device=self.device)
+                                   self._draft_max_len, device=self.device,
+                                   mesh=self.mesh)
 
     @property
     def kv_block_bytes(self) -> int:
@@ -1129,6 +1238,7 @@ class GenerationEngine(ResilientEngineMixin):
         swaps in a new pool: this (possibly wedged) thread exits at its
         next bind, and whatever it computes meanwhile lands in its own
         pool and is dropped at its next ``self._pool is pool`` check."""
+        bind_card(self.device)
         # the step's staging arrays, allocated once for THIS thread and
         # refilled in place every iteration: a replacement scheduler runs
         # its own _loop and so its own buffers
@@ -1482,7 +1592,6 @@ class GenerationEngine(ResilientEngineMixin):
         restart replaced the pool meanwhile: the write went to the old
         pool and the replacement's drain prefills again."""
         alloc = pool.allocator
-        cache = pool.cache
         n = prefix.length
         nb = blocks_for_tokens(n, self.block_size)
         blocks = alloc.alloc(nb)
@@ -1497,8 +1606,8 @@ class GenerationEngine(ResilientEngineMixin):
                                     engine=self.name,
                                     prefix=prefix.prefix_id, tokens=n):
                 self._retry_call(lambda: self._donated_call(
-                    "generation.prefill", self._prefill, self.params, cache,
-                    padded, row, n, prng_key(0), 0.0, 0, 0))
+                    "generation.prefill", pool, padded, row, n, prng_key(0),
+                    0.0, 0, 0))
         except Exception:
             alloc.free(blocks)   # the bound allocator: a stale one is inert
             raise
@@ -1670,7 +1779,7 @@ class GenerationEngine(ResilientEngineMixin):
         used = entry.used_blocks
         try:
             inject("kv.swap_in", self._blocks_from_host, blocks[:used],
-                   entry.payload, pool.cache)
+                   entry.payload, pool)
         except Exception as e:
             alloc.free(blocks)
             req.trace.event("kv.swap", direction="in", slot=i,
@@ -1785,7 +1894,7 @@ class GenerationEngine(ResilientEngineMixin):
             return None, 0, 0
         try:
             payload, nbytes = inject("kv.swap_out", self._blocks_to_host,
-                                     pool.tables[j][:used], pool.cache)
+                                     pool.tables[j][:used], pool)
         except Exception:
             return None, 0, 0
         key = store.put(SwapEntry(
@@ -1796,22 +1905,28 @@ class GenerationEngine(ResilientEngineMixin):
             return None, 0, 0
         return key, used, nbytes
 
-    def _blocks_to_host(self, blocks, cache=None
-                        ) -> Tuple[List[Dict[str, Any]], int]:
-        """Copy ``blocks`` of every leaf of ``cache`` (the pool the caller
-        bound; by default the current one) — K and V values, and an int8
-        pool's scales — into host buffers, pinned on the card; returns the
-        per-layer buffers and their bytes. The copies are complete when
-        this returns, so the blocks may be freed right after."""
-        cache = self._cache if cache is None else cache
+    def _copy_out(self, cache, blocks, gather: bool = False,
+                  to_host: bool = True) -> Tuple[List[Dict[str, Any]], int]:
+        """Copy ``blocks`` of every leaf of ``cache`` — K and V values,
+        and an int8 pool's scales — into host buffers, pinned on the card;
+        returns the per-layer buffers and their bytes. The copies are
+        complete when this returns, so the blocks may be freed right
+        after. ``gather`` first gathers each block's heads over 'model'
+        (a collective: every rank of the mesh calls it); a follower that
+        only takes part in it passes ``to_host=False``."""
         rows = torch.as_tensor(np.asarray(blocks, np.int64),
                                device=self.device)
         pin = self.device.type == "cuda"
+        specs = self._kv_shardings() if gather else None
         payload, nbytes = [], 0
-        for lc in cache["layers"]:
+        for li, lc in enumerate(cache["layers"]):
             parked = {}
             for name, leaf in lc.items():
                 src = leaf.index_select(0, rows)
+                if gather:
+                    src = specs[li][name].gather(src)
+                if not to_host:
+                    continue
                 dst = torch.empty(src.shape, dtype=src.dtype,
                                   pin_memory=pin)
                 dst.copy_(src, non_blocking=True)
@@ -1822,18 +1937,112 @@ class GenerationEngine(ResilientEngineMixin):
             torch.cuda.current_stream(self.device).synchronize()
         return payload, nbytes
 
-    def _blocks_from_host(self, blocks, payload: List[Dict[str, Any]],
-                          cache=None):
-        """Write :meth:`_blocks_to_host` buffers into ``blocks`` of
-        ``cache`` (the pool the caller bound; by default the current one).
+    def _copy_in(self, cache, blocks, payload: List[Dict[str, Any]]):
+        """Write :meth:`_copy_out` buffers into ``blocks`` of ``cache``.
         The copies are queued on the current stream, the one the decode
         step runs on, so the next step reads the restored blocks."""
-        cache = self._cache if cache is None else cache
         rows = torch.as_tensor(np.asarray(blocks, np.int64),
                                device=self.device)
         for lc, parked in zip(cache["layers"], payload):
             for name, leaf in lc.items():
                 leaf[rows] = parked[name].to(self.device, non_blocking=True)
+
+    def _kv_shardings(self):
+        """Per layer, each pool leaf's placement over the mesh."""
+        from deeplearning4j_tpu_torch.parallel.mesh import tree_shardings
+
+        return tree_shardings(self.mesh, paged_kv_cache_pspecs(
+            self.cfg, self.kv_dtype))["layers"]
+
+    def _own_heads(self, payload: List[Dict[str, Any]]
+                   ) -> List[Dict[str, Any]]:
+        """This rank's heads of pages that hold every head."""
+        specs = self._kv_shardings()
+        return [{name: specs[li][name].shard(t) for name, t in layer.items()}
+                for li, layer in enumerate(payload)]
+
+    def _blocks_to_host(self, blocks, pool: Optional[_Pool] = None
+                        ) -> Tuple[List[Dict[str, Any]], int]:
+        """Park ``blocks`` of ``pool`` (the pool the caller bound; by
+        default the current one) in host memory (:meth:`_copy_out`): the
+        swap-out copy. On a mesh engine every rank parks its own heads of
+        the blocks: the driver's buffers come back as a :class:`_Parked`
+        whose ticket names the followers' (dropped when it is), and the
+        bytes are the driver's."""
+        pool = self._pool if pool is None else pool
+        if self._plan is None:
+            return self._copy_out(pool.cache, blocks)
+        ticket = next(self._tickets)
+        payload, nbytes = self._launch(
+            {"op": "to_host", "pool": pool.key, "ticket": ticket,
+             "blocks": np.asarray(blocks)},
+            lambda: self._copy_out(pool.cache, blocks))
+        parked = _Parked(payload)
+        parked.ticket = ticket
+        self._plan.drop_later(parked, "parked", ticket)
+        return parked, nbytes
+
+    def _blocks_from_host(self, blocks, payload: List[Dict[str, Any]],
+                          pool: Optional[_Pool] = None):
+        """Write parked blocks into ``blocks`` of ``pool`` (by default the
+        current one; :meth:`_copy_in`). On a mesh engine each rank writes
+        its own heads: its own parked buffers (a :class:`_Parked`), or its
+        heads of pages that hold every head (another engine's export)."""
+        pool = self._pool if pool is None else pool
+        if self._plan is None:
+            return self._copy_in(pool.cache, blocks, payload)
+        plan = {"op": "from_host", "pool": pool.key,
+                "blocks": np.asarray(blocks)}
+        if isinstance(payload, _Parked):
+            plan["ticket"] = payload.ticket
+            mine = payload
+        else:
+            plan["whole"] = payload
+            mine = self._own_heads(payload)
+        return self._launch(plan,
+                            lambda: self._copy_in(pool.cache, blocks, mine))
+
+    def _export_blocks(self, blocks, pool: Optional[_Pool] = None
+                       ) -> Tuple[List[Dict[str, Any]], int]:
+        """Pages of ``blocks`` for another engine (:meth:`_capture_pages`):
+        on a mesh engine every rank gathers each block's heads over
+        'model', so the driver's pages hold every head — the layout and
+        wire format of a one-device engine's."""
+        pool = self._pool if pool is None else pool
+        if self._plan is None:
+            return self._copy_out(pool.cache, blocks)
+        return self._launch(
+            {"op": "export", "pool": pool.key, "blocks": np.asarray(blocks)},
+            lambda: self._copy_out(pool.cache, blocks, gather=True))
+
+    def _follow(self, plan: dict):
+        """A follower's half of one of the driver's plans
+        (serving/sharded.py): the same launch on this rank's shards."""
+        bind_card(self.device)
+        for kind, key in plan.get("drops", ()):
+            (self._fpools if kind == "pool" else self._fparked).pop(key,
+                                                                    None)
+        op = plan["op"]
+        if op == "pool":
+            self._fpools[plan["pool"]] = self._alloc_caches()
+            return
+        pool = self._fpools[plan["pool"]]
+        if op == "step":
+            self._step(plan["point"], pool, plan["args"])
+        elif op == "draft":
+            pool.draft_cache = self._new_draft_cache()
+        elif op == "to_host":
+            self._fparked[plan["ticket"]] = self._copy_out(
+                pool.cache, plan["blocks"])[0]
+        elif op == "from_host":
+            payload = self._fparked.pop(plan["ticket"]) \
+                if "ticket" in plan else self._own_heads(plan["whole"])
+            self._copy_in(pool.cache, plan["blocks"], payload)
+        elif op == "export":
+            self._copy_out(pool.cache, plan["blocks"], gather=True,
+                           to_host=False)
+        else:
+            raise ValueError(f"unknown plan {op!r}")
 
     def _discard_swap(self, greq: GenerationRequest):
         """Drop a requeued stream's parked blocks (it was shed or
@@ -1860,8 +2069,7 @@ class GenerationEngine(ResilientEngineMixin):
         greq: GenerationRequest = req.x
         try:
             payload, nbytes = inject("kv.migrate.export",
-                                     self._blocks_to_host, blocks,
-                                     pool.cache)
+                                     self._export_blocks, blocks, pool)
         except Exception as e:
             req.trace.event("kv.migrate", direction="export",
                             failed=type(e).__name__)
@@ -1897,6 +2105,8 @@ class GenerationEngine(ResilientEngineMixin):
         still gates on the threshold, so it does not change. None when the
         store refuses the entry or the seeded ``kv.migrate.import`` point
         fires: the caller submits without ``swap_key`` and recomputes."""
+        if not self.is_driver:
+            raise driver_only(self, "import_pages")
         if not self.paged:
             raise ValueError(
                 "import_pages requires the paged KV cache "
@@ -2057,23 +2267,34 @@ class GenerationEngine(ResilientEngineMixin):
                 return b
         return self.buckets[-1]
 
-    def _donated_call(self, point: str, fn, *args):
-        """Run a step under the ``point`` fault hook, and stamp an
-        exception that escapes after the step started with
-        ``donated_state_consumed=True``: an injected fault raises before
-        the step launches anything (the pool is untouched, a retry is
-        safe), but a real failure from the step itself may have written
-        part of the pool, so the retry classifier refuses it and the
-        fail-tenants-and-rebuild path takes over."""
+    def _step(self, point: str, pool: _Pool, host):
+        """Launch the step ``point`` names on ``pool`` with its host
+        arguments: the one call the driver and a follower both make."""
+        fn, params, cache = _STEPS[point]
+        return getattr(self, fn)(getattr(self, params), getattr(pool, cache),
+                                 *host)
+
+    def _donated_call(self, point: str, pool: _Pool, *host):
+        """Run the step ``point`` names on ``pool`` (:data:`_STEPS`) under
+        the ``point`` fault hook, and stamp an exception that escapes
+        after the step started with ``donated_state_consumed=True``: an
+        injected fault raises before the step launches anything (the pool
+        is untouched, a retry is safe), but a real failure from the step
+        itself may have written part of the pool, so the retry classifier
+        refuses it and the fail-tenants-and-rebuild path takes over. On a
+        mesh engine the plan goes out inside the hook, so an injected
+        fault fires before any rank launches."""
         started = False
 
         def run(*a):
             nonlocal started
             started = True
-            return fn(*a)
+            return self._launch(
+                {"op": "step", "point": point, "pool": pool.key, "args": a},
+                lambda: self._step(point, pool, a))
 
         try:
-            return inject(point, run, *args)
+            return inject(point, run, *host)
         except BaseException as e:
             if started:
                 try:
@@ -2131,7 +2352,6 @@ class GenerationEngine(ResilientEngineMixin):
             blocks = alloc.alloc(nb_total)
             row = np.zeros(self.max_blocks_per_slot, np.int32)
             row[:nb_total] = blocks
-        cache = pool.cache
         t0 = time.perf_counter()
         try:
             with self.profiler.span("serving.prefill", engine=self.name,
@@ -2139,15 +2359,14 @@ class GenerationEngine(ResilientEngineMixin):
                 def call():
                     if self.paged:
                         return self._donated_call(
-                            "generation.prefill", self._prefill,
-                            self.params, cache, padded,
+                            "generation.prefill", pool, padded,
                             row[:blocks_for_tokens(bucket, self.block_size)],
                             n, greq.key, greq.temperature, greq.top_k,
                             greq.resume_step)
                     return self._donated_call(
-                        "generation.prefill", self._prefill, self.params,
-                        cache, padded, slot, n, greq.key, greq.temperature,
-                        greq.top_k, greq.resume_step)
+                        "generation.prefill", pool, padded, slot, n,
+                        greq.key, greq.temperature, greq.top_k,
+                        greq.resume_step)
 
                 tok_host = _host(self._retry_call(call)[1]).reshape(-1)
                 if self.screen_outputs:
@@ -2233,9 +2452,8 @@ class GenerationEngine(ResilientEngineMixin):
         if padded.shape[1] > self._draft_cfg.max_seq:
             return
         try:
-            self._donated_call("generation.draft_prefill",
-                               self._draft_prefill, self._draft_params,
-                               pool.draft_cache, padded, slot)
+            self._donated_call("generation.draft_prefill", pool, padded,
+                               slot)
         except Exception as e:
             self._draft_failed(pool, "generation.draft_prefill", e)
             return
@@ -2250,7 +2468,8 @@ class GenerationEngine(ResilientEngineMixin):
         self._recorder.record("spec.draft_failure", engine=self.name,
                               point=point, error=type(exc).__name__)
         if self._pool is pool:   # a replaced pool is dropped whole
-            pool.draft_cache = self._new_draft_cache()
+            pool.draft_cache = self._launch(
+                {"op": "draft", "pool": pool.key}, self._new_draft_cache)
             for st in pool.slots:
                 if st is not None:
                     st.draft_len = -1
@@ -2322,18 +2541,17 @@ class GenerationEngine(ResilientEngineMixin):
                 and self._spec_turn(pool, buf, states, n_live):
             return
         t0 = time.perf_counter()
-        cache, tables = pool.cache, pool.tables
+        tables = pool.tables
         with self.profiler.span("serving.decode_step", engine=self.name,
                                 live=n_live, slots=S):
             def call():
                 if self.paged:
                     return self._donated_call(
-                        "generation.decode_step", self._decode,
-                        self.params, cache, tables, lengths, tokens, keys,
-                        steps, temps, top_ks, cow_src, cow_dst)
+                        "generation.decode_step", pool, tables, lengths,
+                        tokens, keys, steps, temps, top_ks, cow_src, cow_dst)
                 return self._donated_call(
-                    "generation.decode_step", self._decode, self.params,
-                    cache, tokens, live, keys, steps, temps, top_ks)
+                    "generation.decode_step", pool, tokens, live, keys,
+                    steps, temps, top_ks)
 
             toks = _host(self._retry_call(call)[1])
             if self.screen_outputs:
@@ -2399,14 +2617,12 @@ class GenerationEngine(ResilientEngineMixin):
         dtoks[:, 0] = buf["tokens"]
         feed = buf["draft_feed"]
         np.copyto(feed, buf["tokens"])
-        dcache = pool.draft_cache
         try:
             with self.profiler.span("serving.draft_step", engine=self.name,
                                     live=n_live, k=k):
                 for j in range(k):
                     props = _host(self._donated_call(
-                        "generation.draft_step", self._draft_step,
-                        self._draft_params, dcache, feed,
+                        "generation.draft_step", pool, feed,
                         buf["lengths"] + j, buf["keys"], buf["steps"] + j,
                         buf["temps"], buf["top_ks"])[1])
                     if self.screen_outputs:
@@ -2423,16 +2639,16 @@ class GenerationEngine(ResilientEngineMixin):
                 return True   # stale: the restart failed these tenants
         self._draft_breaker.record_success()
         t0 = time.perf_counter()
-        cache, tables = pool.cache, pool.tables
+        tables = pool.tables
         try:
             with self.profiler.span("serving.verify_step", engine=self.name,
                                     live=n_live, slots=self.slots, k=k):
                 def call():
                     return self._donated_call(
-                        "generation.verify_step", self._verify, self.params,
-                        cache, tables, buf["lengths"], dtoks, buf["keys"],
-                        buf["steps"], buf["temps"], buf["top_ks"],
-                        buf["cow_src"], buf["cow_dst"])
+                        "generation.verify_step", pool, tables,
+                        buf["lengths"], dtoks, buf["keys"], buf["steps"],
+                        buf["temps"], buf["top_ks"], buf["cow_src"],
+                        buf["cow_dst"])
 
                 _, samples, accepted = self._retry_call(call)
                 samples = _host(samples)
@@ -2767,7 +2983,10 @@ class GenerationEngine(ResilientEngineMixin):
         load, the allocator's and libraries' first use. The prefix cache
         is bypassed meanwhile (a rung's probe must prefill) and its probe
         entries are dropped after. A speculative engine also runs one
-        probe through the plain decode fallback."""
+        probe through the plain decode fallback. A mesh engine's
+        followers return at once: they run the driver's probes."""
+        if not self.is_driver:
+            return self
         prev = 0
         self._cache_bypass = True
         try:

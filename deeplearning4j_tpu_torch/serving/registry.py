@@ -17,6 +17,12 @@ every bucket and runs the model once per rung before the deployment
 becomes visible (the reference compiles each rung's executable there; the
 port's first call at each shape sets up cuBLAS's plans and the caching
 allocator's blocks).
+
+Under a mesh of ranks (``CausalLMAdapter(mesh=)``) every rank of the mesh
+deploys the same model and builds its engines with the same arguments:
+a deploy-time warmup runs the adapter, and with it the mesh's
+collectives, on every rank; :meth:`ModelRegistry.engine` with ``mesh=``
+re-ladders to multiples of the mesh's 'data' size.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import default_device
+from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS
 from deeplearning4j_tpu_torch.serving.faults import inject
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.resilience import (
@@ -69,7 +76,11 @@ class CausalLMAdapter(ModelAdapter):
     kinds — :meth:`infer` gives last-position logits for the batching
     :class:`~.engine.InferenceEngine`, :meth:`generation_engine` builds
     the continuous-batching :class:`~.generation.GenerationEngine`.
-    ``device`` defaults to ``"cuda"``; ``mesh`` raises (not ported)."""
+    ``device`` defaults to ``"cuda"``. Under ``mesh`` every rank of the
+    mesh builds the adapter with the same global ``params``: :meth:`infer`
+    runs ``make_infer_last_logits(cfg, mesh)`` on the rank's
+    ``place_params`` shards (every rank passes the same batch and gets the
+    whole logits), and :meth:`generation_engine` serves on the mesh."""
 
     kind = "CausalLM"
 
@@ -78,14 +89,9 @@ class CausalLMAdapter(ModelAdapter):
         if not cfg.causal:
             raise ValueError("CausalLMAdapter needs TransformerConfig("
                              "causal=True)")
-        if mesh is not None:
-            raise ValueError(
-                "CausalLMAdapter(mesh=...) is not supported by the port "
-                "yet: the sharded serving engines are not ported (the mesh "
-                "in parallel/mesh.py serves training) — serve on one device")
         self.params = params
         self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
         self.device = default_device(device)
         self._fwd = None
         self._compute = None
@@ -98,13 +104,15 @@ class CausalLMAdapter(ModelAdapter):
         with self._init_lock:
             if self._fwd is None:
                 from deeplearning4j_tpu_torch.models.bert import (
-                    compute_params, make_infer_last_logits)
+                    compute_params, make_infer_last_logits, place_params)
 
-                # one compute-dtype copy of the weights for every call
-                # (bitwise the master weights' results)
-                self._compute = compute_params(self.params, self.cfg,
-                                               self.device)
-                self._fwd = make_infer_last_logits(self.cfg)
+                # one compute-dtype copy of the weights (of this rank's
+                # shards under a mesh) for every call (bitwise the master
+                # weights' results)
+                params = self.params if self.mesh is None \
+                    else place_params(self.params, self.cfg, self.mesh)
+                self._compute = compute_params(params, self.cfg, self.device)
+                self._fwd = make_infer_last_logits(self.cfg, self.mesh)
         tokens = torch.from_numpy(
             np.array(x, dtype=np.int32, copy=True)).to(self.device)
         return self._fwd(self._compute, tokens).cpu().numpy()
@@ -114,6 +122,7 @@ class CausalLMAdapter(ModelAdapter):
             GenerationEngine)
 
         engine_kwargs.setdefault("device", self.device)
+        engine_kwargs.setdefault("mesh", self.mesh)
         return GenerationEngine(self.params, self.cfg, **engine_kwargs)
 
 
@@ -510,11 +519,16 @@ class ModelRegistry:
         the deployment's bucket ladder is the padding ladder, its breaker,
         QoS policy and retry budget are the engine's, and a deployment
         with a warmup example re-warms through the engine's own dispatch
-        path."""
+        path. With ``mesh=`` a ladder whose rungs are not all multiples
+        of the mesh's 'data' size gives way to the engine's own
+        (``bucket_ladder(max_batch_size, multiple_of=data)``)."""
         from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
 
         dep = self.get(ref)
-        engine_kwargs.setdefault("buckets", dep.buckets)
+        mesh = engine_kwargs.get("mesh")
+        n = mesh.axis_size(DATA_AXIS) if mesh is not None else 1
+        if all(b % n == 0 for b in dep.buckets):
+            engine_kwargs.setdefault("buckets", dep.buckets)
         engine_kwargs.setdefault("max_batch_size", dep.buckets[-1])
         engine_kwargs.setdefault("name", dep.ref)
         # share the deployment's breaker: trips seen by any engine make

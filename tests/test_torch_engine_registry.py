@@ -72,6 +72,18 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
+@pytest.fixture
+def gloo_world(tmp_path):
+    """A process group of one gloo rank in this process, for the mesh
+    tests; destroyed after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
 @pytest.fixture(autouse=True)
 def _no_plan_left():
     yield
@@ -335,9 +347,23 @@ class TestEngine:
         c = both(run)
         assert c["requests_total"] == 12 and c["rows_total"] == 27
 
-    def test_mesh_refused_until_ported(self):
-        with pytest.raises(ValueError, match="mesh"):
-            T.InferenceEngine(mlp(T), mesh=object())
+    def test_mesh_of_one_rank_serves_bit_equal(self, gloo_world):
+        """``InferenceEngine(mesh=)`` on a mesh of one gloo rank (its
+        batches go out on the plan channel to no follower) gives each
+        request the rows of the meshless engine's, bit for bit."""
+        from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+        xs = [np.random.default_rng(s).normal(size=(n, 6)).astype(
+            np.float32) for s, n in ((1, 1), (2, 3), (3, 2))]
+        with T.InferenceEngine(mlp(T), max_batch_size=8,
+                               max_wait_ms=0) as eng:
+            want = [eng.output(x) for x in xs]
+        with T.InferenceEngine(mlp(T), mesh=make_mesh({"data": 1}),
+                               max_batch_size=8, max_wait_ms=0) as eng:
+            got = [eng.output(x) for x in xs]
+            assert eng.is_driver and eng._plan.plans == 3
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 # --------------------------------------------------------------------------
@@ -400,12 +426,40 @@ class TestCausalLM:
         with pytest.raises(ValueError, match="causal"):
             T.CausalLMAdapter(p, TransformerConfig(
                 **{**WIDTHS, "causal": False}), device="cpu")
-        with pytest.raises(ValueError, match="mesh"):
-            T.CausalLMAdapter(p, TCFG, mesh=object(), device="cpu")
         with pytest.raises(TypeError, match="MultiLayerNetwork"):
             T.as_adapter(object())
         ad = T.CausalLMAdapter(p, TCFG, device="cpu")
         assert T.as_adapter(ad) is ad and ad.cache_size() is None
+
+
+    def test_adapter_on_a_mesh_of_one_rank_is_bit_equal(self, np_params,
+                                                        gloo_world):
+        """``CausalLMAdapter(mesh=)`` on a {data: 1, model: 1} mesh of one
+        gloo rank: ``infer`` through the batching engine and the
+        adapter's generation engine are bit for bit the meshless
+        adapter's (every collective sums or gathers over one rank)."""
+        from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+        p = params_from_numpy(np_params, device="cpu")
+        x = np.random.default_rng(6).integers(1, 50, (3, 9)).astype(np.int32)
+        plain = T.CausalLMAdapter(p, TCFG, device="cpu")
+        mesh = make_mesh({"data": 1, "model": 1})
+        sharded = T.CausalLMAdapter(p, TCFG, mesh, device="cpu")
+        assert sharded.mesh is mesh
+        with T.InferenceEngine(sharded, mesh=mesh, max_batch_size=4,
+                               max_wait_ms=0) as eng:
+            out = eng.output(x)
+        assert np.array_equal(out, plain.infer(x)[:3])
+        prompt = np.arange(1, 8, dtype=np.int32)
+        streams = []
+        for ad in (plain, sharded):
+            with ad.generation_engine(slots=2, max_len=32,
+                                      block_size=8) as g:
+                assert g.mesh is ad.mesh
+                streams.append(g.generate(prompt, max_new_tokens=6,
+                                          temperature=0.8, top_k=5, seed=3,
+                                          timeout=120))
+        assert streams[0] == streams[1]
 
 
 # --------------------------------------------------------------------------

@@ -233,7 +233,7 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "for want in ('ops.updaters', 'serving.rpc', 'serving.cluster',\n"
-        "             'serving.disagg', 'parallel.mesh',\n"
+        "             'serving.disagg', 'serving.sharded', 'parallel.mesh',\n"
         "             'parallel.multihost', 'parallel.sequence_parallel'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + want in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -437,8 +437,306 @@ def train_suite():
     return cases
 
 
+# ---------------------------------------------------- suite: mesh serving
+
+# tests/test_generation.py's CFG (fp32, einsum attention), its prompts and
+# sampling knobs; the port-only cases run the packed route
+SERVE = dict(vocab_size=50, hidden=32, layers=2, heads=2, mlp_dim=64,
+             max_seq=64)
+DRAFT = dict(vocab_size=50, hidden=16, layers=1, heads=2, mlp_dim=32,
+             max_seq=64)
+SAMPLED = dict(temperature=0.8, top_k=5, seed=3)
+# (case id, mesh shape, engine keyword arguments)
+SERVE_CASES = [
+    ("contiguous", {"data": 4, "model": 2}, dict(paged=False)),
+    ("paged-gather", {"data": 4, "model": 2}, dict(block_size=8)),
+    ("fused-float32", {"data": 4, "model": 2},
+     dict(block_size=8, paged_attention="fused", kv_dtype="float32")),
+    ("fused-int8", {"data": 4, "model": 2},
+     dict(block_size=8, paged_attention="fused", kv_dtype="int8")),
+]
+TIGHT = dict(slots=2, max_len=32, block_size=8, num_blocks=5,
+             allocate="on_demand", queue_capacity=8,
+             swap_threshold_blocks=0, swap_capacity_blocks=64)
+# the follower of the lost-rank case dies after this many decode plans
+KILL_AFTER = 3
+# set on every rank by the last case: rank 1 is gone, so the world ends
+# without its closing barrier
+WORLD_BROKEN = False
+
+
+def serve_prompt(n, seed=0):
+    """tests/test_generation.py's ``prompt``."""
+    return np.random.default_rng(seed).integers(
+        1, SERVE["vocab_size"], n).astype(np.int32)
+
+
+def serve_cfg(impl="full", **over):
+    return tbert.TransformerConfig(dtype=torch.float32, causal=True,
+                                   attention_impl=impl, remat=False,
+                                   **dict(SERVE, **over))
+
+
+def serve_params():
+    return np_params(SERVE, 11)
+
+
+def draft_params():
+    return np_params(DRAFT, 12)
+
+
+def _engine(mesh, cfg=None, params=None, **kw):
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+
+    return GenerationEngine(_tree(serve_params() if params is None
+                                  else params),
+                            serve_cfg() if cfg is None else cfg, mesh=mesh,
+                            device="cpu", **kw)
+
+
+def jax_mesh_case(shape, kw):
+    """Greedy and sampled streams of one prompt (the reference's mesh
+    tests), then the same prompt again: the second stream reuses the
+    engine."""
+    mesh = make_mesh(shape)
+    if not mesh.contains_rank():
+        return None
+    with _engine(mesh, slots=2, max_len=32, **kw) as eng:
+        if not eng.is_driver:
+            return None
+        p = serve_prompt(6, seed=21)
+        return {"greedy": eng.generate(p, max_new_tokens=6, timeout=120),
+                "sampled": eng.generate(p, max_new_tokens=6, timeout=120,
+                                        **SAMPLED),
+                "plans": eng.plan_stats()["plans"]}
+
+
+def fused_refusal_case():
+    mesh = make_mesh({"data": 1, "model": 8})
+    try:
+        tbert.make_paged_decode_step(serve_cfg(), 8, mesh=mesh,
+                                     paged_attention="fused")
+    except ValueError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+def prefix_cow_case():
+    """Three streams on a 10-token prefix (its tail block copied on
+    write), greedy and sampled."""
+    mesh = make_mesh({"model": 2})
+    if not mesh.contains_rank():
+        return None
+    with _engine(mesh, serve_cfg("flash"), slots=4, max_len=32,
+                 block_size=8) as eng:
+        if not eng.is_driver:
+            return None
+        pid = eng.register_prefix(serve_prompt(10, seed=40))
+        hs = [eng.submit(serve_prompt(3, seed=60 + i), prefix_id=pid,
+                         max_new_tokens=5, **(SAMPLED if i else {}))
+              for i in range(3)]
+        return {"streams": [h.result(timeout=120) for h in hs],
+                "cow": int(eng.metrics.kv_cow_copies_total.value)}
+
+
+def preempt_swap_case():
+    """Two streams on a 5-block on-demand pool: one is preempted and
+    swapped to host (each rank its own heads), then swapped back."""
+    mesh = make_mesh({"model": 2})
+    if not mesh.contains_rank():
+        return None
+    with _engine(mesh, serve_cfg("flash"), **TIGHT) as eng:
+        if not eng.is_driver:
+            return None
+        hs = [eng.submit(serve_prompt(4, s), max_new_tokens=20, eos_id=None,
+                         seed=s) for s in (0, 1)]
+        m = eng.metrics
+        return {"streams": [h.result(timeout=120) for h in hs],
+                "preemptions": int(m.preemptions_total.value),
+                "swapped": int(m.kv_swapped_blocks.value),
+                "swap_ins": sum(h._req.x.swap_ins for h in hs)}
+
+
+def speculative_case():
+    from deeplearning4j_tpu_torch.serving import SpecConfig
+
+    mesh = make_mesh({"model": 2})
+    if not mesh.contains_rank():
+        return None
+    dcfg = tbert.TransformerConfig(dtype=torch.float32, causal=True,
+                                   attention_impl="full", remat=False,
+                                   **DRAFT)
+    spec = SpecConfig(draft_params=_tree(draft_params()), draft_cfg=dcfg,
+                      k=2)
+    with _engine(mesh, serve_cfg("flash"), slots=2, max_len=32,
+                 block_size=8, paged_attention="fused",
+                 speculative=spec) as eng:
+        if not eng.is_driver:
+            return None
+        ps = [serve_prompt(5, seed=70), serve_prompt(9, seed=71)]
+        out = [eng.generate(ps[0], max_new_tokens=8, timeout=120),
+               eng.generate(ps[1], max_new_tokens=8, timeout=120,
+                            **SAMPLED)]
+        return {"streams": out,
+                "verify_steps": int(eng.metrics.decode_steps_total.value)}
+
+
+def migrate_case():
+    """A prefill engine exports a stream's pages (gathered over 'model':
+    every head); a decode engine imports them and resumes the stream."""
+    mesh = make_mesh({"model": 2})
+    if not mesh.contains_rank():
+        return None
+    p = serve_prompt(11, seed=80)
+    res = {}
+    with _engine(mesh, serve_cfg("flash"), slots=2, max_len=32,
+                 block_size=8) as eng:
+        if eng.is_driver:
+            h = eng.submit(p, max_new_tokens=1, capture_pages=True)
+            first = h.result(timeout=120)
+            entry = eng.take_captured_pages(h)
+            res.update(first=first, pages=[{k: v.numpy() for k, v in
+                                            layer.items()}
+                                           for layer in entry.payload])
+    with _engine(mesh, serve_cfg("flash"), slots=2, max_len=32,
+                 block_size=8) as eng:
+        if not eng.is_driver:
+            return None
+        key = eng.import_pages(entry)
+        h = eng.submit(p, max_new_tokens=6, swap_key=key,
+                       resume_tokens=first, resume_step=1)
+        res.update(resumed=h.result(timeout=120), swap_ins=h._req.x.swap_ins)
+    return res
+
+
+def inference_case():
+    """``InferenceEngine`` over ``CausalLMAdapter(mesh=)`` through a
+    registry deployment at {model: 2}: each batch against a direct call of
+    the mesh's ``make_infer_last_logits`` on the padded batch; then the
+    registry's default ladder on {data: 8}."""
+    from deeplearning4j_tpu_torch.serving import (
+        CausalLMAdapter, ModelRegistry)
+
+    res = {}
+    cfg = serve_cfg("flash")
+    params = _tree(serve_params())
+    rng = np.random.default_rng(5)
+    xs = [rng.integers(1, 50, (n, 12)).astype(np.int32) for n in (1, 3, 2)]
+    mesh = make_mesh({"model": 2})
+    if mesh.contains_rank():
+        reg = ModelRegistry(default_buckets=(1, 2, 4))
+        reg.deploy("lm", CausalLMAdapter(params, cfg, mesh, device="cpu"))
+        outs = []
+        with reg.engine("lm", mesh=mesh, max_wait_ms=0) as eng:
+            if eng.is_driver:
+                outs = [eng.output(x) for x in xs]
+        fwd = tbert.make_infer_last_logits(cfg, mesh)
+        placed = tbert.place_params(params, cfg, mesh)
+        direct = []
+        for x in xs:
+            b = 1 if len(x) == 1 else (2 if len(x) == 2 else 4)
+            pad = np.zeros((b, 12), np.int32)
+            pad[:len(x)] = x
+            direct.append(fwd(placed, torch.from_numpy(pad)).numpy()[
+                :len(x)])
+        reg.shutdown()
+        if mesh.axis_index("model") == 0:
+            res.update(outs=outs, direct=direct, xs=xs)
+    d8 = make_mesh({"data": 8})
+    reg = ModelRegistry()
+    reg.deploy("lm", CausalLMAdapter(params, cfg, d8, device="cpu"))
+    with reg.engine("lm", mesh=d8, max_wait_ms=0) as eng:
+        if eng.is_driver:
+            res.update(d8_buckets=eng.buckets,
+                       d8_out=eng.output(np.ones((3, 6), np.int32)))
+    reg.shutdown()
+    return res if dist.get_rank() == 0 else None
+
+
+def follower_submit_case():
+    mesh = make_mesh({"model": 2})
+    if not mesh.contains_rank():
+        return None
+    with _engine(mesh, slots=2, max_len=32, block_size=8) as eng:
+        if eng.is_driver:
+            out = eng.generate(serve_prompt(4), max_new_tokens=2,
+                               timeout=120)
+            msgs = [None]
+        else:
+            out = None
+            try:
+                eng.submit(serve_prompt(4))
+                msgs = [None]
+            except ValueError as e:
+                msgs = [str(e)]
+    gathered = [None, None]
+    dist.all_gather_object(gathered, msgs, group=mesh.group("model"))
+    return {"follower": gathered[1][0], "driver_stream": out} \
+        if dist.get_rank() == 0 else None
+
+
+def lost_rank_case():
+    """Rank 1, the follower, kills itself after ``KILL_AFTER`` decode
+    plans; the driver must fail its stream typed and stop, with no hang.
+    The last case of the suite: the world has a dead rank after it."""
+    import os
+    import signal
+
+    global WORLD_BROKEN
+    WORLD_BROKEN = True
+    mesh = make_mesh({"model": 2})
+    if not mesh.contains_rank():
+        return None
+    eng = _engine(mesh, slots=2, max_len=64, block_size=8)
+    if not eng.is_driver:
+        seen = [0]
+        follow = eng._follow
+
+        def dying(plan):
+            if plan.get("point") == "generation.decode_step":
+                seen[0] += 1
+                if seen[0] > KILL_AFTER:
+                    os.kill(os.getpid(), signal.SIGKILL)
+            follow(plan)
+
+        eng._plan._handler = dying
+        eng._plan._done.wait()
+        return None
+    t0 = time.perf_counter()
+    h = eng.submit(serve_prompt(6), max_new_tokens=40, eos_id=None)
+    try:
+        h.result(timeout=240)
+        raised = None
+    except Exception as e:
+        raised = (type(e).__name__, str(e)[:300])
+    dt = time.perf_counter() - t0
+    res = {"raised": raised, "seconds": dt,
+           "tokens": len(h.tokens_so_far()), "stopped": eng._stop.is_set()}
+    try:
+        eng.submit(serve_prompt(4))
+        res["after"] = None
+    except Exception as e:
+        res["after"] = type(e).__name__
+    eng.shutdown()
+    return res
+
+
+def serving_suite():
+    cases = [(cid, (lambda s=s, kw=kw: jax_mesh_case(s, kw)))
+             for cid, s, kw in SERVE_CASES]
+    cases += [("fused-refusal", fused_refusal_case),
+              ("prefix-cow", prefix_cow_case),
+              ("preempt-swap", preempt_swap_case),
+              ("speculative", speculative_case),
+              ("migrate", migrate_case),
+              ("inference", inference_case),
+              ("follower-submit", follower_submit_case),
+              ("lost-rank", lost_rank_case)]
+    return cases
+
+
 SUITES = {"parallel": parallel_suite, "multihost": multihost_suite,
-          "train": train_suite}
+          "train": train_suite, "serving": serving_suite}
 
 
 # ---------------------------------------------------------------- worker
@@ -474,6 +772,10 @@ def main(argv) -> int:
         with open(tmp, "wb") as f:
             pickle.dump(results, f)
         os.replace(tmp, os.path.join(out, f"{suite}.pkl"))
+    if WORLD_BROKEN:
+        # a rank of the world is gone: no barrier can complete, and the
+        # process groups' teardown would wait on it
+        os._exit(0)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -488,8 +790,10 @@ class World:
     by ``timeout`` seconds from the start; on expiry every process is
     killed and the call raises) and returns rank 0's results."""
 
-    def __init__(self, suite: str, world: int, tmpdir, timeout: float):
+    def __init__(self, suite: str, world: int, tmpdir, timeout: float,
+                 killed=()):
         self.suite, self.dir = suite, str(tmpdir)
+        self.killed = set(killed)   # ranks a case kills (SIGKILL)
         self.deadline = time.monotonic() + timeout
         env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
         store = os.path.join(self.dir, f"{suite}.store")
@@ -527,7 +831,8 @@ class World:
                                + self._logs())
         codes = [p.returncode for p in self.procs]
         path = os.path.join(self.dir, f"{self.suite}.pkl")
-        if any(codes) or not os.path.exists(path):
+        if any(c and not (r in self.killed and c == -9)
+               for r, c in enumerate(codes)) or not os.path.exists(path):
             raise RuntimeError(f"{self.suite} world exited {codes}\n"
                                + self._logs())
         with open(path, "rb") as f:

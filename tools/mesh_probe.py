@@ -26,7 +26,16 @@ should equal:
 - ``mlm``: bench.py's MLM step (B=96, T=512) under ``{data: N/2,
   model: 2}`` (the packed kernel on each rank's 6 heads) against the
   meshless step: losses of 2 warm-up and 3 timed steps within 1e-3
-  relative, tokens/s a card.
+  relative, tokens/s a card;
+- ``serving``: ``chip_smoke.py``'s engine phase (BERT-base widths as a
+  causal LM, seeded weights, 16 slots, the 32-request chat mix, 64 new
+  tokens, the fused route, an fp32 pool) through the sharded
+  ``GenerationEngine`` under ``{model: N}`` and ``{data: N/2, model:
+  2}`` — rank 0 schedules, every rank launches on its heads — against
+  the meshless engine on rank 0's card: in fp32 every stream
+  token-equal, in bf16 the share of streams token-equal; decode tokens/s
+  and TTFT p50 a card, the plans' share of a decode step, the peak
+  memory of each card.
 
 Each rank joins through ``multihost.initialize`` on a ``file://`` store
 under ``chiprun_out/`` and logs to ``chiprun_out/mesh_probe.rankR.log``;
@@ -36,6 +45,7 @@ them), prints rank 0's lines and each failure, then ``{"ok": ...,
 repo root:
 
     python3 tools/mesh_probe.py [--ranks 4] [--timeout 600]
+        [--parts ring,ulysses,long_context,mlm,serving]
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 FAILED = []
+PARTS = ("ring", "ulysses", "long_context", "mlm", "serving")
 
 
 def check(ok: bool, msg: str):
@@ -211,7 +222,62 @@ def train_part(cs, n, me, label, cfg, B, T, warmup, timed, shape, used):
     return row
 
 
-def rank_main(rank: int, n: int, store: str) -> int:
+def serving_part(cs, n, me):
+    """The sharded generation engine on N cards against one card's."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.models import (
+        TransformerConfig, init_params)
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    base_cfg = TransformerConfig(causal=True, remat=False,
+                                 attention_impl="flash")
+    params = init_params(base_cfg, seed=0, device="cuda")
+    prompts = cs.chat_mix(base_cfg.vocab_size, max_len=base_cfg.max_seq)
+    rows = {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = dataclasses.replace(base_cfg, dtype=dtype)
+        one = cs.engine_phase(cfg, params, prompts, pools=("float32",),
+                              label=f"rank {me} one card {dname}") \
+            if me == 0 else None
+        for shape in ({"model": n}, {"data": n // 2, "model": 2}):
+            mesh = make_mesh(shape)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run = cs.engine_phase(cfg, params, prompts, mesh=mesh,
+                                  pools=("float32",),
+                                  label=f"rank {me} {dname} {shape}")
+            peaks = [None] * n
+            dist.all_gather_object(peaks, torch.cuda.max_memory_allocated())
+            if me != 0:
+                continue
+            run, ref = run["float32"], one["float32"]
+            same = sum(a == b for a, b in zip(run["streams"],
+                                              ref["streams"]))
+            if dname == "fp32":
+                check(same == len(ref["streams"]),
+                      f"serving {dname} {shape}: {same} of "
+                      f"{len(ref['streams'])} streams equal one card's")
+            row = {k: v for k, v in run.items() if k != "streams"}
+            row.update(
+                mesh=shape, streams_equal_one_card=same,
+                streams=len(ref["streams"]),
+                decode_tokens_per_sec_per_card=run["decode_tokens_per_sec"]
+                / n,
+                ttft_ms_p50=run["ttft_ms_p50"],
+                one_card_decode_tokens_per_sec=ref["decode_tokens_per_sec"],
+                one_card_ttft_ms_p50=ref["ttft_ms_p50"],
+                one_card_decode_step_ms_mean=ref["decode_step_ms_mean"],
+                peak_memory_bytes_per_card=peaks)
+            rows[f"{dname} {shape}"] = row
+            log(f"serving {dname} {shape}", row)
+    return rows
+
+
+def rank_main(rank: int, n: int, store: str, parts) -> int:
     import torch
 
     import chip_smoke as cs
@@ -223,21 +289,30 @@ def rank_main(rank: int, n: int, store: str) -> int:
           f"(cuda:{torch.cuda.current_device()})", flush=True)
     mesh = make_mesh({"context": n})
     group, me = mesh.group("context"), mesh.axis_index("context")
-    ring_part(cs, n, me, group)
-    ulysses_part(cs, n, me, group)
+    if "ring" in parts:
+        ring_part(cs, n, me, group)
+    if "ulysses" in parts:
+        ulysses_part(cs, n, me, group)
     layers = 12
     lc = TransformerConfig(causal=True, max_seq=8192, remat=False,
                            attention_impl="flash")
-    train_part(cs, n, rank, "long context", lc, 2, 8192, 1, 2,
-               {"context": n}, lambda m: {
-                   k: layers * 3 * (m.axis_index("context") + 1)
-                   for k in ("flash_forward", "flash_bwd_dq",
-                             "flash_bwd_dkv")})
+    if "long_context" in parts:
+        train_part(cs, n, rank, "long context", lc, 2, 8192, 1, 2,
+                   {"context": n}, lambda m: {
+                       k: layers * 3 * (m.axis_index("context") + 1)
+                       for k in ("flash_forward", "flash_bwd_dq",
+                                 "flash_bwd_dkv")})
     mlm = TransformerConfig(remat=False, attention_impl="flash")
-    train_part(cs, n, rank, "mlm", mlm, 96, 512, 2, 3,
-               {"data": n // 2, "model": 2}, lambda m: {
-                   k: layers * 5 for k in ("mha_attention_packed",
-                                           "mha_packed_backward")})
+    if "mlm" in parts:
+        train_part(cs, n, rank, "mlm", mlm, 96, 512, 2, 3,
+                   {"data": n // 2, "model": 2}, lambda m: {
+                       k: layers * 5 for k in ("mha_attention_packed",
+                                               "mha_packed_backward")})
+    if "serving" in parts:
+        try:
+            serving_part(cs, n, rank)
+        except AssertionError as e:   # chip_smoke's checks raise
+            check(False, f"rank {rank} serving: {e}")
     multihost.barrier("done")
     torch.distributed.destroy_process_group()
     return 1 if FAILED else 0
@@ -249,9 +324,16 @@ def main() -> int:
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--store", default=None)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated parts to run, of " + ", ".join(
+                        PARTS))
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        ap.error(f"unknown parts {sorted(unknown)}")
     if args.rank is not None:
-        return rank_main(args.rank, args.ranks, args.store)
+        return rank_main(args.rank, args.ranks, args.store, parts)
     import torch
 
     if torch.cuda.device_count() < args.ranks:
@@ -273,7 +355,8 @@ def main() -> int:
         with open(logs[r], "w") as f:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--rank",
-                 str(r), "--ranks", str(args.ranks), "--store", store],
+                 str(r), "--ranks", str(args.ranks), "--store", store,
+                 "--parts", args.parts],
                 cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
                 env=dict(os.environ, LOCAL_RANK=str(r))))
     deadline = time.monotonic() + args.timeout
