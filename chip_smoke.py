@@ -128,6 +128,15 @@ seconds:
    distance from fp32, fp32 tokens equal; (c) the front door's part a
    through ``InferenceEngine(mesh=)`` and ``CausalLMAdapter(mesh=)``,
    every bucket batch bit-equal to a direct call;
+   ops — the op registry (``deeplearning4j_tpu_torch.ops``) on the card
+   (:func:`ops_phase`): the two attention ops through the eager
+   namespaces at BERT-base width, fp32 and bf16, forward and backward,
+   on rows 1-2 (``multiHeadDotProductAttention``, and
+   ``scaledDotProductAttentionFused`` at T = 1024) and rows 3-5 (at
+   T = 4096), the einsum at T = 512 and under a mask with no launch,
+   the refusals, both routes' ms at T = 512 and 1024; then every one of
+   the 234 keys on CUDA NDArrays against the CPU
+   (``tests/torch_op_cases.py``'s recipes);
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -178,6 +187,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib
 import json
 import os
 import subprocess
@@ -297,7 +307,8 @@ def time_ms(fn, iters: int = 20, reps: int = 5, graph: bool = True) -> float:
 def counted():
     """Every kernel wrapper that counts its launches, by name."""
     from deeplearning4j_tpu_torch.ops import attention_kernels as ak
-    from deeplearning4j_tpu_torch.ops import updaters
+    updaters = importlib.import_module(
+        "deeplearning4j_tpu_torch.ops.updaters")
     from deeplearning4j_tpu_torch.ops import xent_kernels as xk
 
     return {"mha_attention_packed": ak.mha_attention_packed,
@@ -2610,7 +2621,8 @@ def loss_update_kernel_phase():
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.models import BERT_BASE, init_params
-    from deeplearning4j_tpu_torch.ops import updaters
+    updaters = importlib.import_module(
+        "deeplearning4j_tpu_torch.ops.updaters")
     from deeplearning4j_tpu_torch.ops import xent_kernels as xk
 
     rows = {n: [] for n in ("softmax_cross_entropy",
@@ -3514,6 +3526,409 @@ def mesh_serving_phase(cfg, params, prompts, engine):
         out["inference_engine"] = ie
     out["virtual"] = kernel_checks(virtual_ranks_part)(cfg, params, prompts)
     log(f"mesh serving ({CARD}): " + json.dumps(out))
+    return out
+
+
+# ------------------------------------------------------------------ ops
+
+# the attention rows of the ops phase, by row number
+ATTENTION_ROWS = {1: "mha_attention_packed", 2: "mha_packed_backward",
+                  3: "flash_forward", 4: "flash_bwd_dq", 5: "flash_bwd_dkv"}
+
+
+def _launched(rows):
+    """Check that exactly the attention ``rows`` launched, once each, in
+    the run since the last ``reset_launches``; the counts."""
+    got = read_launches()
+    return {ATTENTION_ROWS[r]: got[ATTENTION_ROWS[r]] for r in ATTENTION_ROWS
+            }, all(got[n] == (r in rows) for r, n in ATTENTION_ROWS.items())
+
+
+def _attention_grads_check(label, got, ref, plain=None):
+    """``got`` (the output, then each gradient) against ``ref``, the
+    einsum route's in fp32. fp32: the output within 1e-5 and each
+    gradient within 1e-4 of its largest |value| (train parity's rule).
+    bf16: PERF.md §6's attention rule per 64-wide row (``judge``: 2^-7
+    |ref| + 2^-5 rms(row) forward, 2^-6 backward), or, where the einsum
+    route in bf16 (``plain``) is itself farther from fp32 than that, no
+    more than twice its share: the rule was made for a kernel against its
+    plain version at one precision, and here the four projections round
+    in bf16 on both routes. Returns the worst share and the bf16 einsum
+    route's."""
+    worst = worst_plain = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        name = "out" if i == 0 else f"grad {i - 1}"
+        if plain is None:
+            rel = 1e-5 if i == 0 else 1e-4
+            err = max_err(a, b)
+            share, rule = err / rel_bound(b, rel), f"{rel} of max|ref|"
+            allowed = 1.0
+        else:
+            floor = FWD_FLOOR if i == 0 else BWD_FLOOR
+            a, b, own_a, zero_share = _zero_rows(a, b, plain[i])
+            err, share, rule = judge(a, b, 64, False, floor)
+            _, own, _ = judge(own_a, b, 64, False, floor)
+            share = max(share, zero_share)
+            worst_plain = max(worst_plain, own)
+            allowed = max(1.0, 2 * own)
+            rule += f"; the bf16 einsum route's share {own:.3f}"
+        check(share <= allowed, f"{label} {name}: |err| {err:.3e}, "
+              f"{share:.3f} of its bound ({rule}), allowed {allowed:.3f}")
+        worst = max(worst, share)
+    return worst, worst_plain
+
+
+def _zero_rows(a, b, plain):
+    """The 64-wide rows where the fp32 reference is exactly 0 (a causal
+    dq's first query row: it attends to one key, so ds is 0) have no
+    size of their own for ``judge`` to scale by: there |a| is held to one
+    bf16 ulp (2^-7) of the whole tensor's rms, and the rows are zeroed
+    for ``judge``. The streamed kernels' first row is not exactly 0
+    (ROADMAP, known differences: delta sums in another order than dp).
+    Returns (a, b, plain) without those rows and their share."""
+    import torch
+
+    rows = b.float().unflatten(-1, (-1, 64))
+    zero = (rows == 0).all(-1, keepdim=True)
+    if not bool(zero.any()):
+        return a, b, plain, 0.0
+    cap = BF16_ULP * b.float().square().mean().sqrt().item()
+    got = a.float().unflatten(-1, (-1, 64)).masked_fill(~zero, 0.0)
+    share = got.abs().max().item() / cap if cap > 0 else 0.0
+
+    def drop(x):
+        x = x.float().unflatten(-1, (-1, 64))
+        return x.masked_fill(zero, 0.0).flatten(-2)
+
+    return drop(a), b.float(), drop(plain), share
+
+
+def _routes(fn, leaves, go, dtype):
+    """fn's output and gradients on the kernel route (auto; launches
+    counted from the caller's reset), the einsum route in fp32 and, for
+    bf16, the einsum route in bf16."""
+    import torch
+
+    out = fn(leaves, None)
+    got = [out] + list(torch.autograd.grad(out, leaves, go.to(out)))
+    torch.cuda.synchronize()
+
+    def einsum(ts):
+        ts = [t.detach().requires_grad_() for t in ts]
+        o = fn(ts, False)
+        return [o] + list(torch.autograd.grad(o, ts, go.to(o)))
+
+    ref = einsum([t.float() for t in leaves])
+    plain = einsum(leaves) if dtype == torch.bfloat16 else None
+    return got, ref, plain
+
+
+def _mha_part(dtype):
+    """(a) ``ops.nn.multiHeadDotProductAttention`` on CUDA NDArrays at
+    BERT-base width: rows 1 and 2 once each, the output and the five
+    gradients against the einsum route in fp32."""
+    import torch
+
+    from deeplearning4j_tpu_torch import NDArray, ops
+
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn(8, 512, 768, generator=g)
+    ws = [torch.randn(768, 768, generator=g) * 768 ** -0.5
+          for _ in range(4)]
+    go = torch.randn(8, 512, 768, generator=g)
+    leaves = [t.to(DEVICE, dtype).requires_grad_() for t in [x] + ws]
+    where = []
+
+    def fn(ts, use_kernel):
+        out = ops.nn.multiHeadDotProductAttention(
+            *[NDArray(t) for t in ts[:1] * 2 + ts[1:]], 12,
+            use_kernel=use_kernel)
+        where.append(out.device.type)
+        return out.torch
+
+    reset_launches()
+    got, ref, plain = _routes(fn, leaves, go.to(DEVICE), dtype)
+    counts, ok = _launched((1, 2))
+    check(ok and where[0] == torch.device(DEVICE).type,
+          f"ops (a) {dtype}: launches {counts} on {where[0]}")
+    worst, own = _attention_grads_check(f"ops (a) {dtype}", got, ref, plain)
+    res = {"launches": counts, "worst_share": worst,
+           "bf16_einsum_share": own}
+    if dtype == torch.bfloat16:
+        # (e) the registry call's ms against the direct composition:
+        # the same projections, mha_attention_packed, the output product
+        from deeplearning4j_tpu_torch.ops import mha_attention_packed
+
+        xs = [t.detach() for t in leaves]
+        nds = [NDArray(t) for t in xs[:1] * 2 + xs[1:]]
+
+        def registry():
+            return ops.nn.multiHeadDotProductAttention(*nds, 12)
+
+        def direct():
+            qp, kp, vp = (xs[0] @ w for w in xs[1:4])
+            return mha_attention_packed(qp, kp, vp, 12) @ xs[4]
+
+        with torch.no_grad():
+            ms = {"registry_ms": time_ms(registry, graph=False),
+                  "direct_ms": time_ms(direct, graph=False),
+                  "direct_ms_again": time_ms(direct, graph=False),
+                  "registry_ms_again": time_ms(registry, graph=False)}
+            for name, fn in (("registry", registry), ("direct", direct)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                ms[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 20
+        res.update(ms)
+    return res
+
+
+def _sdpa_case(label, B, T, causal, dtype, rows):
+    """(b) ``ops.nn.scaledDotProductAttentionFused`` auto on (B, 12, T,
+    64) CUDA NDArrays: forward and backward launch exactly ``rows``, and
+    match the einsum route in fp32."""
+    import torch
+
+    from deeplearning4j_tpu_torch import NDArray, ops
+
+    g = torch.Generator().manual_seed(T)
+    qkv = [torch.randn(B, 12, T, 64, generator=g) for _ in range(3)]
+    go = torch.randn(B, 12, T, 64, generator=g)
+    leaves = [t.to(DEVICE, dtype).requires_grad_() for t in qkv]
+
+    def fn(ts, use_kernel):
+        return ops.nn.scaledDotProductAttentionFused(
+            *[NDArray(t) for t in ts], causal=causal,
+            use_kernel=use_kernel).torch
+
+    reset_launches()
+    got, ref, plain = _routes(fn, leaves, go.to(DEVICE), dtype)
+    counts, ok = _launched(rows)
+    check(ok, f"ops (b) {label}: launches {counts}, want rows {rows}")
+    worst, own = _attention_grads_check(f"ops (b) {label}", got, ref, plain)
+    return {"launches": counts, "worst_share": worst,
+            "bf16_einsum_share": own}
+
+
+def _sdpa_route_ms(T, B=32):
+    """fwd+bwd ms of both routes of the fused op at (B, 12, T, 64) bf16
+    (the reference's gate shape): the kernels (use_kernel=True) and the
+    einsum (use_kernel=False), in turns einsum, kernel, kernel, einsum."""
+    import torch
+
+    from deeplearning4j_tpu_torch import ops
+
+    fn = ops.REGISTRY["nn.scaledDotProductAttentionFused"].fn
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(B, 12, T, 64, generator=g).to(DEVICE,
+                                                          torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+
+    def step(use_kernel):
+        out = fn(q, k, v, use_kernel=use_kernel)
+        torch.autograd.grad(out, (q, k, v), out)
+
+    times = {}
+    for name, uk in (("einsum", False), ("kernel", True), ("kernel", True),
+                     ("einsum", False)):
+        times.setdefault(name, []).append(
+            time_ms(lambda: step(uk), iters=5, reps=3, graph=False))
+    return {name: min(ts) for name, ts in times.items()}
+
+
+def _device_compare(case, got, want, label):
+    """One op's CUDA outputs against its CPU outputs: on the card, the
+    CPU's dtype; integers and bools exact; floats within the case's
+    tolerance of the output's largest |value| (the devices' kernels sum
+    in other orders), linalg by its invariants, gamma by its moments.
+    Returns the worst share of the bound."""
+    import torch
+
+    from deeplearning4j_tpu_torch import NDArray
+    from torch_op_cases import ATOL, RTOL, flat_outputs
+
+    got, want = flat_outputs(got), flat_outputs(want)
+    check(len(got) == len(want), f"{label}: {len(got)} outputs != "
+          f"{len(want)}")
+    worst = 0.0
+    outs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not isinstance(w, torch.Tensor):
+            check(g == w, f"{label} output {i}: {g} != {w}")
+            outs.append(None)
+            continue
+        check(isinstance(g, NDArray) and g.device.type == DEVICE
+              and g.dtype == w.dtype, f"{label} output {i}: "
+              f"{getattr(g, 'device', None)} {getattr(g, 'dtype', None)}, "
+              f"want {DEVICE} {w.dtype}")
+        outs.append((g.torch.cpu(), w))
+    rtol, atol = case.tol or (RTOL, ATOL)
+
+    def share(a, b, rel, floor):
+        a, b = a.double(), b.double()
+        bound = rel * max(b.abs().max().item(), 1.0) + floor
+        return (a - b).abs().max().item() / bound if a.numel() else 0.0
+
+    if case.compare in ("svd", "qr", "eig"):
+        (a0, b0), (a1, b1) = outs[0], outs[1]
+        if case.compare == "svd":
+            u, s, vh = (o[0].double() for o in outs)
+            ru, rs, rvh = (o[1].double() for o in outs)
+            k = s.shape[-1]
+            worst = max(share(s, rs, rtol, atol), share(
+                (u[:, :k] * s) @ vh[:k], (ru[:, :k] * rs) @ rvh[:k], 1e-5,
+                1e-6))
+        elif case.compare == "qr":
+            worst = max(share(a0.double() @ a1.double(),
+                              b0.double() @ b1.double(), 1e-5, 1e-6),
+                        share(a1.abs(), b1.abs(), 1e-5, 1e-6))
+        else:
+            worst = max(share(a0, b0, rtol, atol), share(
+                (a1.double().T @ b1.double()).abs(),
+                torch.eye(len(a0), dtype=torch.float64), 1e-4, 0.0))
+    elif case.compare == "moments":
+        a, b = outs[0]
+        off = ((a - b).abs() > rtol * b.abs() + atol).double().mean().item()
+        check(off <= 0.01, f"{label}: {off:.3%} of samples differ")
+        worst = max(abs(a.double().mean() - b.double().mean()).item()
+                    / (2e-2 * abs(b.double().mean().item())), off / 0.01)
+    else:
+        for a, b in (o for o in outs if o is not None):
+            if not b.dtype.is_floating_point:
+                check(torch.equal(a, b), f"{label}: integer outputs differ")
+                continue
+            worst = max(worst, share(a, b, max(rtol, 1e-5), atol))
+    check(worst <= 1.0, f"{label}: {worst:.3f} of its bound")
+    return worst
+
+
+def _ops_on_card_part():
+    """(d) every key of the registry on CUDA NDArrays against the same op
+    on CPU tensors, by the CPU tests' recipes (``tests/
+    torch_op_cases.py``)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import NDArray, ops
+    from torch_op_cases import CASES, to_torch
+
+    counts, worst = {}, (0.0, "")
+    for key in sorted(CASES):
+        case = CASES[key]
+        ns, name = key.split(".", 1)
+        for variant, make in enumerate(case.variants):
+            args, kwargs = make(np.random.default_rng(variant))
+            want = ops.REGISTRY[key].fn(*to_torch(args, "cpu"),
+                                        **to_torch(kwargs, "cpu"))
+            cuda_args = [NDArray(a) if isinstance(a, torch.Tensor) else a
+                         for a in to_torch(args, DEVICE)]
+            got = getattr(getattr(ops, ns), name)(
+                *cuda_args, **to_torch(kwargs, DEVICE))
+            w = _device_compare(case, got, want, f"ops (d) {key} v{variant}")
+            worst = max(worst, (w, f"{key} v{variant}"))
+        counts[ns] = counts.get(ns, 0) + 1
+    torch.cuda.synchronize()
+    return {"keys_by_namespace": counts, "keys": sum(counts.values()),
+            "worst_share": worst[0], "worst_op": worst[1]}
+
+
+def ops_phase():
+    """The op registry on the card (``deeplearning4j_tpu_torch.ops``):
+
+    a. ``ops.nn.multiHeadDotProductAttention`` through the eager namespace
+       on CUDA NDArrays at BERT-base width (x (8, 512, 768), four (768,
+       768) projections, 12 heads), fp32 and bf16: forward and
+       ``autograd.grad`` to x and the four weights; rows 1 and 2 launch
+       once each; the output and every gradient against the einsum route
+       (``use_kernel=False``) in fp32;
+    b. ``ops.nn.scaledDotProductAttentionFused`` auto on (B, 12, T, 64):
+       T = 1024, B = 4 takes rows 1-2; T = 4096, B = 2, causal, rows 3-5;
+       T = 512 the einsum, no kernel; each in fp32 and bf16, checked as
+       in (a); then both routes' fwd+bwd ms at T = 512 and 1024, B = 32,
+       bf16 (the reference's gate was measured on a TPU);
+    c. a masked call takes the einsum and launches nothing, and so do
+       float64 and float16 inputs on auto; ``use_kernel=True`` with a
+       mask, off the envelope or off the kernels' dtypes raises the
+       reference's ValueError; numpy float64 data become float32 arrays
+       and take row 1;
+    d. every one of the 234 keys on CUDA NDArrays against the CPU;
+    e. (a)'s registry call against the direct composition (projections,
+       ``mha_attention_packed``, the output product): device ms and
+       wall ms a call."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from deeplearning4j_tpu_torch import NDArray, nd, ops
+
+    out = {"mha": {}, "sdpa": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        out["mha"][str(dtype)] = _mha_part(dtype)
+        torch.cuda.empty_cache()
+        for label, B, T, causal, rows in (
+                ("T1024", 4, 1024, False, (1, 2)),
+                ("T4096 causal", 2, 4096, True, (3, 4, 5)),
+                ("T512", 4, 512, False, ())):
+            out["sdpa"][f"{label} {dtype}"] = _sdpa_case(
+                f"{label} {dtype}", B, T, causal, dtype, rows)
+            torch.cuda.empty_cache()
+    out["route_ms_bf16_B32"] = {T: _sdpa_route_ms(T) for T in (512, 1024)}
+    torch.cuda.empty_cache()
+    # (c) the einsum route and the refusals
+    g = torch.Generator().manual_seed(3)
+    q = NDArray(torch.randn(2, 12, 1024, 64, generator=g).to(DEVICE))
+    mask = NDArray(torch.zeros(2, 1, 1, 1024).to(DEVICE))
+    reset_launches()
+    masked = ops.nn.scaledDotProductAttentionFused(q, q, q, mask=mask)
+    plain = ops.nn.scaledDotProductAttentionFused(q, q, q, use_kernel=False)
+    counts, ok = _launched(())
+    check(ok, f"ops (c): a masked call launched {counts}")
+    check(max_err(masked.torch, plain.torch) <= 1e-6,
+          "ops (c): an all-zero mask changed the output")
+    for kw, label in (({"mask": mask}, "masked"), ({}, "T=100")):
+        qq = q if kw else NDArray(torch.randn(1, 2, 100, 64).to(DEVICE))
+        try:
+            ops.nn.scaledDotProductAttentionFused(qq, qq, qq,
+                                                  use_kernel=True, **kw)
+            check(False, f"ops (c): use_kernel=True {label} did not raise")
+        except ValueError as e:
+            check("use_kernel=True" in str(e), f"ops (c): {e}")
+    # off the kernels' dtypes: float64 (arrays hold it with the 64-bit
+    # switch on) and float16 on auto take the einsum and launch nothing,
+    # within 1e-5 (float64) or 1e-2 (float16) of the float32 einsum;
+    # use_kernel=True raises
+    with nd.enableX64(True):
+        for dt, tol in ((torch.float64, 1e-5), (torch.float16, 1e-2)):
+            qd = NDArray(q.torch.to(dt))
+            reset_launches()
+            got = ops.nn.scaledDotProductAttentionFused(qd, qd, qd)
+            counts, ok = _launched(())
+            check(ok and got.dtype == dt,
+                  f"ops (c): {dt} on auto launched {counts} ({got.dtype})")
+            check(max_err(got.torch.float(), plain.torch) <= tol,
+                  f"ops (c): {dt} einsum off the float32 one")
+            try:
+                ops.nn.scaledDotProductAttentionFused(qd, qd, qd,
+                                                      use_kernel=True)
+                check(False, f"ops (c): use_kernel=True {dt} did not raise")
+            except ValueError as e:
+                check("use_kernel=True" in str(e), f"ops (c): {e}")
+    # numpy float64 data, as a caller passes it: float32 arrays in the
+    # default mode, so the forward takes row 1
+    rng = np.random.default_rng(5)
+    xh = rng.standard_normal((2, 128, 768))
+    wh = [rng.standard_normal((768, 768)) * 768 ** -0.5 for _ in range(4)]
+    reset_launches()
+    got = ops.nn.multiHeadDotProductAttention(xh, xh, *wh, 12)
+    counts, ok = _launched((1,))
+    check(ok and got.dtype == torch.float32 and got.device.type == "cuda",
+          f"ops (c): numpy float64 data launched {counts} ({got.dtype} on "
+          f"{got.device})")
+    out["refusals"] = "raised"
+    out["off_dtypes"] = "einsum, no launch"
+    out["on_card"] = _ops_on_card_part()
+    log(f"ops ({CARD}): " + json.dumps(out, default=str))
     return out
 
 
@@ -4554,6 +4969,7 @@ def main() -> int:
                       front)
     mserve = timed_phase("mesh serving", mesh_serving_phase, cfg, params,
                          prompts, engine)
+    ops_run = timed_phase("ops", kernel_checks(ops_phase))
     del params
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
@@ -4635,6 +5051,13 @@ def main() -> int:
                 dis["rpc"]["hosts"][0]["packed_launches"]
             kernels[-1]["launches_mesh_serving"] = \
                 mserve["engine"]["float32"]["packed_launches"]
+        if name in ATTENTION_ROWS.values():
+            # the ops phase: (a) and (b), by part
+            parts = [(f"mha {k}", v) for k, v in ops_run["mha"].items()] \
+                + [(f"sdpa {k}", v) for k, v in ops_run["sdpa"].items()]
+            kernels[-1]["launches_ops"] = {
+                part: run["launches"][name] for part, run in parts
+                if run["launches"][name]}
         if name == "paged_decode_attention":
             kernels[-1]["launches_resilience_qos"] = resil["paged_launches"]
             kernels[-1]["launches_front_door"] = front["paged_launches"]

@@ -16,7 +16,8 @@ compute dtype (bf16 at full width).
 Device: entry points take an explicit ``device`` that defaults to
 ``"cuda"``. Without CUDA they raise unless the caller passes
 ``device="cpu"`` (:func:`default_device`) — nothing silently runs on the
-host in place of the card.
+host in place of the card. Arrays (:class:`NDArray`, made by :class:`nd`)
+land on ``nd.setDefaultDevice``'s device, ``"cuda"`` unless set.
 """
 from __future__ import annotations
 
@@ -43,3 +44,6 @@ def default_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+from deeplearning4j_tpu_torch.ndarray import NDArray, nd  # noqa: E402,F401

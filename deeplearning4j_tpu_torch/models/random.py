@@ -93,3 +93,32 @@ def gumbel(key, n: int) -> torch.Tensor:
     ("low") mode: ``-log(-log(u))`` with u uniform in [tiny, 1)."""
     u = uniform(key, n, minval=_F32_TINY, maxval=1.0)
     return -torch.log(-torch.log(u))
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` for threefry keys under the partitionable
+    layout: subkey i is the block of the 64-bit counter i, both output
+    words kept (``_threefry_split_foldlike``). ``key`` (2,) -> (num, 2)."""
+    key = as_key(key)
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def bits(key, shape, width: int = 32) -> torch.Tensor:
+    """``jax.random.bits`` of ``width`` (8, 16, 32 or 64) bits for a key
+    (2,), in the partitionable layout: the row-major index of each
+    element is the 64-bit counter. Returned as int64 holding the unsigned
+    value; 64-bit words are the two output words ``hi << 32 | lo``,
+    wrapped into int64's range (the bits are the same)."""
+    key = as_key(key)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], lo >> 32, lo & _M32)
+    if width == 64:
+        out = (y0 << 32) | y1
+    else:
+        out = (y0 ^ y1) & ((1 << width) - 1)
+    return out.reshape(tuple(int(s) for s in shape))

@@ -1,6 +1,11 @@
-"""Hand-written CUDA kernels of the port and their plain PyTorch versions
+"""Op surface of the port: the registry and its eager namespaces
+(counterpart: ``deeplearning4j_tpu/ops/__init__.py``), and the
+hand-written CUDA kernels with their plain PyTorch versions
 (counterparts: ``deeplearning4j_tpu/ops/pallas_kernels.py`` and
-``deeplearning4j_tpu/ops/pallas_updaters.py``)."""
+``deeplearning4j_tpu/ops/pallas_updaters.py``).
+
+Importing it builds no kernel: a kernel library is built on its first
+launch."""
 from deeplearning4j_tpu_torch.ops.attention_kernels import (  # noqa: F401
     auto_flash_block, flash_attention, flash_bwd_dkv,
     flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
@@ -19,3 +24,35 @@ from deeplearning4j_tpu_torch.ops.xent_kernels import (  # noqa: F401
     softmax_cross_entropy_forward, xent_backward_reference,
     xent_forward_reference,
 )
+from deeplearning4j_tpu_torch.ops.registry import (  # noqa: F401
+    REGISTRY,
+    EagerNamespace,
+    OpSpec,
+    coverage_report,
+    get,
+    mark_validated,
+    op,
+)
+
+# importing definitions populates the registry, in the reference's order
+from deeplearning4j_tpu_torch.ops import math_defs as _math_defs  # noqa: F401,E402
+from deeplearning4j_tpu_torch.ops import nn_defs as _nn_defs  # noqa: F401,E402
+from deeplearning4j_tpu_torch.ops import extra_defs as _extra_defs  # noqa: F401,E402
+
+math = EagerNamespace("math")
+reduce = EagerNamespace("reduce")
+shape = EagerNamespace("shape")
+bitwise = EagerNamespace("bitwise")
+linalg = EagerNamespace("linalg")
+nn = EagerNamespace("nn")
+cnn = EagerNamespace("cnn")
+rnn = EagerNamespace("rnn")
+loss = EagerNamespace("loss")
+image = EagerNamespace("image")
+random = EagerNamespace("random")
+
+
+# the registry's updater ops (none yet: they come with the reference's
+# wide_defs.py). As a package attribute the name shadows the AdamW
+# kernel's module (ops/updaters.py): import that module by its path.
+updaters = EagerNamespace("updaters")

@@ -226,6 +226,13 @@ def packed_kernel_shape_ok(t: int) -> bool:
     return t % 8 == 0 and t <= 1024
 
 
+def kernel_dtypes_ok(*tensors) -> bool:
+    """Whether ``tensors`` share a dtype that the attention kernels take
+    (float32 or bfloat16); the plain versions take any float."""
+    return tensors[0].dtype in _Q_CODES and all(
+        t.dtype == tensors[0].dtype for t in tensors)
+
+
 def mha_packed_forward_reference(q, k, v, heads: int, causal: bool = False,
                                  scale: Optional[float] = None,
                                  p_dtype: torch.dtype = torch.float32

@@ -7,6 +7,7 @@ on a machine with a GPU and no JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import importlib
 import time
 
 import numpy as np
@@ -640,7 +641,9 @@ def test_train_step_launches_the_packed_kernels(card, remat):
 
 # ------------------------------------------ fused cross-entropy and AdamW
 
-from deeplearning4j_tpu_torch.ops import updaters, xent_kernels  # noqa: E402
+from deeplearning4j_tpu_torch.ops import xent_kernels  # noqa: E402
+
+updaters = importlib.import_module("deeplearning4j_tpu_torch.ops.updaters")
 
 
 def _xent_case(rng, n, v, dtype, device):
@@ -1314,3 +1317,163 @@ def test_ring_loop_matches_flash_attention(card, kind, pairs, dtype):
         assert _within(o, ro, 64, FWD_FLOOR)
         for a, b, m in zip(g, rg, terms):
             assert _within(a, b, 64, BWD_FLOOR, m)
+
+
+# ------------------------------------------------- the op registry on the card
+
+
+def test_registry_ops_stay_on_the_card(card):
+    """A sample of the registry's ops on CUDA NDArrays: each output stays
+    on the card with the CPU run's dtype and values (integers exact,
+    floats within the recipes' tolerance, linalg and random by their
+    rules in chip_smoke.py's ops phase)."""
+    from deeplearning4j_tpu_torch import NDArray, nd, ops
+    from torch_op_cases import CASES, flat_outputs, to_torch
+
+    for key in ("math.exp", "math.floorMod", "bitwise.xor", "reduce.sum",
+                "shape.gather", "nn.gelu", "cnn.conv2d", "rnn.lstmLayer",
+                "loss.mse", "image.resizeBilinear", "random.uniform"):
+        ns, name = key.split(".", 1)
+        case = CASES[key]
+        args, kwargs = case.variants[0](np.random.default_rng(7))
+        want = flat_outputs(ops.REGISTRY[key].fn(*to_torch(args, "cpu"),
+                                                 **to_torch(kwargs, "cpu")))
+        nd.setDefaultDevice("cuda")
+        try:
+            got = flat_outputs(getattr(getattr(ops, ns), name)(
+                *to_torch(args, "cuda"), **to_torch(kwargs, "cuda")))
+        finally:
+            nd.setDefaultDevice(None)
+        for g, w in zip(got, want):
+            assert isinstance(g, NDArray) and g.device.type == "cuda", key
+            assert g.dtype == w.dtype, key
+            g = g.torch.cpu()
+            if w.dtype.is_floating_point:
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(g, w), key
+
+
+@pytest.mark.parametrize("t, rows", [(512, ()), (1024, (1, 2)),
+                                     (2048, (3, 4, 5))])
+def test_fused_attention_auto_route_on_the_card(card, t, rows):
+    """``nn.scaledDotProductAttentionFused`` auto on CUDA tensors: the
+    einsum at T = 512, rows 1-2 at T = 1024, rows 3-5 at T = 2048, each
+    row once for a forward and backward, and the result equal to the
+    einsum route's within the fp32 kernels' tolerance."""
+    from deeplearning4j_tpu_torch import ops
+
+    names = {1: "mha_attention_packed", 2: "mha_packed_backward",
+             3: "flash_forward", 4: "flash_bwd_dq", 5: "flash_bwd_dkv"}
+    rng = np.random.default_rng(t)
+    q, k, v = (_tensor(rng, (1, 2, t, 64), torch.float32, card)
+               .requires_grad_() for _ in range(3))
+    fn = ops.REGISTRY["nn.scaledDotProductAttentionFused"].fn
+    before = {n: getattr(ak, n).launches for n in names.values()}
+    out = fn(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    for row, n in names.items():
+        assert getattr(ak, n).launches - before[n] == (row in rows), n
+    ref = fn(q, k, v, causal=True, use_kernel=False)
+    ref_grads = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def test_multi_head_attention_reaches_the_packed_kernels(card):
+    """``nn.multiHeadDotProductAttention`` auto on CUDA tensors runs rows
+    1 and 2 once each for a forward and backward, matching the einsum
+    route; a mask pins the einsum and launches nothing."""
+    from deeplearning4j_tpu_torch import ops
+
+    rng = np.random.default_rng(12)
+    x = _tensor(rng, (2, 128, 256), torch.float32, card).requires_grad_()
+    ws = [(_tensor(rng, (256, 256), torch.float32, card) * 0.06)
+          .requires_grad_() for _ in range(4)]
+    fn = ops.REGISTRY["nn.multiHeadDotProductAttention"].fn
+    f0 = ak.mha_attention_packed.launches
+    b0 = ak.mha_packed_backward.launches
+    out = fn(x, x, *ws, 4)
+    grads = torch.autograd.grad(out.square().sum(), [x] + ws)
+    torch.cuda.synchronize()
+    assert ak.mha_attention_packed.launches == f0 + 1
+    assert ak.mha_packed_backward.launches == b0 + 1
+    ref = fn(x, x, *ws, 4, use_kernel=False)
+    ref_grads = torch.autograd.grad(ref.square().sum(), [x] + ws)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    mask = torch.ones(2, 128, device=card)
+    fn(x, x, *ws, 4, mask=mask)
+    assert ak.mha_attention_packed.launches == f0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_attention_auto_takes_einsum_off_the_kernels_dtypes(card, dtype):
+    """CUDA tensors of a dtype the kernels do not take: both attention
+    ops on auto take the einsum and launch nothing, matching the float32
+    route; ``scaledDotProductAttentionFused`` with ``use_kernel=True``
+    raises the reference's ValueError. The 64-bit switch is on, so that
+    a float64 result stays float64."""
+    from deeplearning4j_tpu_torch import nd
+
+    with nd.enableX64(True):
+        _attention_off_the_kernels_dtypes(card, dtype)
+
+
+def _attention_off_the_kernels_dtypes(card, dtype):
+    from deeplearning4j_tpu_torch import ops
+
+    kernels = (ak.mha_attention_packed, ak.mha_packed_backward,
+               ak.flash_forward, ak.flash_bwd_dq, ak.flash_bwd_dkv)
+    before = [k.launches for k in kernels]
+    rng = np.random.default_rng(21)
+    sdpa = ops.REGISTRY["nn.scaledDotProductAttentionFused"].fn
+    for t in (1024, 2048):
+        q, k, v = (_tensor(rng, (1, 2, t, 64), dtype, card)
+                   .requires_grad_() for _ in range(3))
+        out = sdpa(q, k, v, causal=True)
+        torch.autograd.grad(out.float().square().sum(), (q, k, v))
+        assert out.dtype == dtype
+        ref = sdpa(*(a.detach().float() for a in (q, k, v)), causal=True,
+                   use_kernel=False)
+        torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
+        with pytest.raises(ValueError, match="use_kernel=True"):
+            sdpa(q, k, v, causal=True, use_kernel=True)
+    mha = ops.REGISTRY["nn.multiHeadDotProductAttention"].fn
+    x = _tensor(rng, (2, 128, 256), dtype, card)
+    ws = [_tensor(rng, (256, 256), dtype, card) * 0.06 for _ in range(4)]
+    out = mha(x, x, *ws, 4)
+    assert out.dtype == dtype
+    ref = mha(x.float(), x.float(), *(w.float() for w in ws), 4,
+              use_kernel=False)
+    torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+
+
+def test_multi_head_attention_on_host_data_reaches_the_kernel(card):
+    """numpy float64 data through the eager namespace, as a caller passes
+    it: arrays hold float32 in the default mode, so row 1 runs; with the
+    64-bit switch on they hold float64 and the einsum runs."""
+    from deeplearning4j_tpu_torch import nd, ops
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 128, 256))
+    ws = [rng.standard_normal((256, 256)) * 0.06 for _ in range(4)]
+    f0 = ak.mha_attention_packed.launches
+    nd.setDefaultDevice("cuda")
+    try:
+        out = ops.nn.multiHeadDotProductAttention(x, x, *ws, 4)
+        assert ak.mha_attention_packed.launches == f0 + 1
+        with nd.enableX64(True):
+            out64 = ops.nn.multiHeadDotProductAttention(x, x, *ws, 4)
+    finally:
+        nd.setDefaultDevice(None)
+    assert out.dtype == torch.float32 and out.device.type == "cuda"
+    assert out64.dtype == torch.float64 and out64.device.type == "cuda"
+    assert ak.mha_attention_packed.launches == f0 + 1
+    torch.testing.assert_close(out.torch.double(), out64.torch,
+                               rtol=1e-4, atol=1e-4)

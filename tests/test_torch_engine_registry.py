@@ -515,8 +515,18 @@ def registry_script(pkg):
 
 
 class TestRegistry:
-    def test_scripted_lifecycle_equal(self):
-        obs = both(registry_script)
+    def test_scripted_lifecycle_equal(self, tmp_path):
+        from deeplearning4j_tpu.util import crash_reporting as jc
+        from deeplearning4j_tpu_torch.util import crash_reporting as tc
+
+        # version 2's failing infer writes crash dumps: into tmp_path
+        jc.crashDumpOutputDirectory(str(tmp_path))
+        tc.crashDumpOutputDirectory(str(tmp_path))
+        try:
+            obs = both(registry_script)
+        finally:
+            jc.crashDumpOutputDirectory(None)
+            tc.crashDumpOutputDirectory(None)
         health = obs[3][4]["m"]
         assert health["serving"] == "m:1" and health["fallback_from"] == "m:2"
         assert health["versions"][2]["state"] == "CIRCUIT_OPEN"

@@ -234,7 +234,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "for want in ('ops.updaters', 'serving.rpc', 'serving.cluster',\n"
         "             'serving.disagg', 'serving.sharded', 'parallel.mesh',\n"
-        "             'parallel.multihost', 'parallel.sequence_parallel'):\n"
+        "             'parallel.multihost', 'parallel.sequence_parallel',\n"
+        "             'ndarray.array', 'ops.registry', 'ops.math_defs',\n"
+        "             'ops.nn_defs'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + want in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'deeplearning4j_tpu.')) "

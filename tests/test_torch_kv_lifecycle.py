@@ -700,10 +700,22 @@ def test_prefix_validation_and_pool_overcommit(tparams):
         assert eng.release_prefix("big")
 
 
-def test_prefix_survives_cache_rebuild_via_lazy_reprefill(tparams):
+def test_prefix_survives_cache_rebuild_via_lazy_reprefill(tparams,
+                                                         tmp_path):
     """A failed decode step rebuilds the pool and drops the pinned K/V;
     the registration survives and the next stream naming it re-prefills
-    it, token-equal to before."""
+    it, token-equal to before. The failure's crash dump goes to
+    ``tmp_path``."""
+    from deeplearning4j_tpu_torch.util import crash_reporting as tc
+
+    tc.crashDumpOutputDirectory(str(tmp_path))
+    try:
+        _lazy_reprefill(tparams)
+    finally:
+        tc.crashDumpOutputDirectory(None)
+
+
+def _lazy_reprefill(tparams):
     pre, suf = prompt(10, seed=44), prompt(3, seed=45)
     with port(tparams, slots=2, max_len=32, block_size=8) as eng:
         ref = eng.generate(np.concatenate([pre, suf]), max_new_tokens=4,

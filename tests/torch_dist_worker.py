@@ -15,8 +15,10 @@ themselves.
 """
 from __future__ import annotations
 
+import faulthandler
 import os
 import pickle
+import signal
 import subprocess
 import sys
 import time
@@ -746,6 +748,12 @@ def main(argv) -> int:
     suite, rank, world, store, out = argv[1], int(argv[2]), int(argv[3]), \
         argv[4], argv[5]
     torch.set_num_threads(1)
+    # a world that times out asks every live rank for its threads' stacks
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    # crash dumps (a rank whose mesh broke) go to the world's directory
+    from deeplearning4j_tpu_torch.util.crash_reporting import (
+        crashDumpOutputDirectory)
+    crashDumpOutputDirectory(out)
     if suite == "multihost":
         os.environ.update(COORDINATOR_ADDRESS=f"file://{store}",
                           NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
@@ -814,7 +822,7 @@ class World:
                 path = os.path.join(self.dir, f"{self.suite}.rank{r}.{ext}")
                 if os.path.exists(path):
                     with open(path) as f:
-                        text = f.read()[-3000:]
+                        text = f.read()[-(3000 if ext == "log" else 8000):]
                     if text.strip():
                         out.append(f"--- rank {r} {ext}\n{text}")
         return "\n".join(out)
@@ -826,6 +834,11 @@ class World:
             for p in self.procs:
                 p.wait(timeout=max(0.1, self.deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
+            # the live ranks' stacks into their err logs, then kill them
+            for p in self.procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGUSR1)
+            time.sleep(2.0)
             self.close()
             raise RuntimeError(f"{self.suite} world timed out\n"
                                + self._logs())
