@@ -135,8 +135,12 @@ seconds:
    ``scaledDotProductAttentionFused`` at T = 1024) and rows 3-5 (at
    T = 4096), the einsum at T = 512 and under a mask with no launch,
    the refusals, both routes' ms at T = 512 and 1024; then every one of
-   the 234 keys on CUDA NDArrays against the CPU
-   (``tests/torch_op_cases.py``'s recipes);
+   the 451 keys on CUDA NDArrays against the CPU
+   (``tests/torch_op_cases.py``'s recipes); gradient sharing
+   (``parallel/gradient_sharing.py``: three threshold-compression and
+   int8 steps, ``thresholdEncode``/``Decode`` on the word embeddings) and
+   the ten ``ops.updaters`` keys over the BERT-base tree against the CPU,
+   ``adamUpdater`` leaf by leaf against ``fused_adamw``;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -187,7 +191,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
-import importlib
 import json
 import os
 import subprocess
@@ -307,8 +310,7 @@ def time_ms(fn, iters: int = 20, reps: int = 5, graph: bool = True) -> float:
 def counted():
     """Every kernel wrapper that counts its launches, by name."""
     from deeplearning4j_tpu_torch.ops import attention_kernels as ak
-    updaters = importlib.import_module(
-        "deeplearning4j_tpu_torch.ops.updaters")
+    from deeplearning4j_tpu_torch.ops import pallas_updaters as updaters
     from deeplearning4j_tpu_torch.ops import xent_kernels as xk
 
     return {"mha_attention_packed": ak.mha_attention_packed,
@@ -2621,8 +2623,7 @@ def loss_update_kernel_phase():
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.models import BERT_BASE, init_params
-    updaters = importlib.import_module(
-        "deeplearning4j_tpu_torch.ops.updaters")
+    from deeplearning4j_tpu_torch.ops import pallas_updaters as updaters
     from deeplearning4j_tpu_torch.ops import xent_kernels as xk
 
     rows = {n: [] for n in ("softmax_cross_entropy",
@@ -3738,12 +3739,13 @@ def _sdpa_route_ms(T, B=32):
     return {name: min(ts) for name, ts in times.items()}
 
 
-def _device_compare(case, got, want, label):
+def _device_compare(case, got, want, label, compare=None):
     """One op's CUDA outputs against its CPU outputs: on the card, the
     CPU's dtype; integers and bools exact; floats within the case's
     tolerance of the output's largest |value| (the devices' kernels sum
-    in other orders), linalg by its invariants, gamma by its moments.
-    Returns the worst share of the bound."""
+    in other orders), linalg by its invariants, the rejection-loop draws
+    by their moments (``compare``). Returns the worst share of the
+    bound."""
     import torch
 
     from deeplearning4j_tpu_torch import NDArray
@@ -3765,22 +3767,23 @@ def _device_compare(case, got, want, label):
               f"want {DEVICE} {w.dtype}")
         outs.append((g.torch.cpu(), w))
     rtol, atol = case.tol or (RTOL, ATOL)
+    compare = compare or case.compare
 
     def share(a, b, rel, floor):
         a, b = a.double(), b.double()
         bound = rel * max(b.abs().max().item(), 1.0) + floor
         return (a - b).abs().max().item() / bound if a.numel() else 0.0
 
-    if case.compare in ("svd", "qr", "eig"):
+    if compare in ("svd", "qr", "eig"):
         (a0, b0), (a1, b1) = outs[0], outs[1]
-        if case.compare == "svd":
+        if compare == "svd":
             u, s, vh = (o[0].double() for o in outs)
             ru, rs, rvh = (o[1].double() for o in outs)
             k = s.shape[-1]
             worst = max(share(s, rs, rtol, atol), share(
                 (u[:, :k] * s) @ vh[:k], (ru[:, :k] * rs) @ rvh[:k], 1e-5,
                 1e-6))
-        elif case.compare == "qr":
+        elif compare == "qr":
             worst = max(share(a0.double() @ a1.double(),
                               b0.double() @ b1.double(), 1e-5, 1e-6),
                         share(a1.abs(), b1.abs(), 1e-5, 1e-6))
@@ -3788,7 +3791,7 @@ def _device_compare(case, got, want, label):
             worst = max(share(a0, b0, rtol, atol), share(
                 (a1.double().T @ b1.double()).abs(),
                 torch.eye(len(a0), dtype=torch.float64), 1e-4, 0.0))
-    elif case.compare == "moments":
+    elif compare == "moments":
         a, b = outs[0]
         off = ((a - b).abs() > rtol * b.abs() + atol).double().mean().item()
         check(off <= 0.01, f"{label}: {off:.3%} of samples differ")
@@ -3810,8 +3813,8 @@ def _ops_on_card_part():
     torch_op_cases.py``)."""
     import torch
 
-    from deeplearning4j_tpu_torch import NDArray, ops
-    from torch_op_cases import CASES, to_torch
+    from deeplearning4j_tpu_torch import NDArray, nd, ops
+    from torch_op_cases import CASES, REJECTION_DRAWS, to_torch
 
     counts, worst = {}, (0.0, "")
     for key in sorted(CASES):
@@ -3819,18 +3822,204 @@ def _ops_on_card_part():
         ns, name = key.split(".", 1)
         for variant, make in enumerate(case.variants):
             args, kwargs = make(np.random.default_rng(variant))
+            # the creation keys make their arrays on the default device
+            nd.setDefaultDevice("cpu")
             want = ops.REGISTRY[key].fn(*to_torch(args, "cpu"),
                                         **to_torch(kwargs, "cpu"))
+            nd.setDefaultDevice(DEVICE)
             cuda_args = [NDArray(a) if isinstance(a, torch.Tensor) else a
                          for a in to_torch(args, DEVICE)]
             got = getattr(getattr(ops, ns), name)(
                 *cuda_args, **to_torch(kwargs, DEVICE))
-            w = _device_compare(case, got, want, f"ops (d) {key} v{variant}")
+            nd.setDefaultDevice(None)
+            w = _device_compare(
+                case, got, want, f"ops (d) {key} v{variant}",
+                "moments" if key in REJECTION_DRAWS else None)
             worst = max(worst, (w, f"{key} v{variant}"))
         counts[ns] = counts.get(ns, 0) + 1
     torch.cuda.synchronize()
     return {"keys_by_namespace": counts, "keys": sum(counts.values()),
             "worst_share": worst[0], "worst_op": worst[1]}
+
+
+def _bert_tree():
+    """The BERT-base parameter tree as the mlm train phase builds it
+    (``init_params``, seed 0, fp32 on the card)."""
+    from deeplearning4j_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(remat=False, attention_impl="flash")
+    return init_params(cfg, seed=0, device=DEVICE)
+
+
+def _tree_cpu(tree):
+    from deeplearning4j_tpu_torch.parallel import gradient_sharing as gsh
+
+    return gsh.tree_map(lambda t: t.cpu(), tree)
+
+
+def _events_ms(fn):
+    """``fn()``'s result and its device ms between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _gradient_sharing_part(params):
+    """(f) gradient sharing at full width: three steps of
+    ``gradient_compression(AdaptiveThresholdAlgorithm())`` and of
+    ``int8_compression()`` over the BERT-base tree with seeded gradients
+    (N(0, 1e-3)) on the card against the same steps on the CPU — the
+    updates and residuals bit-equal, the threshold (which reads the count
+    of sent entries) within 1e-6 relative; ms a step on the card; then
+    ``math.thresholdEncode``/``Decode`` on the (30522, 768) word
+    embeddings' gradient, bit-equal, with their ms."""
+    import torch
+
+    from deeplearning4j_tpu_torch import NDArray, ops
+    from deeplearning4j_tpu_torch.parallel import gradient_sharing as gsh
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    steps = [gsh.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=DEVICE, dtype=p.dtype) * 1e-3, params)
+        for _ in range(3)]
+    out = {}
+    for label, make in (
+            ("threshold", lambda: gsh.gradient_compression(
+                gsh.AdaptiveThresholdAlgorithm())),
+            ("int8", gsh.int8_compression)):
+        tx_d, tx_h = make(), make()
+        # a throwaway step first: the caching allocator's first
+        # allocations are not a step's cost
+        warm = make()
+        warm.update(steps[0], warm.init(params))
+        st_d, st_h = tx_d.init(params), tx_h.init(_tree_cpu(params))
+        ms, thresholds, exact = [], [], True
+        for k, g in enumerate(steps):
+            (u_d, st_d), t = _events_ms(lambda: tx_d.update(g, st_d))
+            ms.append(t)
+            u_h, st_h = tx_h.update(_tree_cpu(g), st_h)
+            pairs = list(zip(gsh.tree_leaves(u_d), gsh.tree_leaves(u_h)))
+            if label == "threshold":
+                pairs += list(zip(gsh.tree_leaves(st_d.residual),
+                                  gsh.tree_leaves(st_h.residual)))
+                td, th = float(st_d.threshold), float(st_h.threshold)
+                check(abs(td - th) <= 1e-6 * abs(th), f"ops (f) {label} "
+                      f"step {k}: threshold {td} against the CPU's {th}")
+                exact = exact and td == th
+                thresholds.append(td)
+            for a, b in pairs:
+                check(torch.equal(a.cpu(), b), f"ops (f) {label} step {k}: "
+                      f"an update or residual leaf differs from the CPU's")
+        out[label] = {"ms_a_step": ms, "median_ms": float(np.median(ms)),
+                      "thresholds": thresholds, "threshold_exact": exact}
+        log(f"ops (f) {label} ({CARD}): {np.median(ms):.3f} ms a step "
+            f"(median of 3) over {len(gsh.tree_leaves(params))} leaves; steps "
+            f"{ms}")
+    word = next(i for i, p in enumerate(gsh.tree_leaves(params))
+                if tuple(p.shape) == (30522, 768))
+    g = gsh.tree_leaves(steps[0])[word]
+    enc = ops.math.thresholdEncode(NDArray(g), 1e-3)
+    dec = ops.math.thresholdDecode(enc)
+    want = ops.REGISTRY["math.thresholdEncode"].fn(g.cpu(), 1e-3)
+    check(torch.equal(enc.torch.cpu(), want)
+          and torch.equal(dec.torch.cpu(), want),
+          "ops (f) thresholdEncode/Decode: the word embeddings differ")
+    out["encode_ms"] = time_ms(lambda: ops.math.thresholdEncode(
+        NDArray(g), 1e-3), 10, 3, graph=False)
+    out["decode_ms"] = time_ms(lambda: ops.math.thresholdDecode(enc), 10, 3,
+                               graph=False)
+    out["encode_sent"] = int((want != 0).sum())
+    log(f"ops (f) thresholdEncode/Decode (30522, 768) ({CARD}): "
+        f"{out['encode_ms']:.4f} / {out['decode_ms']:.4f} ms")
+    return out
+
+
+# each updater key's state arrays after the gradient, and whether a step
+# count follows (the reference's wide_defs.py signatures)
+UPDATER_STATE = {"sgdUpdater": (0, False), "nesterovsUpdater": (1, False),
+                 "adaGradUpdater": (1, False), "rmsPropUpdater": (1, False),
+                 "adaDeltaUpdater": (2, False), "adamUpdater": (2, True),
+                 "adaMaxUpdater": (2, True), "nadamUpdater": (2, True),
+                 "amsGradUpdater": (3, True), "adaBeliefUpdater": (2, True)}
+
+
+def _updaters_part(params):
+    """(g) the registry's ten updaters at full width: one step of each
+    over every leaf of the BERT-base tree (seeded N(0, 1e-2) gradients,
+    zero state, t = 0) on the card against the CPU, every output within
+    1e-6 of the leaf's largest |value| (elementwise ops, each rounded
+    once on either device); then ``adamUpdater`` leaf by leaf over the
+    tree against ``fused_adamw`` (row 9) over the same tree, device ms
+    between CUDA events (a finding: the registry op is Adam's update
+    alone, the kernel AdamW's whole in-place step)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import NDArray, ops
+    from deeplearning4j_tpu_torch.ops import pallas_updaters as pu
+    from torch_op_cases import flat_outputs
+
+    leaves = pu.tree_leaves(params)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    grads = [torch.randn(p.shape, generator=gen, device=DEVICE,
+                         dtype=p.dtype) * 1e-2 for p in leaves]
+    out = {"leaves": len(leaves), "params": sum(p.numel() for p in leaves)}
+    worst = (0.0, "")
+    for name, (n_state, counted_) in UPDATER_STATE.items():
+        fn_d = getattr(ops.updaters, name)
+        fn_h = ops.REGISTRY[f"updaters.{name}"].fn
+        exact = True
+        for i, g in enumerate(grads):
+            zeros = torch.zeros_like(g)
+            tail = (0,) if counted_ else ()
+            got = flat_outputs(fn_d(NDArray(g), *[NDArray(zeros)] * n_state,
+                                    *tail))
+            want = flat_outputs(fn_h(g.cpu(), *[zeros.cpu()] * n_state,
+                                     *tail))
+            check(len(got) == len(want), f"ops (g) {name}: outputs")
+            for a, b in zip(got, want):
+                if not isinstance(b, torch.Tensor):
+                    check(a == b, f"ops (g) {name}: step count {a} != {b}")
+                    continue
+                # float32: the difference of two close float32 values is
+                # exact, and a double copy of the tree costs the CPU
+                # seconds
+                a = a.torch.cpu()
+                err = (a - b).abs().max().item()
+                share = err / (1e-6 * max(b.abs().max().item(), 1e-30))
+                exact = exact and err == 0.0
+                worst = max(worst, (share, name))
+                check(share <= 1.0, f"ops (g) {name} leaf {i}: "
+                      f"{share:.3f} of its bound")
+        out.setdefault("bit_equal", {})[name] = exact
+    out["worst_share"], out["worst_op"] = worst
+    nd_g = [NDArray(g) for g in grads]
+    nd_m = [NDArray(torch.zeros_like(g)) for g in grads]
+
+    def registry_adam():
+        return [ops.updaters.adamUpdater(g, m, m, 0)
+                for g, m in zip(nd_g, nd_m)]
+
+    opt = pu.fused_adamw(1e-3)
+    tree = {i: p.clone() for i, p in enumerate(leaves)}
+    state = opt.init(tree)
+    ms = {}
+    for label, fn in (("fused_adamw", lambda: opt.apply(tree, state, grads)),
+                      ("adamUpdater", registry_adam),
+                      ("adamUpdater", registry_adam),
+                      ("fused_adamw", lambda: opt.apply(tree, state, grads))):
+        ms.setdefault(label, []).append(time_ms(fn, 3, 3, graph=False))
+    out["adam_ms"] = {k: min(v) for k, v in ms.items()}
+    log(f"ops (g) updaters ({CARD}): {out['leaves']} leaves, "
+        f"{out['params']} params, worst {worst[1]} {worst[0]:.3f} of its "
+        f"bound; adamUpdater leaf by leaf {out['adam_ms']['adamUpdater']:.3f}"
+        f" ms against fused_adamw {out['adam_ms']['fused_adamw']:.3f} ms")
+    return out
 
 
 def ops_phase():
@@ -3852,10 +4041,13 @@ def ops_phase():
        mask, off the envelope or off the kernels' dtypes raises the
        reference's ValueError; numpy float64 data become float32 arrays
        and take row 1;
-    d. every one of the 234 keys on CUDA NDArrays against the CPU;
+    d. every one of the 451 keys on CUDA NDArrays against the CPU;
     e. (a)'s registry call against the direct composition (projections,
        ``mha_attention_packed``, the output product): device ms and
-       wall ms a call."""
+       wall ms a call;
+    f. gradient sharing over the BERT-base tree
+       (:func:`_gradient_sharing_part`);
+    g. the ten updater keys over the same tree (:func:`_updaters_part`)."""
     import torch
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -3927,7 +4119,21 @@ def ops_phase():
           f"{got.device})")
     out["refusals"] = "raised"
     out["off_dtypes"] = "einsum, no launch"
+    t0 = time.perf_counter()
     out["on_card"] = _ops_on_card_part()
+    torch.cuda.empty_cache()
+    tree = _bert_tree()
+    t1 = time.perf_counter()
+    out["gradient_sharing"] = _gradient_sharing_part(tree)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    out["updaters"] = _updaters_part(tree)
+    out["part_s"] = {"d": t1 - t0, "f": t2 - t1,
+                     "g": time.perf_counter() - t2}
+    log(f"ops (d) {out['part_s']['d']:.1f} s, (f) {out['part_s']['f']:.1f} "
+        f"s, (g) {out['part_s']['g']:.1f} s")
+    del tree
+    torch.cuda.empty_cache()
     log(f"ops ({CARD}): " + json.dumps(out, default=str))
     return out
 

@@ -50,7 +50,7 @@ from deeplearning4j_tpu_torch.models.random import as_key, fold_in, gumbel
 from deeplearning4j_tpu_torch.ops.attention_kernels import (
     flash_attention, flash_envelope_ok, mha_attention_packed,
     packed_kernel_shape_ok, paged_decode_attention)
-from deeplearning4j_tpu_torch.ops.updaters import tree_leaves as _leaves
+from deeplearning4j_tpu_torch.ops.pallas_updaters import tree_leaves as _leaves
 from deeplearning4j_tpu_torch.parallel.mesh import (
     CONTEXT_AXIS, DATA_AXIS, MODEL_AXIS, Mesh, NamedSharding, P, copy_to,
     gather_last, reduce_sum, tree_shardings)

@@ -181,15 +181,40 @@ def permutation(key, x, axis: int = 0, device=None) -> torch.Tensor:
     return torch.index_select(x, axis, ind)
 
 
+def _umod(s: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The unsigned 64-bit value held in the int64 ``s``, modulo ``m``
+    (0 < m < 2^31)."""
+    wrap = ((1 << 32) % m) ** 2 % m          # 2^64 mod m
+    return (torch.remainder(s, m) + torch.where(s < 0, wrap, 0)) % m
+
+
+def _randint64(key, shape, minval, maxval):
+    """``jax.random.randint`` for int64, whose spans must fit in 31
+    bits (the offset arithmetic then stays in int64)."""
+    mn = torch.as_tensor(minval, device=key.device).to(torch.int64)
+    mx = torch.as_tensor(maxval, device=key.device).to(torch.int64)
+    span = torch.where(mx <= mn, torch.ones_like(mx), mx - mn)
+    if bool((span >= (1 << 31)).any()):
+        raise TypeError("randint: int64 spans of 2^31 or more are not "
+                        "supported")
+    k1, k2 = split(key, 2)
+    higher, lower = bits(k1, shape, 64), bits(k2, shape, 64)
+    mult = (1 << 32) % span
+    mult = (mult * mult) % span
+    off = (_umod(higher, span) * mult + _umod(lower, span)) % span
+    return mn + off
+
+
 def randint(key, shape, minval, maxval, dtype=torch.int32, device=None):
-    """``jax.random.randint`` (integers of at most 32 bits): two words of
-    random bits reduced modulo the span, as JAX does."""
+    """``jax.random.randint``: two words of random bits reduced modulo the
+    span, as JAX does (int64 for spans below 2^31)."""
     key = _key(key, device)
     dtype = _dt.canonical(_dt.resolve(dtype))
     nbits = torch.iinfo(dtype).bits
     if nbits > 32:
-        raise TypeError(f"randint: {dtype} is not supported (integers of "
-                        "at most 32 bits)")
+        if dtype != torch.int64:
+            raise TypeError(f"randint: {dtype} is not supported")
+        return _randint64(key, _shape(shape), minval, maxval)
     if nbits < 32:
         # sampled at int32 between the clipped bounds, then cast
         info = torch.iinfo(dtype)

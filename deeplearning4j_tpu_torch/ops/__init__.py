@@ -16,7 +16,7 @@ from deeplearning4j_tpu_torch.ops.attention_kernels import (  # noqa: F401
     paged_decode_attention, paged_decode_attention_reference,
     paged_decode_plan,
 )
-from deeplearning4j_tpu_torch.ops.updaters import (  # noqa: F401
+from deeplearning4j_tpu_torch.ops.pallas_updaters import (  # noqa: F401
     FusedAdamW, adamw_reference, fused_adamw, tree_leaves,
 )
 from deeplearning4j_tpu_torch.ops.xent_kernels import (  # noqa: F401
@@ -38,6 +38,8 @@ from deeplearning4j_tpu_torch.ops.registry import (  # noqa: F401
 from deeplearning4j_tpu_torch.ops import math_defs as _math_defs  # noqa: F401,E402
 from deeplearning4j_tpu_torch.ops import nn_defs as _nn_defs  # noqa: F401,E402
 from deeplearning4j_tpu_torch.ops import extra_defs as _extra_defs  # noqa: F401,E402
+from deeplearning4j_tpu_torch.ops import more_defs as _more_defs  # noqa: F401,E402
+from deeplearning4j_tpu_torch.ops import wide_defs as _wide_defs  # noqa: F401,E402
 
 math = EagerNamespace("math")
 reduce = EagerNamespace("reduce")
@@ -50,9 +52,4 @@ rnn = EagerNamespace("rnn")
 loss = EagerNamespace("loss")
 image = EagerNamespace("image")
 random = EagerNamespace("random")
-
-
-# the registry's updater ops (none yet: they come with the reference's
-# wide_defs.py). As a package attribute the name shadows the AdamW
-# kernel's module (ops/updaters.py): import that module by its path.
 updaters = EagerNamespace("updaters")

@@ -455,8 +455,12 @@ def _one_hot(indices, depth, axis=-1, on=1.0, off=0.0):
 
 
 def _segment_sum(data, segment_ids, num_segments):
+    """``jax.ops.segment_sum``: ids outside [0, num_segments) are
+    dropped."""
+    ids = segment_ids.to(torch.int64)
+    ok = (ids >= 0) & (ids < num_segments)
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add(0, segment_ids.to(torch.int64), data)
+    return out.index_add(0, ids[ok], data[ok])
 
 
 def segment_mean(data, segment_ids, num_segments):

@@ -911,11 +911,33 @@ def _tf_resize_matrix(n_in, n_out, method, align_corners, half_pixel,
     return m
 
 
+def _lanczos(radius):
+    def kernel(x):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            y = radius * np.sin(np.pi * x) * np.sin(np.pi * x / radius)
+            out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2,
+                                                  1), 1.0)
+        return np.where(x > radius, 0.0, out)
+    return kernel
+
+
+def _keys_cubic(x):
+    """Keys' cubic kernel, a = -0.5."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+_RESIZE_KERNELS = {"bilinear": lambda x: np.maximum(0.0, 1.0 - x),
+                   "cubic": _keys_cubic, "lanczos3": _lanczos(3.0),
+                   "lanczos5": _lanczos(5.0)}
+
+
 def _jax_resize_weights(n_in, n_out, method):
     """``jax.image.resize``'s (n_out, n_in) weights along one dim (half-
-    pixel centers, antialiased when downsampling): the triangle kernel,
-    normalized per output, or nearest's floor of the scaled center in
-    float32."""
+    pixel centers, antialiased when downsampling): its triangle, Keys
+    cubic or Lanczos kernel, normalized per output, or nearest's floor of
+    the scaled center in float32."""
     if method == "nearest":
         off = np.floor((np.arange(n_out, dtype=np.float32) + 0.5)
                        * np.float32(n_in) / np.float32(n_out))
@@ -926,10 +948,10 @@ def _jax_resize_weights(n_in, n_out, method):
     inv = 1.0 / scale
     kscale = max(inv, 1.0)
     sample = (np.arange(n_out) + 0.5) * inv - 0.5
-    if method != "bilinear":
-        raise ValueError(f"resize method {method!r} is not ported yet")
+    if method not in _RESIZE_KERNELS:
+        raise ValueError(f"Unknown resize method {method!r}")
     x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / kscale
-    w = np.maximum(0.0, 1.0 - x)
+    w = _RESIZE_KERNELS[method](x)
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, 1), 0.0)

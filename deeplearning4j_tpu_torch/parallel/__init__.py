@@ -1,7 +1,7 @@
 """Distributed training over ``torch.distributed``: the device mesh,
 multi-process runtime and sequence parallelism — counterpart of
-``deeplearning4j_tpu/parallel`` (``ParallelWrapper``, ``ParallelInference``
-and gradient sharing are not ported yet)."""
+``deeplearning4j_tpu/parallel`` (``ParallelWrapper`` and
+``ParallelInference`` are not ported yet), and gradient sharing."""
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     CONTEXT_AXIS, DATA_AXIS, MODEL_AXIS, PIPE_AXIS, make_mesh, replicate,
     shard_batch,
@@ -10,5 +10,10 @@ from deeplearning4j_tpu_torch.parallel.sequence_parallel import (  # noqa: F401
     reference_attention, ring_attention, ring_flash_attention,
     ring_self_attention, ulysses_attention, zigzag_indices,
     zigzag_ring_flash_attention, zigzag_ring_self_attention,
+)
+from deeplearning4j_tpu_torch.parallel.gradient_sharing import (  # noqa: F401
+    AdaptiveThresholdAlgorithm, GradientTransformation, ThresholdState,
+    gradient_compression, int8_compression, threshold_decode,
+    threshold_encode,
 )
 from deeplearning4j_tpu_torch.parallel import multihost  # noqa: F401

@@ -166,12 +166,15 @@ class _Link:
             self._open -= 1
             last = self._open == 0
         if last and self.is_driver:
-            self._stop.set()
-            if self.error is None:
-                try:
-                    self.send(None, {"op": "close"})
-                except MeshBrokenError:
-                    pass
+            # under the lock a beat takes before it sends: none follows
+            # the close
+            with self.lock:
+                self._stop.set()
+                if self.error is None:
+                    try:
+                        self.send(None, {"op": "close"})
+                    except MeshBrokenError:
+                        pass
             if self._thread is not None:
                 self._thread.join(timeout=self.timeout_s)
 
@@ -213,13 +216,20 @@ class _Link:
 
     def _beat(self):
         period = max(0.05, min(10.0, self.timeout_s / 8))
-        while not self._stop.wait(period):
-            if time.monotonic() - self._last_send < period:
-                continue
-            try:
-                self.send(None, {"op": "beat"})
-            except MeshBrokenError:
-                return
+        stop = self._stop
+        while not stop.wait(period):
+            # the stop is read again under the lock ``detach`` sends the
+            # close under: a beat after the close would wait on followers
+            # that no longer receive
+            with self.lock:
+                if stop.is_set():
+                    return
+                if time.monotonic() - self._last_send < period:
+                    continue
+                try:
+                    self.send(None, {"op": "beat"})
+                except MeshBrokenError:
+                    return
 
     def fail(self, exc: BaseException, abort: bool = True):
         """Mark the link broken (every later send raises) and abort its

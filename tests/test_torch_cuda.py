@@ -7,7 +7,6 @@ on a machine with a GPU and no JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
-import importlib
 import time
 
 import numpy as np
@@ -643,7 +642,7 @@ def test_train_step_launches_the_packed_kernels(card, remat):
 
 from deeplearning4j_tpu_torch.ops import xent_kernels  # noqa: E402
 
-updaters = importlib.import_module("deeplearning4j_tpu_torch.ops.updaters")
+from deeplearning4j_tpu_torch.ops import pallas_updaters as updaters  # noqa: E402
 
 
 def _xent_case(rng, n, v, dtype, device):

@@ -232,11 +232,12 @@ def test_port_imports_no_jax():
         "pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "for want in ('ops.updaters', 'serving.rpc', 'serving.cluster',\n"
+        "for want in ('ops.pallas_updaters', 'serving.rpc', 'serving.cluster',\n"
         "             'serving.disagg', 'serving.sharded', 'parallel.mesh',\n"
         "             'parallel.multihost', 'parallel.sequence_parallel',\n"
         "             'ndarray.array', 'ops.registry', 'ops.math_defs',\n"
-        "             'ops.nn_defs'):\n"
+        "             'ops.nn_defs', 'ops.extra_defs', 'ops.more_defs',\n"
+        "             'ops.wide_defs', 'parallel.gradient_sharing'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + want in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'deeplearning4j_tpu.')) "

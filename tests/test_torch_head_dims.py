@@ -17,7 +17,6 @@ of the PyTorch port (deeplearning4j_tpu_torch), on the CPU.
 The kernels themselves are held against these plain versions on the card
 by tests/test_torch_cuda.py and chip_smoke.py.
 """
-import importlib
 
 import numpy as np
 import pytest
@@ -32,8 +31,7 @@ from deeplearning4j_tpu.ops.pallas_kernels import (
     paged_decode_attention as jax_paged_decode)
 from deeplearning4j_tpu_torch.models import bert as tbert
 from deeplearning4j_tpu_torch.ops import attention_kernels as ak
-
-updaters = importlib.import_module("deeplearning4j_tpu_torch.ops.updaters")
+from deeplearning4j_tpu_torch.ops import pallas_updaters as updaters
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -45,12 +45,13 @@ def test_forward(key):
 # ------------------------------------------------------------------ gates
 
 
-def test_registry_is_math_and_nn_defs():
-    """The port registers exactly the 234 keys that the reference's
-    ``math_defs.py`` and ``nn_defs.py`` register, each a key of the
-    reference's ``REGISTRY`` and each with a case here."""
-    assert len(tops.REGISTRY) == 234
-    assert set(tops.REGISTRY) <= set(jops.REGISTRY)
+def test_registry_is_the_reference_registry():
+    """The port registers exactly the reference's 451 keys (its
+    ``math_defs.py``, ``nn_defs.py``, ``extra_defs.py``, ``more_defs.py``
+    and ``wide_defs.py``), each in the reference's namespace and each with
+    a case here."""
+    assert len(tops.REGISTRY) == 451
+    assert set(tops.REGISTRY) == set(jops.REGISTRY)
     assert set(tops.REGISTRY) == set(CASES)
     for key, spec in tops.REGISTRY.items():
         ns, name = key.split(".", 1)
@@ -88,9 +89,11 @@ def test_eager_namespaces_wrap_and_unwrap():
                 assert g == w, key
     assert sorted(dir(tops.linalg)) == sorted(
         k.split(".", 1)[1] for k in CASES if k.startswith("linalg."))
-    # empty until the reference's wide_defs.py is ported; the AdamW
-    # kernel's module (ops/updaters.py) is reached by its path only
-    assert dir(tops.updaters) == []
+    # the namespace holds the ten updater keys only; the AdamW kernel's
+    # module is ops/pallas_updaters.py
+    assert sorted(dir(tops.updaters)) == sorted(
+        k.split(".", 1)[1] for k in jops.REGISTRY if k.startswith("updaters."))
+    assert len(dir(tops.updaters)) == 10
     with pytest.raises(AttributeError):
         tops.updaters.fused_adamw
 

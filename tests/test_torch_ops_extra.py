@@ -1,0 +1,27 @@
+"""The forward, the gradient and both default modes of every key that the
+reference's ``ops/extra_defs.py`` defines in its ``math``, ``reduce`` and
+``bitwise`` namespaces (the rest: ``test_torch_ops_extra_shape.py`` and
+``test_torch_ops_extra_nn.py``), the port's registry against the JAX
+package's on the CPU (``tests/torch_op_parity.py``; recipes and tolerances
+in ``tests/torch_op_cases.py``)."""
+import pytest
+
+from torch_op_parity import (
+    check_forward, check_forward_32, check_gradient, grad_keys, keys_of)
+
+KEYS = keys_of("math", "reduce", "bitwise", modules=("extra_defs",))
+
+
+@pytest.mark.parametrize("key", grad_keys(KEYS))
+def test_gradient(key):
+    check_gradient(key)
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_forward(key):
+    check_forward(key)
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_forward_default_mode(key):
+    check_forward_32(key)

@@ -1,5 +1,5 @@
 """Parity of the port's fused softmax cross-entropy and fused AdamW
-(deeplearning4j_tpu_torch/ops/xent_kernels.py, ops/updaters.py) with the
+(deeplearning4j_tpu_torch/ops/xent_kernels.py, ops/pallas_updaters.py) with the
 JAX package's Pallas kernels, on the CPU.
 
 Both packages get the same numpy-drawn inputs; dtypes are pinned because
@@ -24,7 +24,7 @@ from deeplearning4j_tpu.ops.pallas_kernels import (
 from deeplearning4j_tpu.ops.pallas_updaters import fused_adamw as jfused
 from deeplearning4j_tpu_torch.models import bert as tbert
 from deeplearning4j_tpu_torch.ops import xent_kernels
-from deeplearning4j_tpu_torch.ops.updaters import fused_adamw, tree_leaves
+from deeplearning4j_tpu_torch.ops.pallas_updaters import fused_adamw, tree_leaves
 from deeplearning4j_tpu_torch.ops.xent_kernels import (
     softmax_cross_entropy, softmax_cross_entropy_forward)
 

@@ -21,6 +21,7 @@ import pickle
 import signal
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -737,8 +738,104 @@ def serving_suite():
     return cases
 
 
+# ------------------------------------------------------- suite: plan link
+
+# the link's timeout in the plan-link case: a beat every 0.25 s
+LINK_TIMEOUT_S = 2.0
+
+
+class _HeldLock:
+    """A plan link's lock that holds the link's heartbeat thread at its
+    acquire until :attr:`gate` opens; :attr:`waiting` says the beat got
+    there (past its wait, about to take the lock)."""
+
+    def __init__(self, link):
+        self._lock = threading.RLock()
+        self._link = link
+        self.waiting = threading.Event()
+        self.gate = threading.Event()
+
+    def acquire(self, blocking=True, timeout=-1):
+        if threading.current_thread() is self._link._thread \
+                and not self.gate.is_set():
+            self.waiting.set()
+            self.gate.wait()
+        return self._lock.acquire(blocking, timeout)
+
+    def release(self):
+        self._lock.release()
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+class _Endpoint:
+    """A plan endpoint that records the plans it is handed."""
+
+    def __init__(self):
+        self.plans = []
+
+    def _deliver(self, plan):
+        self.plans.append(plan.get("op"))
+        return True
+
+    def _broken(self, exc):
+        pass
+
+
+def close_after_beat_case():
+    """The last endpoint of a 2-rank link closes while the driver's beat
+    is held at the link's lock, past its wait; the lock opens once the
+    close went out. Returns both ranks' records: the driver's close
+    seconds and whether its beat thread ended; the follower's delivered
+    plans and what, if anything, reached it after the close (one more
+    receive on the link's group, which times out when nothing comes)."""
+    from deeplearning4j_tpu_torch.serving import sharded
+
+    link = sharded._Link((0, 1), LINK_TIMEOUT_S)
+    ep = _Endpoint()
+    if link.is_driver:
+        held = link.lock = _HeldLock(link)
+        send = link.send
+
+        def send_then_open(tag, plan):
+            out = send(tag, plan)
+            if plan.get("op") == "close":
+                held.gate.set()
+            return out
+
+        link.send = send_then_open
+        tag = link.attach(ep)
+        assert held.waiting.wait(timeout=30), "the beat never came"
+        t0 = time.perf_counter()
+        link.detach(tag)
+        row = {"close_s": time.perf_counter() - t0,
+               "beat_alive": link._thread.is_alive()}
+    else:
+        link.attach(ep)
+        link._thread.join(timeout=60)
+        row = {"dispatcher_alive": link._thread.is_alive(),
+               "plans": list(ep.plans)}
+        try:
+            _tag, plan = sharded._broadcast(link.group)
+            row["after_close"] = plan.get("op")
+        except Exception:   # the group's timeout: nothing came
+            row["after_close"] = None
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, row)
+    return rows
+
+
+def planlink_suite():
+    return [("close-after-beat", close_after_beat_case)]
+
+
 SUITES = {"parallel": parallel_suite, "multihost": multihost_suite,
-          "train": train_suite, "serving": serving_suite}
+          "train": train_suite, "serving": serving_suite,
+          "planlink": planlink_suite}
 
 
 # ---------------------------------------------------------------- worker

@@ -21,6 +21,9 @@ elementwise, gradients within 1e-4 of the largest |grad|, integer and
 bool results exact and every output's dtype the reference's; a looser
 tolerance stands beside its op there with why.
 """
+import importlib
+import inspect
+import re
 import zlib
 
 import jax
@@ -31,15 +34,68 @@ import torch
 import deeplearning4j_tpu.ops as jops
 import deeplearning4j_tpu_torch.ops as tops
 from deeplearning4j_tpu_torch import nd
+from deeplearning4j_tpu_torch.ndarray import dtypes as _dt
 from torch_op_cases import (
     ATOL, CASES, GRAD_REL, RTOL, flat_outputs, to_torch)
 
-# outputs of Python values (sizes, ranks) or of data-dependent shapes
-EAGER = {"shape.dynamicPartition", "shape.sizeAt", "shape.rank"}
+# keys whose reference cannot run under ``jax.jit``, each with why
+EAGER = {
+    # a list whose lengths depend on the data
+    "shape.dynamicPartition",
+    # Python ints out
+    "shape.sizeAt", "shape.rank",
+    # Python values out: a shape tuple, a bool of the dtype
+    "shape.broadcastShape", "math.isNumericTensor",
+    # an output length from the data: the largest index or value + 1
+    "shape.dynamicStitch", "math.bincount",
+    # outputs whose shape depends on the data
+    "shape.unique", "shape.uniqueWithCounts", "shape.listDiff",
+    "shape.intersection", "shape.whereNonzero",
+    # host (numpy) computations on the array's values
+    "math.hashCode", "math.checkNumerics", "math.assertOp",
+    "loss.ctcGreedyDecoder",
+}
+
+# the four keys that ``extra_defs.py`` registers again (and wins) were
+# ``math_defs.py``'s first
+_FIRST_IN_MATH = {"shape.dynamicPartition", "shape.sequenceMask",
+                  "math.clipByNorm", "math.step"}
+HALF_ONE = ("math_defs", "nn_defs")
 
 
-def keys_of(*namespaces):
-    return sorted(k for k in CASES if k.split(".", 1)[0] in namespaces)
+def _registered_in(name):
+    """The keys a reference module registers by a literal ``op("name",
+    "namespace")``, as every registration of the second half is."""
+    src = inspect.getsource(importlib.import_module(
+        f"deeplearning4j_tpu.ops.{name}"))
+    return {f"{ns}.{n}" for n, ns in
+            re.findall(r'op\(\s*"([^"]+)",\s*"([^"]+)"\s*\)', src)}
+
+
+_SECOND_HALF = {m: _registered_in(m)
+                for m in ("extra_defs", "more_defs", "wide_defs")}
+
+
+def module_of(key):
+    """The reference module (``math_defs``/``nn_defs`` as one half, or
+    ``extra_defs``, ``more_defs``, ``wide_defs``) that defines ``key``."""
+    if key in _FIRST_IN_MATH:
+        return "math_defs"
+    for m in ("wide_defs", "more_defs", "extra_defs"):
+        if key in _SECOND_HALF[m]:
+            return m
+    return "math_defs" if jops.REGISTRY[key].namespace != "nn" \
+        and key.split(".")[0] not in ("cnn", "rnn", "loss", "image") \
+        else "nn_defs"
+
+
+def keys_of(*namespaces, modules=HALF_ONE):
+    """The keys of ``namespaces`` (all, when none is named) defined in the
+    reference's ``modules``: by default its first half, ``math_defs.py``
+    and ``nn_defs.py``."""
+    return sorted(k for k in CASES
+                  if (not namespaces or k.split(".", 1)[0] in namespaces)
+                  and module_of(k) in modules)
 
 
 def to_jax(x):
@@ -108,9 +164,16 @@ def reference(key, args, kwargs):
 
 
 def port(key, args, kwargs, x64=True):
-    with nd.enableX64(x64):
-        return tops.REGISTRY[key].fn(*to_torch(args, "cpu"),
-                                     **to_torch(kwargs, "cpu"))
+    """The port's op on the CPU (arrays made there, as by the creation
+    keys, too)."""
+    prev = _dt.defaults.device
+    _dt.defaults.device = "cpu"
+    try:
+        with nd.enableX64(x64):
+            return tops.REGISTRY[key].fn(*to_torch(args, "cpu"),
+                                         **to_torch(kwargs, "cpu"))
+    finally:
+        _dt.defaults.device = prev
 
 
 def close(a, b, rtol, atol, label):
