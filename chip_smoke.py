@@ -141,6 +141,20 @@ seconds:
    int8 steps, ``thresholdEncode``/``Decode`` on the word embeddings) and
    the ten ``ops.updaters`` keys over the BERT-base tree against the CPU,
    ``adamUpdater`` leaf by leaf against ``fused_adamw``;
+   networks — ``MultiLayerNetwork`` on the card (:func:`networks_phase`):
+   (a) LeNet-MNIST (``tools/bench_configs.py``'s config #1, B=256, the
+   ``MnistDataSetIterator`` surrogate, one epoch of 30 steps): images/s,
+   accuracy > 0.9 on 1000 test images, its first 3 steps against the
+   same seed's on the CPU; (b) the GravesLSTM char-RNN (config #3: two
+   GravesLSTM(512), vocab 80, B=64, T=128): tokens/s, step ms, the loss
+   falls, ``rnnTimeStep`` one step at a time against ``output()``; (c)
+   two SelfAttentionLayer(768, 12 heads) at x (32, 512, 768), fp32 and
+   bf16: rows 1 and 2 exactly 2 x steps (and two row-1 launches an
+   ``output()``), none with ``attentionKernel=False`` or a features
+   mask, the two routes' loss and gradients within the ops phase's
+   attention tolerances, both routes' step ms; (d) ``ModelSerializer``:
+   (c)'s fp32 net written and restored on the card (output bit-equal)
+   and on the CPU, one more step on each on the same trajectory;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -4138,6 +4152,369 @@ def ops_phase():
     return out
 
 
+# ---------------------------------------------------------------- networks
+
+# (b)'s widths: config #3 (tools/bench_configs.py:144-163)
+RNN_B, RNN_T, RNN_V, RNN_H = 64, 128, 80, 512
+# (c)'s widths: BERT-base attention, a batch of 32 sequences of 512
+SA_B, SA_T, SA_D, SA_HEADS = 32, 512, 768, 12
+
+
+def _lenet_conf():
+    """``tools/bench_configs.py:103-125``'s LeNet (config #1)."""
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.train import Adam
+
+    return (NeuralNetConfiguration.Builder().seed(1).updater(Adam(1e-3))
+            .dataType("FLOAT").list()
+            .layer(L.ConvolutionLayer(nOut=20, kernelSize=(5, 5), activation="RELU"))
+            .layer(L.SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+            .layer(L.ConvolutionLayer(nOut=50, kernelSize=(5, 5), activation="RELU"))
+            .layer(L.SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+            .layer(L.DenseLayer(nOut=500, activation="RELU"))
+            .layer(L.OutputLayer(nOut=10, lossFunction="MCXENT"))
+            .setInputType(InputType.convolutionalFlat(28, 28, 1)).build())
+
+
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _timed_fit(net, batches, warmup):
+    """Fit each batch once; (mean ms of the steps after ``warmup``, every
+    step's loss). Each step ends in a synchronize (the loss is read)."""
+    times, losses = [], []
+    for i, ds in enumerate(batches):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        losses.append(net.score())
+        _sync()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times)), losses
+
+
+def _rel_norm(a, b) -> float:
+    """||a - b|| / ||b|| over two flat parameter vectors."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _lenet_part():
+    """(a) one epoch of LeNet-MNIST on the card, evaluated; the first 3
+    steps against the CPU's from the same seed: losses within 1e-5
+    relative, the parameters within 1e-5 of their norm (Adam's first
+    steps move every weight by ~lr whatever its gradient's size, so a
+    gradient at rounding level may flip: no element is held alone)."""
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+    train = MnistDataSetIterator(256, train=True, num_examples=7680)
+    test = MnistDataSetIterator(250, train=False, num_examples=1000)
+    check(train.synthetic, "networks (a): expected the MNIST surrogate "
+          "(no cache), got the IDX files")
+    batches = list(train)
+    check(len(batches) == 30, f"networks (a): {len(batches)} batches")
+    net = MultiLayerNetwork(_lenet_conf(), device=DEVICE).init()
+    step_ms, losses = _timed_fit(net, batches, warmup=2)
+    ev = net.evaluate(test)
+    acc = ev.accuracy()
+    check(acc > 0.9, f"networks (a): LeNet accuracy {acc:.4f} <= 0.9")
+    card = MultiLayerNetwork(_lenet_conf(), device=DEVICE).init()
+    host = MultiLayerNetwork(_lenet_conf(), device="cpu").init()
+    loss_err = 0.0
+    for ds in batches[:3]:
+        card.fit(ds)
+        host.fit(ds)
+        loss_err = max(loss_err, abs(card.score() - host.score())
+                       / abs(host.score()))
+    param_err = _rel_norm(card.params().torch, host.params().torch)
+    check(loss_err <= 1e-5 and param_err <= 1e-5,
+          f"networks (a): card vs CPU over 3 steps: loss {loss_err:.3e}, "
+          f"params {param_err:.3e} (allowed 1e-5 each)")
+    out = {"step_ms": step_ms, "images_per_sec": 256 / step_ms * 1e3,
+           "accuracy": acc, "first_loss": losses[0], "last_loss": losses[-1],
+           "cpu_loss_rel_err": loss_err, "cpu_param_rel_norm_err": param_err}
+    log(f"networks (a) LeNet ({CARD}): {step_ms:.3f} ms a step, "
+        f"{out['images_per_sec']:.1f} images/s, accuracy {acc:.4f}")
+    return out
+
+
+def _char_rnn_part():
+    """(b) the GravesLSTM char-RNN: 2 warm-up and 5 timed steps on one
+    one-hot batch; the loss falls; ``rnnTimeStep`` one step at a time
+    gives ``output()`` of the whole sequence within 1e-5 of its largest
+    |value| (both fp32; the stream's input projections are one step's
+    matmuls, the whole sequence's one)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import (
+        InputType, MultiLayerNetwork, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.train import Adam
+
+    B, T, V, H = RNN_B, RNN_T, RNN_V, RNN_H
+    conf = (NeuralNetConfiguration.Builder().seed(2).updater(Adam(1e-3))
+            .dataType("FLOAT").list()
+            .layer(L.GravesLSTM(nOut=H, activation="TANH"))
+            .layer(L.GravesLSTM(nOut=H, activation="TANH"))
+            .layer(L.RnnOutputLayer(nOut=V, lossFunction="MCXENT"))
+            .setInputType(InputType.recurrent(V, T)).build())
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    rng = np.random.default_rng(0)
+    x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
+    y = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
+    ds = DataSet(x, y)
+    step_ms, losses = _timed_fit(net, [ds] * 7, warmup=2)
+    check(losses[-1] < losses[0], f"networks (b): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} did not fall")
+    whole = net.output(x).torch
+    net.rnnClearPreviousState()
+    t0 = time.perf_counter()
+    steps = torch.stack([net.rnnTimeStep(x[:, t]).torch for t in range(T)], 1)
+    _sync()
+    stream_s = time.perf_counter() - t0
+    err = max_err(steps, whole)
+    check(err <= rel_bound(whole, 1e-5), f"networks (b): rnnTimeStep vs "
+          f"output |err| {err:.3e} > 1e-5 of max|output|")
+    out = {"step_ms": step_ms, "tokens_per_sec": B * T / step_ms * 1e3,
+           "losses": losses, "stream_max_abs_err": err,
+           "stream_ms_a_step": stream_s / T * 1e3}
+    log(f"networks (b) char-RNN ({CARD}): {step_ms:.3f} ms a step, "
+        f"{out['tokens_per_sec']:.1f} tokens/s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    return out
+
+
+def _attention_conf(dtype_name, kernel=None):
+    from deeplearning4j_tpu_torch.nn import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.train import Adam
+
+    return (NeuralNetConfiguration.Builder().seed(4).updater(Adam(1e-4))
+            .dataType(dtype_name).list()
+            .layer(L.SelfAttentionLayer(nOut=SA_D, nHeads=SA_HEADS,
+                                        attentionKernel=kernel))
+            .layer(L.SelfAttentionLayer(nOut=SA_D, nHeads=SA_HEADS,
+                                        attentionKernel=kernel))
+            .layer(L.GlobalPoolingLayer(poolingType="AVG"))
+            .layer(L.OutputLayer(nOut=10, lossFunction="MCXENT"))
+            .setInputType(InputType.recurrent(SA_D, SA_T)).build())
+
+
+def _attention_batch(b, seed):
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rng = np.random.default_rng(seed)
+    return DataSet(rng.standard_normal((b, SA_T, SA_D)).astype(np.float32),
+                   np.eye(10, dtype=np.float32)[rng.integers(0, 10, b)])
+
+
+def _net_loss_and_grads(net, ds):
+    """A network's training loss on ``ds`` (no dropout here) and its
+    gradients with respect to every parameter, without an update."""
+    import torch
+
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
+
+    params = tree_map(lambda p: p.detach().requires_grad_(), net._params)
+    loss, _, _ = net._loss_for(params, net._state, net._tensor(ds.features),
+                               net._tensor(ds.labels), None, None, None)
+    return [loss] + list(torch.autograd.grad(loss, tree_leaves(params)))
+
+
+def _attention_part():
+    """(c) two SelfAttentionLayers at BERT-base attention widths, fp32 and
+    bf16, on the kernel route (auto): rows 1 and 2 launch exactly 2 x
+    steps over 2 warm-up and 5 timed steps, and each ``output()`` adds two
+    row-1 launches; ``attentionKernel=False`` (its own 2 + 5 steps) and a
+    features-masked step launch neither row; on one batch of 8 and the
+    fp32 net's weights, the kernel route's first attention output, loss
+    and gradients against the fp32 einsum route's within the ops phase's
+    attention tolerances (``_attention_grads_check``: fp32 1e-5 / 1e-4 of
+    the largest |value|; bf16 the per-row rule, or twice the bf16 einsum
+    route's own share). Returns the step ms of both routes and the
+    launches."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+    out = {}
+    batches = [_attention_batch(SA_B, s) for s in range(7)]
+    for dtype_name in ("FLOAT", "HALF"):
+        res = {}
+        net = MultiLayerNetwork(_attention_conf(dtype_name), device=DEVICE).init()
+        reset_launches()
+        res["kernel_step_ms"], losses = _timed_fit(net, batches, warmup=2)
+        got = read_launches()
+        res["launches"] = {k: got[k] for k in ("mha_attention_packed",
+                                                "mha_packed_backward")}
+        check(got["mha_attention_packed"] == 2 * 7
+              and got["mha_packed_backward"] == 2 * 7,
+              f"networks (c) {dtype_name}: 7 fit steps launched {got}, "
+              f"expected rows 1 and 2 14 times each")
+        reset_launches()
+        net.output(batches[0].features)
+        _sync()
+        got = read_launches()
+        check(got["mha_attention_packed"] == 2 and got["mha_packed_backward"] == 0,
+              f"networks (c) {dtype_name}: output() launched {got}")
+        res["losses"] = losses
+        einsum = MultiLayerNetwork(_attention_conf(dtype_name, kernel=False),
+                                   device=DEVICE).init()
+        reset_launches()
+        res["einsum_step_ms"], _ = _timed_fit(einsum, batches, warmup=2)
+        mask = np.ones((SA_B, SA_T), np.float32)
+        mask[:, SA_T - 37:] = 0
+        net.fit(DataSet(batches[0].features, batches[0].labels, mask, None))
+        _sync()
+        counts, ok = _launched(())
+        check(ok, f"networks (c) {dtype_name}: attentionKernel=False and a "
+              f"masked batch launched {counts}")
+        res["einsum_over_kernel"] = res["einsum_step_ms"] / res["kernel_step_ms"]
+        # one step's loss and gradients on both routes, the same weights
+        ds = _attention_batch(8, 11)
+        nets = [MultiLayerNetwork(_attention_conf(*c), device=DEVICE).init()
+                for c in ((dtype_name, None), ("FLOAT", False), (dtype_name, False))]
+        for n in (nets[0], nets[2]):  # the fp32 weights (bf16-rounded in HALF)
+            n.setParams(nets[1].params().torch)
+        got, ref, plain = [[n.feedForward(ds.features)[1].torch]
+                           + _net_loss_and_grads(n, ds) for n in nets]
+        if dtype_name == "FLOAT":
+            plain = None
+        # the first attention layer's output and its layers' projection
+        # gradients (64-wide head rows) through _attention_grads_check; the
+        # loss and the head's gradients to 1e-5 / 1e-4 of the largest |value|
+        # in fp32, in bf16 to 2^-6 of it or twice the bf16 einsum route's
+        # own distance from fp32
+        rows = [0] + [i for i, g in enumerate(got) if g.dim() == 2
+                      and tuple(g.shape) == (SA_D, SA_D)]
+        for i in range(1, len(got)):
+            if i in rows:
+                continue
+            err = max_err(got[i], ref[i])
+            if plain is None:
+                allowed = rel_bound(ref[i], 1e-5 if i == 1 else 1e-4)
+            else:
+                allowed = max(rel_bound(ref[i], 2 ** -6), 2 * max_err(plain[i], ref[i]))
+            check(err <= allowed, f"networks (c) {dtype_name} "
+                  f"{'loss' if i == 1 else f'gradient {i - 2}'}: |err| "
+                  f"{err:.3e} > {allowed:.3e}")
+        res["route_share"] = _attention_grads_check(
+            f"networks (c) {dtype_name}", [got[i] for i in rows],
+            [ref[i] for i in rows],
+            None if plain is None else [plain[i] for i in rows])
+        res["attention_ms"] = _attention_call_ms(dtype_name)
+        out[dtype_name] = res
+        del net, einsum, nets
+        torch.cuda.empty_cache()
+        log(f"networks (c) {dtype_name} ({CARD}): kernel {res['kernel_step_ms']:.3f}"
+            f" ms a step, einsum {res['einsum_step_ms']:.3f} ms "
+            f"({res['einsum_over_kernel']:.3f}x), launches {res['launches']}; "
+            f"one layer's attention op ms {res['attention_ms']}")
+    return out
+
+
+def _attention_call_ms(dtype_name):
+    """Where (c)'s step time goes: one SelfAttentionLayer's attention op
+    (``multi_head_attention``: the four projections and the attention) at
+    (c)'s shape, forward and forward + backward, on the kernel route and
+    the einsum route; CUDA events over 5 eager calls, median of 3."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops.nn_defs import multi_head_attention
+
+    dt = torch.float32 if dtype_name == "FLOAT" else torch.bfloat16
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(SA_B, SA_T, SA_D, generator=g).to(DEVICE, dt).requires_grad_()
+    ws = [(torch.randn(SA_D, SA_D, generator=g) * SA_D ** -0.5).to(DEVICE, dt)
+          .requires_grad_() for _ in range(4)]
+    go = torch.randn(SA_B, SA_T, SA_D, generator=g).to(DEVICE, dt)
+    out = {}
+    for route, kernel in (("kernel", None), ("einsum", False)):
+        def fwd():
+            with torch.no_grad():
+                multi_head_attention(x, x, *ws, SA_HEADS, use_kernel=kernel)
+
+        def fwd_bwd():
+            o = multi_head_attention(x, x, *ws, SA_HEADS, use_kernel=kernel)
+            torch.autograd.grad(o, [x] + ws, go)
+
+        out[route] = {"fwd": time_ms(fwd, iters=5, reps=3, graph=False),
+                      "fwd_bwd": time_ms(fwd_bwd, iters=5, reps=3, graph=False)}
+    return out
+
+
+def _serializer_part(tmp_dir):
+    """(d) (c)'s fp32 net after 3 steps written with ModelSerializer and
+    restored on the card (``output()`` bit-equal) and on the CPU (within
+    1e-5 of the largest |output|: the einsum on the host, the kernel on
+    the card); one more step on each, the same small batch: losses
+    within 1e-5 relative, parameters within 1e-5 of their norm."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.model_serializer import ModelSerializer
+
+    net = MultiLayerNetwork(_attention_conf("FLOAT"), device=DEVICE).init()
+    for s in range(3):
+        net.fit(_attention_batch(8, 20 + s))
+    path = os.path.join(tmp_dir, "networks_d.zip")
+    ModelSerializer.writeModel(net, path, saveUpdater=True)
+    x = _attention_batch(4, 30).features
+    want = net.output(x).torch
+    card = ModelSerializer.restoreMultiLayerNetwork(path, device=DEVICE)
+    got = card.output(x).torch
+    check(torch.equal(got, want), f"networks (d): the restored net's output "
+          f"differs on the card by {max_err(got, want):.3e}")
+    host = ModelSerializer.restoreMultiLayerNetwork(path, device="cpu")
+    err = max_err(host.output(x).torch, want.cpu())
+    check(err <= rel_bound(want, 1e-5), f"networks (d): CPU restore output "
+          f"|err| {err:.3e} > 1e-5 of max|output|")
+    step = _attention_batch(4, 31)
+    card.fit(step)
+    host.fit(step)
+    loss_err = abs(card.score() - host.score()) / abs(host.score())
+    param_err = _rel_norm(card.params().torch, host.params().torch)
+    check(card.getIterationCount() == host.getIterationCount() == 4
+          and loss_err <= 1e-5 and param_err <= 1e-5,
+          f"networks (d): one more step: iterations {card.getIterationCount()}"
+          f"/{host.getIterationCount()}, loss {loss_err:.3e}, params "
+          f"{param_err:.3e} (allowed 1e-5)")
+    return {"bytes": os.path.getsize(path), "cpu_output_max_abs_err": err,
+            "next_step_loss_rel_err": loss_err,
+            "next_step_param_rel_norm_err": param_err}
+
+
+def networks_phase():
+    """``MultiLayerNetwork`` on the card: (a) LeNet-MNIST, (b) the
+    GravesLSTM char-RNN, (c) SelfAttentionLayer on rows 1-2, (d)
+    ModelSerializer (see the module docstring). Every part's failure
+    fails the phase."""
+    import tempfile
+
+    out = {"card": CARD}
+    t0 = time.perf_counter()
+    out["lenet"] = _lenet_part()
+    t1 = time.perf_counter()
+    out["char_rnn"] = _char_rnn_part()
+    t2 = time.perf_counter()
+    out["self_attention"] = _attention_part()
+    t3 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out["serializer"] = _serializer_part(d)
+    out["part_s"] = {"a": t1 - t0, "b": t2 - t1, "c": t3 - t2,
+                     "d": time.perf_counter() - t3}
+    log(f"networks ({CARD}): " + json.dumps(out, default=str))
+    return out
+
+
 # virtual 'model' ranks of the mesh serving phase's one-process loop
 VIRTUAL_RANKS = (2, 4)
 
@@ -5178,6 +5555,8 @@ def main() -> int:
     ops_run = timed_phase("ops", kernel_checks(ops_phase))
     del params
     torch.cuda.empty_cache()
+    nets = timed_phase("networks", networks_phase)
+    torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
     longctx = timed_phase("long-context train", long_context_phase)
     mesh = timed_phase("mesh", mesh_phase, mlm, longctx)
@@ -5257,6 +5636,11 @@ def main() -> int:
                 dis["rpc"]["hosts"][0]["packed_launches"]
             kernels[-1]["launches_mesh_serving"] = \
                 mserve["engine"]["float32"]["packed_launches"]
+        if name in ("mha_attention_packed", "mha_packed_backward"):
+            # the networks phase (c): two SelfAttentionLayers, 7 fit steps
+            kernels[-1]["launches_networks"] = {
+                dt: run["launches"][name]
+                for dt, run in nets["self_attention"].items()}
         if name in ATTENTION_ROWS.values():
             # the ops phase: (a) and (b), by part
             parts = [(f"mha {k}", v) for k, v in ops_run["mha"].items()] \

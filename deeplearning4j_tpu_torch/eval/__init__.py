@@ -1,0 +1,6 @@
+"""Evaluation suite (counterpart: ``deeplearning4j_tpu/eval``; ref:
+org.nd4j.evaluation)."""
+from deeplearning4j_tpu_torch.eval.evaluation import (  # noqa: F401
+    ROC, Evaluation, EvaluationBinary, EvaluationCalibration,
+    RegressionEvaluation, ROCBinary, ROCMultiClass,
+)

@@ -7,10 +7,10 @@ generic/compression/threshold.cpp).
 The reference's 1-bit-style compressed data parallelism sends the
 entries with |residual| >= threshold and keeps the rest as a local
 residual. The reference offers it as an optional optax hook; the port has
-no optax, so each transform here is a :class:`GradientTransformation`,
-an ``(init, update)`` pair over trees (dicts, lists and tuples) of
-tensors, with ``update(grads, state, params=None) -> (updates, state)``
-and the reference's state fields:
+no optax, so each transform here is a :class:`GradientTransformation`
+(``train/updaters.py``), an ``(init, update)`` pair over trees (dicts,
+lists and tuples) of tensors, with ``update(grads, state, params=None)
+-> (updates, state)`` and the reference's state fields:
 
 - :func:`threshold_encode` / :func:`threshold_decode` — the op pair,
   dense (the quantized tensor; decode is the identity);
@@ -24,37 +24,14 @@ and the reference's state fields:
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.ndarray import dtypes as _dt
-from deeplearning4j_tpu_torch.ops.pallas_updaters import tree_leaves
-
-
-class GradientTransformation(NamedTuple):
-    """``init(params) -> state``; ``update(grads, state, params=None) ->
-    (updates, state)`` (optax's pair)."""
-    init: Callable
-    update: Callable
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the tensors of ``tree`` (and the same places of each
-    tree in ``rest``), keeping dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
-
-
-def _div(a: torch.Tensor, b) -> torch.Tensor:
-    """a / b rounded once, as the reference divides: b as a tensor on a's
-    device, since CUDA multiplies by the reciprocal of a Python number."""
-    return a / torch.as_tensor(b, dtype=a.dtype, device=a.device)
+from deeplearning4j_tpu_torch.train.updaters import (  # noqa: F401
+    GradientTransformation, tree_leaves, tree_map)
+from deeplearning4j_tpu_torch.train.updaters import true_div as _div
 
 
 def threshold_encode(grad: torch.Tensor, threshold) -> torch.Tensor:

@@ -1,2 +1,2 @@
 """Host-side utilities of the port (counterpart:
-``deeplearning4j_tpu/util``): crash forensics."""
+``deeplearning4j_tpu/util``): crash forensics and model persistence."""

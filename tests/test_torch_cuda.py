@@ -1476,3 +1476,109 @@ def test_multi_head_attention_on_host_data_reaches_the_kernel(card):
     assert ak.mha_attention_packed.launches == f0 + 1
     torch.testing.assert_close(out.torch.double(), out64.torch,
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ networks
+
+
+def _attention_net(dtype_name, device, attention_kernel=None, nin=64, t=64):
+    from deeplearning4j_tpu_torch.nn import (
+        InputType, MultiLayerNetwork, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.train import Adam
+
+    conf = (NeuralNetConfiguration.Builder().seed(3).updater(Adam(1e-3))
+            .dataType(dtype_name).list()
+            .layer(L.SelfAttentionLayer(nOut=nin, nHeads=2,
+                                        attentionKernel=attention_kernel))
+            .layer(L.SelfAttentionLayer(nOut=nin, nHeads=2,
+                                        attentionKernel=attention_kernel))
+            .layer(L.GlobalPoolingLayer(poolingType="AVG"))
+            .layer(L.OutputLayer(nOut=5, lossFunction="MCXENT"))
+            .setInputType(InputType.recurrent(nin, t)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _attention_batch(b=4, t=64, nin=64, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, nin)).astype(np.float32)
+    y = np.eye(5, dtype=np.float32)[rng.integers(0, 5, b)]
+    return x, y
+
+
+@pytest.mark.parametrize("dtype_name", ["FLOAT", "HALF"])
+def test_network_self_attention_launches_rows_1_and_2(card, dtype_name):
+    """Each fit step of two SelfAttentionLayers launches the packed
+    forward (row 1) and backward (row 2) once a layer; each output() two
+    row-1 launches; the output stays on the card."""
+    net = _attention_net(dtype_name, "cuda")
+    x, y = _attention_batch()
+    f0 = ak.mha_attention_packed.launches
+    b0 = ak.mha_packed_backward.launches
+    for _ in range(3):
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    assert ak.mha_attention_packed.launches == f0 + 2 * 3
+    assert ak.mha_packed_backward.launches == b0 + 2 * 3
+    out = net.output(x)
+    assert out.device.type == "cuda"
+    assert out.dtype == (torch.float32 if dtype_name == "FLOAT" else torch.bfloat16)
+    assert ak.mha_attention_packed.launches == f0 + 2 * 3 + 2
+    assert np.isfinite(net.score())
+
+
+def test_network_self_attention_einsum_routes_launch_nothing(card):
+    """A features-masked batch and attentionKernel=False take the einsum:
+    neither row launches; the einsum net's loss (1e-5) and gradients (1e-4
+    of the largest |gradient|) agree with the kernel net's on the same
+    weights (fp32; the kernel net's two backward launches are its own)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    x, y = _attention_batch()
+    kernel = _attention_net("FLOAT", "cuda")
+    einsum = _attention_net("FLOAT", "cuda", attention_kernel=False)
+    f0 = ak.mha_attention_packed.launches
+    b0 = ak.mha_packed_backward.launches
+    mask = np.ones((4, 64), np.float32)
+    mask[1, 40:] = 0
+    kernel.fit(DataSet(x, y, mask, None))
+    einsum.fit(x, y)
+    einsum.output(x)
+    torch.cuda.synchronize()
+    assert ak.mha_attention_packed.launches == f0
+    assert ak.mha_packed_backward.launches == b0
+    la, ga = _loss_and_grads(_attention_net("FLOAT", "cuda"), x, y)
+    lb, gb = _loss_and_grads(_attention_net("FLOAT", "cuda", attention_kernel=False), x, y)
+    assert ak.mha_packed_backward.launches == b0 + 2
+    assert la.item() == pytest.approx(lb.item(), rel=1e-5)
+    for p, q in zip(ga, gb):
+        assert _max_err(p, q) <= _bound(q, 1e-4)
+
+
+def _loss_and_grads(net, x, y):
+    """The training loss of one batch (dropout off) and its gradient with
+    respect to every parameter, without an update."""
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
+
+    params = tree_map(lambda p: p.detach().requires_grad_(), net._params)
+    loss, _, _ = net._loss_for(params, net._state, net._tensor(x),
+                               net._tensor(y), None, None, None)
+    return loss, torch.autograd.grad(loss, tree_leaves(params))
+
+
+def test_network_without_cuda_raises_unless_cpu(monkeypatch):
+    """No fallback: without CUDA, a network (and a restore) made without
+    device="cpu" raises; with it, it runs on the host. Runs on any
+    machine (CUDA is hidden)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _attention_net("FLOAT", None)
+    net = _attention_net("FLOAT", "cpu", nin=16, t=8)
+    assert net.output(_attention_batch(2, 8, 16)[0]).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiLayerNetwork(net.conf)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        L.DenseLayer(nIn=2, nOut=2).init_params(np.zeros(2, np.uint32))

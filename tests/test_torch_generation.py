@@ -223,8 +223,8 @@ class TestAdmission:
 
 def test_port_imports_no_jax():
     """Importing every module of the port (found by walking the package,
-    so a new module is covered) leaves ``jax`` and the JAX package out of
-    ``sys.modules``."""
+    so a new module is covered) leaves ``jax``, ``optax`` and the JAX
+    package out of ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import deeplearning4j_tpu_torch as pkg\n"
@@ -237,10 +237,16 @@ def test_port_imports_no_jax():
         "             'parallel.multihost', 'parallel.sequence_parallel',\n"
         "             'ndarray.array', 'ops.registry', 'ops.math_defs',\n"
         "             'ops.nn_defs', 'ops.extra_defs', 'ops.more_defs',\n"
-        "             'ops.wide_defs', 'parallel.gradient_sharing'):\n"
+        "             'ops.wide_defs', 'parallel.gradient_sharing',\n"
+        "             'data.dataset', 'data.normalizers', 'data.fetchers',\n"
+        "             'train.activations', 'train.schedules', 'train.updaters',\n"
+        "             'train.regularization', 'train.losses', 'nn.conf.inputs',\n"
+        "             'nn.conf.weights', 'nn.conf.dropout', 'nn.conf.layers',\n"
+        "             'nn.conf.builder', 'eval.evaluation', 'nn.multilayer',\n"
+        "             'optimize.listeners', 'util.model_serializer'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + want in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib', 'deeplearning4j_tpu.')) "
+        "or m.startswith(('jax.', 'jaxlib', 'optax', 'deeplearning4j_tpu.')) "
         "or m == 'deeplearning4j_tpu')\n"
         "assert not bad, bad\n"
         "print(len(names), 'clean')\n")
