@@ -155,6 +155,22 @@ seconds:
    attention tolerances, both routes' step ms; (d) ``ModelSerializer``:
    (c)'s fp32 net written and restored on the card (output bit-equal)
    and on the CPU, one more step on each on the same trajectory;
+   graphs — ``ComputationGraph`` and the rest of the networks on the card
+   (:func:`graphs_phase`): (e) ResNet-50 as a graph at full width (the
+   reference zoo's, BASELINE config #2: B=32, 3x224x224, 1000 classes,
+   Adam 1e-3; ``tests/torch_graph_cases.py``'s recipe), FLOAT and HALF,
+   2 warm-up and 8 timed steps: images/s, step ms, peak memory; the
+   restored graph's output bit-equal; 2 steps at B=2 against the CPU;
+   (f) the attention graph at x (32, 512, 768), 12 heads (two residual
+   SelfAttentionLayers, merged, pooled), FLOAT and HALF: rows 1 and 2
+   exactly 2 x 7 launches over 7 fit steps, none on the einsum route,
+   the routes' loss and gradients within networks (c)'s rule; the
+   attention-vertex graph launching no row; (g) transfer learning
+   (frozen LeNet layers bit-unchanged) and early stopping with a file
+   saver under ``chiprun_out/`` (the restored best model's score); (h)
+   ``ParallelWrapper`` at world size 1 over NCCL on (e)'s graph, bit-equal
+   to ``fit``; (i) the 27 new layer types and 12 vertex types on the
+   card against the CPU, forward and gradients;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -2968,8 +2984,10 @@ def resilience_qos_phase(cfg, params, prompts, plain_streams,
         want = plain_streams if idx is None else [plain_streams[i]
                                                   for i in idx]
         bad = [i for i, (a, b) in enumerate(zip(outs, want)) if a != b]
+        failed = sorted({type(outs[i]).__name__ for i in bad
+                         if isinstance(outs[i], Exception)})
         check(not bad, f"resilience: {label}: streams {bad} differ from "
-              "the engine phase's")
+              f"the engine phase's (failed typed: {failed})")
 
     # each part returns numbers only: its engines, handles and exceptions
     # (whose tracebacks hold the engine's frames) die with its frame
@@ -4515,6 +4533,531 @@ def networks_phase():
     return out
 
 
+# ------------------------------------------------------------------ graphs
+# ComputationGraph, its layers and vertices, transfer learning, early
+# stopping and ParallelWrapper on the card (:func:`graphs_phase`)
+
+RESNET_B, RESNET_HW, RESNET_CLASSES = 32, 224, 1000
+
+
+def _graph_recipes():
+    """``tests/torch_graph_cases.py`` (jax-free recipes)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_graph_cases
+
+    return torch_graph_cases
+
+
+def _resnet(dtype_name="FLOAT", device=None):
+    from deeplearning4j_tpu_torch import nn as pnn
+    from deeplearning4j_tpu_torch import train as ptrain
+
+    conf = _graph_recipes().resnet50(pnn, ptrain, num_classes=RESNET_CLASSES,
+                                     hw=RESNET_HW, dtype=dtype_name)
+    return pnn.ComputationGraph(conf, device=device or DEVICE)
+
+
+def _resnet_batch(b, seed):
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rng = np.random.default_rng(seed)
+    return DataSet(rng.random((b, 3, RESNET_HW, RESNET_HW), np.float32),
+                   np.eye(RESNET_CLASSES, dtype=np.float32)[
+                       rng.integers(0, RESNET_CLASSES, b)])
+
+
+def _resnet_split_ms(net, ds):
+    """Where an (e) step goes: the forward alone (no grad), the forward and
+    backward (loss and ``autograd.grad``), and the updater over every leaf
+    (``update`` + ``apply_updates`` on those gradients, not kept); each
+    the mean of 3 after one warm-up, as the host's enqueue time and the
+    time to a synchronize."""
+    import torch
+
+    from deeplearning4j_tpu_torch.train.updaters import apply_updates
+
+    x = net._input_dict([ds.features])
+
+    def fwd():
+        with torch.no_grad():
+            net._forward(net._params, net._state, x, training=False, rng=None)
+
+    def fwd_bwd():
+        return _graph_loss_and_grads(net, ds)[1:]
+
+    grads = None
+
+    def update():
+        with torch.no_grad():
+            from deeplearning4j_tpu_torch.train.updaters import tree_unflatten
+            g = tree_unflatten(net._params, grads)
+            updates, _ = net._tx.update(g, net._opt_state, net._params)
+            apply_updates(net._params, updates)
+
+    out = {}
+    for name, fn in (("forward", fwd), ("forward_backward", fwd_bwd), ("update", update)):
+        enq, done = [], []
+        for i in range(4):
+            _sync()
+            t0 = time.perf_counter()
+            r = fn()
+            t1 = time.perf_counter()
+            _sync()
+            t2 = time.perf_counter()
+            if name == "forward_backward":
+                grads = r
+            if i:
+                enq.append((t1 - t0) * 1e3)
+                done.append((t2 - t0) * 1e3)
+        out[name] = {"enqueue_ms": float(np.mean(enq)), "ms": float(np.mean(done))}
+    return out
+
+
+def _cpu_spread(card, batches):
+    """(e)'s card-vs-CPU comparison at B=2 from the card's seeded weights:
+    the card (fp32), the CPU in fp32 and the CPU in float64 (the port's
+    64-bit switch on), each from the same weights: the loss and the
+    gradient at init, then 2 Adam steps' losses and the parameters after
+    them. Returns each fp32 run's distance from the float64 run, and the
+    card's distance from the CPU's fp32 loss at init."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nd
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+
+    def host(dtype_name):
+        h = _resnet(dtype_name, device="cpu")
+        return h.setParamTrees(tree_map(lambda t: t.cpu().numpy(), card._params),
+                               tree_map(lambda t: t.cpu().numpy(), card._state))
+
+    def run(net):
+        lg = _graph_loss_and_grads(net, batches[0])
+        grad = torch.cat([g.detach().reshape(-1).double().cpu() for g in lg[1:]])
+        losses = []
+        for ds in batches:
+            net.fit(ds)
+            losses.append(net.score())
+        return float(lg[0].detach()), grad, losses, net.params().torch.double().cpu()
+
+    host32 = host("FLOAT")
+    with nd.enableX64(True):
+        host64 = host("DOUBLE")
+    res = [run(card), run(host32)]
+    with nd.enableX64(True):
+        res.append(run(host64))
+
+    def diff(a, b):
+        return {"loss_at_init": abs(a[0] - b[0]) / abs(b[0]),
+                "grad_at_init_rel_norm": ((a[1] - b[1]).norm() / b[1].norm()).item(),
+                "step_losses": max(abs(x - y) / abs(y) for x, y in zip(a[2], b[2])),
+                "params_rel_norm": ((a[3] - b[3]).norm() / b[3].norm()).item()}
+
+    return diff(res[0], res[2]), diff(res[1], res[2]), diff(res[0], res[1])["loss_at_init"]
+
+
+def _resnet_part(tmp_dir):
+    """(e) ResNet-50 as a ComputationGraph at full width (the reference
+    zoo's graph, BASELINE config #2: B=32, 3x224x224, 1000 classes, Adam
+    1e-3), FLOAT and HALF: 2 warm-up and 8 timed steps on one batch, each
+    ending in a read of its loss; images/s, step ms, peak memory, the
+    step split (:func:`_resnet_split_ms`); no attention row launches. The
+    FLOAT net written with ModelSerializer and restored on the card:
+    ``output()`` bit-equal. Then the card's first 2 FLOAT steps at B=2
+    against the CPU's from the same seeded weights (:func:`_cpu_spread`):
+    the loss at init within 1e-5 relative of the CPU's fp32 loss; the
+    loss and gradient at init, the 2 steps' losses and the parameters
+    after them each as close to a float64 CPU run as 4 x the fp32 CPU
+    run is (or 1e-5). Both fp32 runs are far from it: at init with two
+    images the early convolutions' gradients are large sums that nearly
+    cancel through the BatchNormalizations (the stem's ~1700 for a loss
+    of ~9), so fp32 rounding moves them by ~1%; and Adam's first steps
+    move every weight by about lr whatever its gradient's size."""
+    import torch
+
+    from deeplearning4j_tpu_torch.util.model_serializer import ModelSerializer
+
+    ds = _resnet_batch(RESNET_B, 0)
+    out = {}
+    for dtype_name in ("FLOAT", "HALF"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net = _resnet(dtype_name).init()
+        _sync()
+        init_s = time.perf_counter() - t0
+        reset_launches()
+        step_ms, losses = _timed_fit(net, [ds] * 10, warmup=2)
+        got = read_launches()
+        check(not any(got.values()), f"graphs (e) {dtype_name}: ResNet-50 launched "
+              f"kernel rows {got}")
+        check(all(np.isfinite(losses)), f"graphs (e) {dtype_name}: losses {losses}")
+        res = {"step_ms": step_ms, "images_per_sec": RESNET_B / step_ms * 1e3,
+               "losses": losses, "n_params": net.numParams(), "init_s": init_s,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "split": _resnet_split_ms(net, ds)}
+        if dtype_name == "FLOAT":
+            path = os.path.join(tmp_dir, "resnet50.zip")
+            t0 = time.perf_counter()
+            ModelSerializer.writeModel(net, path, saveUpdater=False)
+            back = ModelSerializer.restoreComputationGraph(path, device=DEVICE)
+            x = _resnet_batch(4, 1).features
+            want, got_out = net.outputSingle(x).torch, back.outputSingle(x).torch
+            check(torch.equal(want, got_out), f"graphs (e): the restored ResNet-50's "
+                  f"output differs on the card by {max_err(got_out, want):.3e}")
+            res["serializer_s"] = time.perf_counter() - t0
+            res["zip_bytes"] = os.path.getsize(path)
+            del back
+        out[dtype_name] = res
+        log(f"graphs (e) ResNet-50 {dtype_name} ({CARD}): {step_ms:.3f} ms a step, "
+            f"{res['images_per_sec']:.1f} images/s, peak {res['peak_memory_gib']:.2f} GiB, "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; split {json.dumps(res['split'])}")
+        del net
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    card = _resnet().init()
+    card64, cpu64, init_loss = _cpu_spread(card, [_resnet_batch(2, 10 + s) for s in range(2)])
+    check(init_loss <= 1e-5, f"graphs (e): the loss at init on the card is "
+          f"{init_loss:.3e} from the CPU's (allowed 1e-5)")
+    for k in card64:
+        allowed = max(4 * cpu64[k], 1e-5)
+        check(card64[k] <= allowed, f"graphs (e): the card's {k} is {card64[k]:.3e} from "
+              f"the float64 CPU run's, more than 4 x the fp32 CPU run's {cpu64[k]:.3e}")
+    out["card_vs_cpu64"], out["cpu32_vs_cpu64"] = card64, cpu64
+    out["card_vs_cpu32_loss_at_init"] = init_loss
+    out["cpu_compare_s"] = time.perf_counter() - t0
+    log(f"graphs (e) at B=2 against the CPU in float64 ({CARD}): the card "
+        f"{json.dumps(card64)}; the CPU in fp32 {json.dumps(cpu64)}; the loss at init "
+        f"card vs CPU fp32 {init_loss:.3e}; {out['cpu_compare_s']:.1f} s")
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _graph_loss_and_grads(net, ds):
+    """A graph's training loss on ``ds`` and its gradients with respect to
+    every parameter (sorted-name order), without an update."""
+    import torch
+
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
+
+    params = tree_map(lambda p: p.detach().requires_grad_(), net._params)
+    loss, _ = net._loss_for(params, net._state, net._input_dict([ds.features]),
+                            [net._tensor(ds.labels)], None, None, None)
+    return [loss] + list(torch.autograd.grad(loss, tree_leaves(params)))
+
+
+def _graph_attention_part():
+    """(f) the attention graph at BERT-base attention widths (x (32, 512,
+    768), 12 heads of 64: two SelfAttentionLayers, each in a residual
+    ElementWiseVertex(Add), a MergeVertex of the two block outputs, global
+    pooling, a 10-way output), FLOAT and HALF: 7 fit steps on the kernel
+    route launch rows 1 and 2 exactly 2 x 7 times; 7 on the einsum route
+    (``attentionKernel=False``) launch neither; on a batch of 8 and the
+    fp32 einsum net's weights, the kernel route's loss and gradients
+    against the fp32 einsum route's (fp32: 1e-5 of the loss, 1e-4 of each
+    gradient's largest |value|; bf16: 2^-6 of it or twice the bf16 einsum
+    route's own distance from fp32, networks (c)'s rule). The graph of a
+    DotProductAttentionVertex and an AttentionVertex: one fit step and an
+    ``output()``, no kernel row."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as pnn
+    from deeplearning4j_tpu_torch import train as ptrain
+    from deeplearning4j_tpu_torch.nn.conf import graph as pgraph
+
+    GC = _graph_recipes()
+    batches = [_attention_batch(SA_B, s) for s in range(7)]
+    out = {}
+
+    def graph(dtype_name, kernel=None):
+        return pnn.ComputationGraph(GC.attention_graph(
+            pnn, ptrain, d=SA_D, heads=SA_HEADS, T=SA_T, dtype=dtype_name,
+            attention_kernel=kernel), device=DEVICE).init()
+
+    for dtype_name in ("FLOAT", "HALF"):
+        res = {}
+        net = graph(dtype_name)
+        reset_launches()
+        res["kernel_step_ms"], res["losses"] = _timed_fit(net, batches, warmup=2)
+        got = read_launches()
+        res["launches"] = {k: got[k] for k in ("mha_attention_packed",
+                                                "mha_packed_backward")}
+        check(got["mha_attention_packed"] == 2 * 7 and got["mha_packed_backward"] == 2 * 7,
+              f"graphs (f) {dtype_name}: 7 fit steps launched {got}, expected rows "
+              f"1 and 2 14 times each")
+        check(all(np.isfinite(res["losses"])), f"graphs (f) {dtype_name}: losses "
+              f"{res['losses']}")
+        einsum = graph(dtype_name, kernel=False)
+        reset_launches()
+        res["einsum_step_ms"], _ = _timed_fit(einsum, batches, warmup=2)
+        counts, ok = _launched(())
+        check(ok, f"graphs (f) {dtype_name}: attentionKernel=False launched {counts}")
+        ds = _attention_batch(8, 11)
+        nets = [graph(*c) for c in ((dtype_name, None), ("FLOAT", False),
+                                    (dtype_name, False))]
+        for n in (nets[0], nets[2]):
+            n.setParams(nets[1].params().torch)
+        got, ref, plain = [_graph_loss_and_grads(n, ds) for n in nets]
+        worst = 0.0
+        for i in range(len(got)):
+            err = max_err(got[i], ref[i])
+            if dtype_name == "FLOAT":
+                allowed = rel_bound(ref[i], 1e-5 if i == 0 else 1e-4)
+            else:
+                allowed = max(rel_bound(ref[i], 2 ** -6), 2 * max_err(plain[i], ref[i]))
+            worst = max(worst, err / allowed)
+            check(err <= allowed, f"graphs (f) {dtype_name} "
+                  f"{'loss' if i == 0 else f'gradient {i - 1}'}: |err| {err:.3e} > "
+                  f"{allowed:.3e}")
+        res["route_worst_share"] = worst
+        vnet = pnn.ComputationGraph(GC.attention_vertex_graph(
+            pnn, ptrain, pgraph, d=SA_D, heads=SA_HEADS, T=SA_T, dtype=dtype_name),
+            device=DEVICE).init()
+        reset_launches()
+        t0 = time.perf_counter()
+        vnet.fit(batches[0])
+        vout = vnet.outputSingle(batches[1].features).torch
+        _sync()
+        res["vertex_graph_s"] = time.perf_counter() - t0
+        counts, ok = _launched(())
+        check(ok and bool(torch.isfinite(vout).all()) and np.isfinite(vnet.score()),
+              f"graphs (f) {dtype_name}: the attention-vertex graph launched {counts} "
+              f"or gave non-finite values")
+        out[dtype_name] = res
+        del net, einsum, nets, vnet
+        torch.cuda.empty_cache()
+        log(f"graphs (f) {dtype_name} ({CARD}): kernel {res['kernel_step_ms']:.3f} ms a "
+            f"step, einsum {res['einsum_step_ms']:.3f} ms, launches {res['launches']}, "
+            f"route share {worst:.3f}")
+    return out
+
+
+def _transfer_earlystop_part():
+    """(g) on LeNet (networks (a)'s net and MNIST surrogate): 5 steps on
+    10 classes, then ``TransferLearning`` with ``setFeatureExtractor(3)``
+    and ``nOutReplace`` of the output to 5 classes fine-tuned 10 steps:
+    the frozen layers' parameters bit-unchanged on the card, the loss
+    finite and falling; then ``EarlyStoppingTrainer`` over 4 batches an
+    epoch with ``ScoreImprovementEpochTerminationCondition(2)``,
+    ``MaxEpochsTerminationCondition(5)``, a holdout of 1000 test images
+    and a ``LocalFileModelSaver`` under ``chiprun_out/``: the best model
+    restored from its zip gives that epoch's score (1e-5 relative)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (
+        DataSet, ListDataSetIterator, MnistDataSetIterator)
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+
+    def five(ds):
+        return DataSet(ds.features, np.eye(5, dtype=np.float32)[
+            np.argmax(ds.labels, -1) % 5])
+
+    batches = list(MnistDataSetIterator(256, train=True, num_examples=3840))
+    hold = [five(ds) for ds in MnistDataSetIterator(250, train=False, num_examples=1000)]
+    base = MultiLayerNetwork(_lenet_conf(), device=DEVICE).init()
+    for ds in batches[:5]:
+        base.fit(ds)
+    ftc = FineTuneConfiguration.Builder().updater(Adam(1e-3)).seed(7).build()
+    net = (TransferLearning.Builder(base).fineTuneConfiguration(ftc)
+           .setFeatureExtractor(3).nOutReplace(5, 5).build())
+    frozen = [t.clone() for i in range(4) for t in tree_leaves(net._params[i])]
+    t0 = time.perf_counter()
+    _, losses = _timed_fit(net, [five(ds) for ds in batches[5:15]], warmup=0)
+    tune_s = time.perf_counter() - t0
+    after = [t for i in range(4) for t in tree_leaves(net._params[i])]
+    check(len(frozen) == 4 and all(torch.equal(a, b) for a, b in zip(after, frozen)),
+          "graphs (g): a frozen layer's parameters moved in fine-tuning")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"graphs (g): fine-tune losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    saver_dir = os.path.join("chiprun_out", "graphs_g_earlystop")
+    saver = es.LocalFileModelSaver(saver_dir)
+    conf = (es.EarlyStoppingConfiguration.Builder()
+            .epochTerminationConditions(es.ScoreImprovementEpochTerminationCondition(2),
+                                        es.MaxEpochsTerminationCondition(5))
+            .scoreCalculator(es.DataSetLossCalculator(ListDataSetIterator(hold)))
+            .modelSaver(saver).build())
+    t0 = time.perf_counter()
+    result = es.EarlyStoppingTrainer(
+        conf, net, ListDataSetIterator([five(ds) for ds in batches[:4]])).fit()
+    es_s = time.perf_counter() - t0
+    best = result.bestModel
+    rescored = float(np.mean([best.score(ds) for ds in hold]))
+    err = abs(rescored - result.bestModelScore) / abs(result.bestModelScore)
+    check(best is not net and best.device.type == "cuda" and err <= 1e-5,
+          f"graphs (g): the restored best model scores {rescored} against "
+          f"{result.bestModelScore} (|rel err| {err:.3e}, allowed 1e-5)")
+    out = {"fine_tune_losses": losses, "fine_tune_s": tune_s,
+           "early_stopping": {"scores": result.scoreVsEpoch,
+                              "best_epoch": result.bestModelEpoch,
+                              "epochs": result.totalEpochs,
+                              "reason": result.terminationReason,
+                              "details": result.terminationDetails,
+                              "best_rescored_rel_err": err, "s": es_s}}
+    log(f"graphs (g) ({CARD}): fine-tune {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"early stopping {json.dumps(out['early_stopping'], default=str)}")
+    return out
+
+
+def _parallel_wrapper_part():
+    """(h) ``ParallelWrapper`` over a data axis of one NCCL rank
+    (``nccl_world``: its gradient and loss all-reduces, BatchNorm's
+    synchronised moments run through NCCL on the card) on the ResNet-50
+    graph at B=32, 3 steps, against plain ``fit`` from the same seed:
+    parameters, layer state and losses bit-equal (cuDNN set to
+    deterministic algorithms for the part); each path's step ms."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.data_parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+
+    ds = _resnet_batch(RESNET_B, 0)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _resnet().init()
+        plain_ms, plain_losses = _timed_fit(plain, [ds] * 3, warmup=1)
+        plain_params, plain_state = plain.params().torch, tree_leaves(plain._state)
+        del plain
+        torch.cuda.empty_cache()
+        with nccl_world():
+            net = _resnet().init()
+            pw = ParallelWrapper(net)
+            check(pw.mesh.group("data") is not None, "graphs (h): no NCCL group")
+            times, losses = [], []
+            for i in range(3):
+                t0 = time.perf_counter()
+                pw.fit(ds)
+                losses.append(net.score())
+                _sync()
+                if i >= 1:
+                    times.append((time.perf_counter() - t0) * 1e3)
+        same = torch.equal(net.params().torch, plain_params) and losses == plain_losses \
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(net._state), plain_state))
+        check(same, f"graphs (h): ParallelWrapper at world size 1 differs from fit: "
+              f"params {max_err(net.params().torch, plain_params):.3e}, losses {losses} "
+              f"vs {plain_losses}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out = {"wrapper_step_ms": float(np.mean(times)), "fit_step_ms": plain_ms,
+           "losses": losses, "bit_equal": same}
+    log(f"graphs (h) ({CARD}): ParallelWrapper {out['wrapper_step_ms']:.3f} ms a step, "
+        f"fit {plain_ms:.3f} ms, bit-equal {same}")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _card_vs_cpu(run, label):
+    """``run(device)`` -> [forward, *gradients] on the CPU and on the card:
+    the forward within 1e-5 and each gradient within 1e-4 of the CPU's
+    largest |value|; the worst share of the allowed error."""
+    host, card = run("cpu"), run(DEVICE)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card, host)):
+        err = max_err(a.cpu(), b)
+        allowed = rel_bound(b, 1e-5 if i == 0 else 1e-4)
+        worst = max(worst, err / allowed)
+        check(err <= allowed, f"graphs (i) {label} {'forward' if i == 0 else f'gradient {i}'}"
+              f": card vs CPU |err| {err:.3e} > {allowed:.3e}")
+    check(len(card) == len(host), f"graphs (i) {label}: {len(card)} vs {len(host)} tensors")
+    return worst
+
+
+def _layers_vertices_part():
+    """(i) the second half's 27 layer types (``tests/torch_nn_cases.py``'s
+    cases from ``prelu`` on) and the 12 vertex types (``tests/
+    torch_graph_cases.py``'s cases), fp32: forward in training mode
+    (and with the case's mask) and the gradients of sum(out * c) with
+    respect to every parameter and the float inputs, on the card against
+    the CPU at the recipes' small sizes; each case's worst share of its
+    allowed error."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as pnn
+    from deeplearning4j_tpu_torch.models import random as prng
+    from deeplearning4j_tpu_torch.nn.conf import graph as pgraph
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
+
+    GC = _graph_recipes()
+    import torch_nn_cases as C
+
+    shares = {}
+    for cid in C.SECOND_HALF_IDS:
+        layer, _ = C.build(pnn, cid)
+        params0 = layer.init_params(prng.prng_key(3), torch.float32, "cpu")
+        x0, mask0 = C.inputs(cid)
+        float_x = np.issubdtype(x0.dtype, np.floating)
+
+        def run(dev):
+            params = tree_map(lambda t: t.to(dev).requires_grad_(), params0)
+            x = torch.tensor(x0, device=dev, requires_grad=float_x)
+            kw = {} if mask0 is None else {"mask": torch.tensor(mask0, device=dev)}
+            out, _ = layer.apply(params, x, training=True, rng=prng.prng_key(11), **kw)
+            ct = torch.tensor(C.cotangent(tuple(out.shape)), device=dev)
+            wrt = tree_leaves(params) + ([x] if float_x else [])
+            grads = torch.autograd.grad((out * ct).sum(), wrt, allow_unused=True)
+            return [out.detach()] + [torch.zeros_like(w) if g is None else g
+                                     for w, g in zip(wrt, grads)]
+
+        shares[cid] = _card_vs_cpu(run, cid)
+    for cid, (name, _), _ in GC.VERTEX_CASES:
+        vertex = GC.make_vertex(pgraph, cid)
+        xs0 = GC.vertex_inputs(cid)
+        n_float = len(xs0) - (1 if cid.endswith("mask") else 0)
+        has = getattr(vertex, "has_params", False)
+        params0 = vertex.init_params(prng.prng_key(3), torch.float32, "cpu") if has else {}
+
+        def run(dev):
+            params = tree_map(lambda t: t.to(dev).requires_grad_(), params0)
+            xs = [torch.tensor(x, device=dev, requires_grad=i < n_float)
+                  for i, x in enumerate(xs0)]
+            out = vertex.apply(xs, params=params) if has else vertex.apply(xs)
+            ct = torch.tensor(C.cotangent(tuple(out.shape)), device=dev)
+            wrt = tree_leaves(params) + xs[:n_float]
+            return [out.detach()] + list(torch.autograd.grad((out * ct).sum(), wrt))
+
+        shares[cid] = _card_vs_cpu(run, cid)
+    worst = max(shares, key=shares.get)
+    log(f"graphs (i) ({CARD}): {len(shares)} layer and vertex cases card vs CPU, worst "
+        f"share of the allowed error {shares[worst]:.3f} ({worst})")
+    return {"cases": len(shares), "worst_share": shares}
+
+
+def graphs_phase():
+    """``ComputationGraph`` and the second half of the networks on the
+    card: (e) ResNet-50, (f) the attention graph on rows 1-2, (g) transfer
+    learning and early stopping, (h) ParallelWrapper, (i) the new layers
+    and vertices against the CPU (see the module docstring). Every part's
+    failure fails the phase."""
+    import tempfile
+
+    out = {"card": CARD}
+    t = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as d:
+        out["resnet50"] = _resnet_part(d)
+    t.append(time.perf_counter())
+    out["attention"] = _graph_attention_part()
+    t.append(time.perf_counter())
+    out["transfer_earlystop"] = _transfer_earlystop_part()
+    t.append(time.perf_counter())
+    out["parallel_wrapper"] = _parallel_wrapper_part()
+    t.append(time.perf_counter())
+    out["layers_vertices"] = _layers_vertices_part()
+    t.append(time.perf_counter())
+    out["part_s"] = dict(zip("efghi", np.diff(t).tolist()))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "graphs_phase.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    log(f"graphs ({CARD}): part seconds {json.dumps(out['part_s'])}")
+    return out
+
+
 # virtual 'model' ranks of the mesh serving phase's one-process loop
 VIRTUAL_RANKS = (2, 4)
 
@@ -5557,6 +6100,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     nets = timed_phase("networks", networks_phase)
     torch.cuda.empty_cache()
+    graphs = timed_phase("graphs", graphs_phase)
+    torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
     longctx = timed_phase("long-context train", long_context_phase)
     mesh = timed_phase("mesh", mesh_phase, mlm, longctx)
@@ -5641,6 +6186,10 @@ def main() -> int:
             kernels[-1]["launches_networks"] = {
                 dt: run["launches"][name]
                 for dt, run in nets["self_attention"].items()}
+            # the graphs phase (f): the attention graph, 7 fit steps
+            kernels[-1]["launches_graphs"] = {
+                dt: run["launches"][name]
+                for dt, run in graphs["attention"].items()}
         if name in ATTENTION_ROWS.values():
             # the ops phase: (a) and (b), by part
             parts = [(f"mha {k}", v) for k, v in ops_run["mha"].items()] \

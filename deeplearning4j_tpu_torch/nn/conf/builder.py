@@ -143,11 +143,9 @@ class NeuralNetConfiguration:
             return NeuralNetConfiguration.ListBuilder(self)
 
         def graphBuilder(self):
-            """DAG networks (ref: NeuralNetConfiguration.Builder.graphBuilder):
-            ``ComputationGraph`` is not yet ported to this package."""
-            raise ValueError(
-                "graphBuilder: ComputationGraph (nn/conf/graph.py) is not yet "
-                "ported to deeplearning4j_tpu_torch")
+            """DAG networks (ref: NeuralNetConfiguration.Builder.graphBuilder)."""
+            from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder
+            return GraphBuilder(self)
 
     class ListBuilder:
         def __init__(self, parent: "NeuralNetConfiguration.Builder"):

@@ -8,18 +8,24 @@ conf-level ``dropOut`` setting; ``Layer.dropOut`` accepts either a float
 these objects. All are pure functions of (key, x): the masks and noise are
 the reference's ``jax.random.bernoulli``/``normal`` draws on the port's
 threefry (``ndarray/random.py``), made on x's device — bit for bit the
-reference's masks for the same key.
+reference's masks for the same key. Under a data-parallel step each rank
+draws at the global batch's shape and keeps its rows (``nn/data_shard.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from deeplearning4j_tpu_torch.ndarray import random as _rnd
+from deeplearning4j_tpu_torch.nn.data_shard import rows as _rows
 from deeplearning4j_tpu_torch.train.updaters import true_div as _div
 
 
 def _keep(rng, p: float, shape, x: torch.Tensor) -> torch.Tensor:
-    return _rnd.bernoulli(rng, p, shape, device=x.device)
+    return _rows(lambda s: _rnd.bernoulli(rng, p, s, device=x.device), shape)
+
+
+def _normal(rng, x: torch.Tensor) -> torch.Tensor:
+    return _rows(lambda s: _rnd.normal(rng, s, torch.float32, x.device), x.shape)
 
 
 class IDropout:
@@ -68,7 +74,7 @@ class GaussianDropout(IDropout):
         if self.rate <= 0.0:
             return x
         std = (self.rate / (1.0 - self.rate)) ** 0.5
-        noise = 1.0 + std * _rnd.normal(rng, x.shape, torch.float32, x.device)
+        noise = 1.0 + std * _normal(rng, x)
         return x * noise.to(x.dtype)
 
 
@@ -79,7 +85,7 @@ class GaussianNoise(IDropout):
         self.stddev = float(stddev)
 
     def apply(self, rng, x):
-        n = self.stddev * _rnd.normal(rng, x.shape, torch.float32, x.device)
+        n = self.stddev * _normal(rng, x)
         return x + n.to(x.dtype)
 
 

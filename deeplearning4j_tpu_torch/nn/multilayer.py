@@ -45,9 +45,10 @@ from deeplearning4j_tpu_torch.ndarray.array import NDArray
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.dropout import apply_dropout
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    BaseRecurrentLayer, Bidirectional, DropoutLayer, GlobalPoolingLayer, LastTimeStep, Layer,
-    RnnOutputLayer, needs_flatten,
+    BaseRecurrentLayer, Bidirectional, CenterLossOutputLayer, DropoutLayer, GlobalPoolingLayer,
+    LastTimeStep, Layer, RnnOutputLayer, needs_flatten,
 )
+from deeplearning4j_tpu_torch.nn.data_shard import sync_loss_and_grads as _sync_loss_and_grads
 from deeplearning4j_tpu_torch.train.updaters import (
     apply_updates, tree_leaves, tree_map, tree_unflatten,
 )
@@ -224,11 +225,15 @@ class MultiLayerNetwork:
         out, new_states, new_rnn = self._forward(params, state, x, training=True, rng=rng,
                                                  mask=fmask, rnn_states=rnn_states)
         out_layer = self.layers[-1]
-        if hasattr(out_layer, "compute_loss_ext") or hasattr(out_layer, "loss_with_params"):
-            raise ValueError(
-                f"{type(out_layer).__name__}: the center-loss and OCNN output "
-                f"heads are not yet ported to deeplearning4j_tpu_torch")
-        if hasattr(out_layer, "compute_loss"):  # output/loss layers
+        if isinstance(out_layer, CenterLossOutputLayer):
+            loss = out_layer.compute_loss_ext(params[-1], y, out,
+                                              new_states[-1]["features"], lmask)
+            # the features were an aux channel for THIS loss only: a batch
+            # of activations is never kept as model state
+            new_states = new_states[:-1] + [{}]
+        elif hasattr(out_layer, "loss_with_params"):  # OCNN: loss needs own params
+            loss = out_layer.loss_with_params(params[-1], y, out, lmask)
+        elif hasattr(out_layer, "compute_loss"):  # output/loss/yolo layers
             loss = out_layer.compute_loss(y, out, lmask if lmask is not None else
                                           (fmask if isinstance(out_layer, RnnOutputLayer) else None))
         else:
@@ -258,6 +263,7 @@ class MultiLayerNetwork:
         grads = tree_unflatten(self._params, [torch.zeros_like(l) if g is None else g
                                               for l, g in zip(leaves, grads)])
         with torch.no_grad():
+            loss, grads = _sync_loss_and_grads(loss.detach(), grads)
             grads = _zero_frozen(grads, frozen)
             grads = _clip_grads(grads, self.conf.gradientNormalization,
                                 self.conf.gradientNormalizationThreshold)
@@ -349,15 +355,43 @@ class MultiLayerNetwork:
 
     # ------------------------------------------------------------- pretrain
     def pretrainLayer(self, layer_idx: int, data, epochs: int = 1):
-        """Layer-wise unsupervised pretraining (ref: MultiLayerNetwork.
-        pretrainLayer). Non-pretrainable layers are skipped, as in the
-        reference; the pretrainable ones (AutoEncoder,
-        VariationalAutoencoder) are not yet ported."""
+        """Layer-wise unsupervised pretraining for AutoEncoder/VAE layers
+        (ref: MultiLayerNetwork.pretrainLayer): features forward through the
+        preceding layers (inference), then the layer's ``pretrain_loss`` is
+        minimized with a fresh state of the network's updater. Layers without
+        one are skipped, as in the reference."""
         layer = self.layers[layer_idx]
-        if hasattr(layer, "pretrain_loss"):
-            raise ValueError(
-                f"pretrainLayer: {type(layer).__name__} pretraining is not yet "
-                f"ported to deeplearning4j_tpu_torch")
+        if not hasattr(layer, "pretrain_loss"):
+            return self
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator([data])
+        tx = self.conf.updater.to_transform()
+        lp = self._params[layer_idx]
+        opt_state = tx.init(lp)
+        for _ in range(epochs):
+            for ds in data:
+                sub = self._next_key()
+                with torch.no_grad():
+                    feats = self._adapt_input(self._tensor(ds.features))
+                    for i in range(layer_idx):
+                        if needs_flatten(self.layers[i], feats.dim()):
+                            feats = feats.reshape(feats.shape[0], -1)
+                        feats, _ = self.layers[i].apply(
+                            self._params[i], feats, training=False,
+                            state=self._state[i] if self._state[i] else None)
+                live = tree_map(lambda p: p.detach().requires_grad_(), lp)
+                leaves = tree_leaves(live)
+                loss = layer.pretrain_loss(live, feats, sub)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = tree_unflatten(lp, [torch.zeros_like(l) if g is None else g
+                                            for l, g in zip(leaves, grads)])
+                with torch.no_grad():
+                    updates, opt_state = tx.update(grads, opt_state, lp)
+                    lp = apply_updates(lp, updates)
+                self._score = loss.detach()  # device scalar; score() syncs on demand
+                self._iteration += 1
+        self._params = list(self._params)
+        self._params[layer_idx] = lp
         return self
 
     def pretrain(self, data, epochs: int = 1):

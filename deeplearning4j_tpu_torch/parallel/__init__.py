@@ -1,7 +1,8 @@
 """Distributed training over ``torch.distributed``: the device mesh,
 multi-process runtime and sequence parallelism — counterpart of
-``deeplearning4j_tpu/parallel`` (``ParallelWrapper`` and
-``ParallelInference`` are not ported yet), and gradient sharing."""
+``deeplearning4j_tpu/parallel``, ``ParallelWrapper`` and
+``ParallelInference`` (imported on first use: they import ``nn``, which
+imports ``models``, which imports this package), and gradient sharing."""
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     CONTEXT_AXIS, DATA_AXIS, MODEL_AXIS, PIPE_AXIS, make_mesh, replicate,
     shard_batch,
@@ -17,3 +18,10 @@ from deeplearning4j_tpu_torch.parallel.gradient_sharing import (  # noqa: F401
     threshold_encode,
 )
 from deeplearning4j_tpu_torch.parallel import multihost  # noqa: F401
+
+
+def __getattr__(name):
+    if name in ("ParallelWrapper", "ParallelInference"):
+        from deeplearning4j_tpu_torch.parallel import data_parallel
+        return getattr(data_parallel, name)
+    raise AttributeError(name)

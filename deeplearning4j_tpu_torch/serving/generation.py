@@ -1307,11 +1307,15 @@ class GenerationEngine(ResilientEngineMixin):
         decode cadence never stalls on an empty queue. Each head is
         planned (:meth:`_plan_blocks`): shed typed, requeued at the head
         to wait for blocks (FIFO preserved), or seated — by a swap-in, the
-        decode-feed seat or a prefill."""
+        decode-feed seat or a prefill. Each seat beats the watchdog, so
+        its timeout bounds one prefill, not a turn that fills every
+        slot."""
         self._admission.expire_queued()
         for i in range(self.slots):
             if self._stop.is_set() or self._pool is not pool:
                 return
+            if self._watchdog is not None:
+                self._watchdog.beat()
             if pool.slots[i] is not None:
                 continue
             idle = pool.live_count() == 0

@@ -7,13 +7,14 @@ package restores in the other:
 - ``configuration.json`` — the network config (JSON round-trip DSL) plus a
   ``networkType`` discriminator and iteration/epoch counters,
 - ``coefficients.npy``  — the flat parameter vector in float64
-  (``params()``: layer order, sorted keys within a layer),
+  (``params()``: layer order — a graph's topological node order — sorted
+  keys within a layer),
 - ``updaterState.npz``  — updater-state leaves in optax's tree order
   (``train/updaters.py`` keeps that order; the structure is rebuilt from
   a fresh ``init`` on load, so only leaves are stored),
 - ``state.npz``         — layer-state leaves in tree order (BatchNorm
   running mean/var).
-Only ``MultiLayerNetwork`` is ported; anything else raises the
+``MultiLayerNetwork`` and ``ComputationGraph``; anything else raises the
 reference's ``TypeError``. bfloat16 leaves are written as float32 (exact);
 a reference file's bfloat16 members (two-byte records) are read too.
 """
@@ -71,12 +72,17 @@ class ModelSerializer:
     @staticmethod
     def writeModel(model, path: str, saveUpdater: bool = True):
         """(ref: ModelSerializer.writeModel)."""
+        from deeplearning4j_tpu_torch.nn.computation_graph import ComputationGraph
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
-        if not isinstance(model, MultiLayerNetwork):
+        if isinstance(model, MultiLayerNetwork):
+            net_type = "MultiLayerNetwork"
+        elif isinstance(model, ComputationGraph):
+            net_type = "ComputationGraph"
+        else:
             raise TypeError(f"cannot serialize {type(model).__name__}")
         meta = {
-            "networkType": "MultiLayerNetwork",
+            "networkType": net_type,
             "configuration": json.loads(model.conf.to_json()),
             "iterationCount": model.getIterationCount(),
             "epochCount": model.getEpochCount(),
@@ -93,7 +99,9 @@ class ModelSerializer:
 
     @staticmethod
     def _restore(path: str, expect_type: Optional[str], loadUpdater: bool, device):
+        from deeplearning4j_tpu_torch.nn.computation_graph import ComputationGraph
         from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
+        from deeplearning4j_tpu_torch.nn.conf.graph import ComputationGraphConfiguration
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
         with zipfile.ZipFile(path, "r") as z:
@@ -101,12 +109,13 @@ class ModelSerializer:
             net_type = meta["networkType"]
             if expect_type and net_type != expect_type:
                 raise ValueError(f"{path} contains a {net_type}, expected {expect_type}")
-            if net_type != "MultiLayerNetwork":
-                raise ValueError(f"{path} contains a {net_type}, which is not yet "
-                                 f"ported to deeplearning4j_tpu_torch")
             conf_json = json.dumps(meta["configuration"])
-            model = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
-                                      device=device).init()
+            if net_type == "MultiLayerNetwork":
+                model = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
+                                          device=device).init()
+            else:
+                model = ComputationGraph(ComputationGraphConfiguration.from_json(conf_json),
+                                         device=device).init()
             flat = np.load(io.BytesIO(z.read("coefficients.npy")))
             model.setParams(torch.from_numpy(flat))
             if "state.npz" in z.namelist():
@@ -126,10 +135,9 @@ class ModelSerializer:
 
     @staticmethod
     def restoreComputationGraph(path: str, loadUpdater: bool = True, device=None):
-        """(ref: ModelSerializer.restoreComputationGraph): ComputationGraph
-        is not yet ported to this package."""
-        raise ValueError("restoreComputationGraph: ComputationGraph is not yet "
-                         "ported to deeplearning4j_tpu_torch")
+        """(ref: ModelSerializer.restoreComputationGraph) onto ``device``
+        (default ``"cuda"``)."""
+        return ModelSerializer._restore(path, "ComputationGraph", loadUpdater, device)
 
     @staticmethod
     def restoreModel(path: str, loadUpdater: bool = True, device=None):

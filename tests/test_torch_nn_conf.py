@@ -3,11 +3,10 @@
 CPU:
 
 - ``MultiLayerConfiguration.to_json`` gives the reference's string for
-  one configuration per layer case of ``tests/torch_nn_cases.py`` (and
+  one configuration per layer case of ``tests/torch_nn_cases.py``, the
+  reference's 57 layer types (and
   for a configuration with every builder global set), and each package's
   ``from_json`` reads the other's string back to the same string;
-- ``Layer.from_dict`` of each reference type not yet ported raises a
-  ``ValueError`` naming it;
 - a network's seeded ``init`` gives the reference's parameter trees
   (uniform draws bit for bit, normal draws within 4e-6 of the largest
   |value|: the last bits of ``erfinv`` differ between XLA and torch).
@@ -78,29 +77,6 @@ def test_builder_globals_to_json():
     assert back.to_json() == js
     assert isinstance(back.layers[0].dropOut, pdrop.GaussianDropout)
     assert isinstance(back.updater.lr, ptrain.StepSchedule)
-
-
-def _second_half():
-    ported = set(C.LAYER_NAMES)
-    return sorted(n for n in jnn.layers.LAYER_TYPES if n not in ported)
-
-
-@pytest.mark.parametrize("name", _second_half())
-def test_second_half_layer_refused_by_name(name):
-    d = {"@type": name, "nIn": 3, "nOut": 2}
-    with pytest.raises(ValueError, match=f"'{name}' is not yet ported"):
-        pnn.layers.Layer.from_dict(d)
-
-
-def test_second_half_refusal_inside_a_configuration():
-    conf = (jnn.NeuralNetConfiguration.Builder().list()
-            .layer(jnn.layers.PReLULayer())
-            .layer(jnn.layers.OutputLayer(nOut=2))
-            .setInputType(jnn.InputType.feedForward(3)).build())
-    with pytest.raises(ValueError, match="'PReLULayer' is not yet ported"):
-        pnn.MultiLayerConfiguration.from_json(conf.to_json())
-    assert len(_second_half()) == len(pnn.layers.NOT_YET_PORTED)
-    assert set(_second_half()) == set(pnn.layers.NOT_YET_PORTED)
 
 
 @pytest.mark.parametrize("weight_init", ["XAVIER", "XAVIER_UNIFORM", "RELU"])

@@ -37,12 +37,12 @@ def test_layer_forward_and_gradients(case_id, training, masked):
 
 
 def test_cases_cover_the_slice():
-    """Every one of the 30 ported layer types has a case, and the port's
-    LAYER_TYPES holds exactly them."""
+    """Every one of the reference's 57 layer types has a case, and the
+    port's LAYER_TYPES holds exactly them."""
     used = {spec[0] for _, spec, _, _ in C.CASES}
     assert used == set(C.LAYER_NAMES)
     assert set(pnn.layers.LAYER_TYPES) == set(C.LAYER_NAMES)
-    assert len(C.LAYER_NAMES) == 30
+    assert len(C.LAYER_NAMES) == 57
 
 
 @pytest.mark.parametrize("case_id", ["conv_same_s2", "deconv_same", "lstm",

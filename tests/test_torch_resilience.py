@@ -437,6 +437,29 @@ def test_watchdog_restart_stale_step_leaves_streams_untouched(sides, clean):
     assert restarts == m_restarts == 1 and failed == 1 and wd == 1
 
 
+def test_watchdog_times_each_prefill_of_a_turn_not_the_turn(sides, clean):
+    """Four requests seated in one admission turn, each prefill held
+    200 ms under a 400 ms watchdog: the turn takes 800 ms, but every
+    prefill beats, so nothing restarts and every stream equals its quiet
+    one."""
+    _pkg, make = sides["torch"]
+    with make(slots=4) as eng:
+        eng.generate(prompt(5, 0), max_new_tokens=2, timeout=120)
+        eng.arm_watchdog(400)
+        plan = T.FaultPlan(seed=0).delay("generation.prefill", ms=200,
+                                         at=(0, 1, 2, 3))
+        with plan:
+            hs = [eng.submit(prompt(5, s), max_new_tokens=6)
+                  for s in range(4)]
+            outs = [h.result(timeout=120) for h in hs]
+        assert len(plan.fired("generation.prefill")) == 4
+        assert eng.watchdog_restarts == 0
+        quiet = [eng.generate(prompt(5, s), max_new_tokens=6, timeout=120)
+                 for s in range(4)]
+    assert outs == quiet
+    assert outs[0] == clean[(0, "greedy")][:6]
+
+
 class _HeldGauge:
     """A gauge whose first ``set`` from ``thread`` after ``armed`` sleeps
     ``ms`` first: the decode turn sets the slot occupancy right after

@@ -7,8 +7,8 @@ in optax's order), and, after one more step with the restored updater
 state, the writer's next parameters (within 1e-5 of the largest
 |parameter|) — over Adam, Nesterovs with BatchNormalization's running
 statistics in ``state.npz``, and AdaGrad with a learning-rate schedule
-(its count in the updater state). And the refusals of what is not yet
-ported. The port's 64-bit switch is on, as the suite runs the reference.
+(its count in the updater state). And the refusal of what is not a
+network. The port's 64-bit switch is on, as the suite runs the reference.
 """
 import json
 
@@ -136,10 +136,6 @@ def test_serializer_port_to_reference(name, tmp_path):
 def test_serializer_refusals(tmp_path):
     with pytest.raises(TypeError, match="cannot serialize dict"):
         ModelSerializer.writeModel({}, str(tmp_path / "x.zip"))
-    with pytest.raises(ValueError, match="not yet ported"):
-        ModelSerializer.restoreComputationGraph(str(tmp_path / "x.zip"))
-    with pytest.raises(ValueError, match="not yet ported"):
-        pnn.NeuralNetConfiguration.Builder().graphBuilder()
 
 
 def test_serializer_half_network_both_ways(tmp_path):

@@ -833,9 +833,98 @@ def planlink_suite():
     return [("close-after-beat", close_after_beat_case)]
 
 
+# ---------------------------------------------------- data parallelism
+# ParallelWrapper over a data axis of every rank (tests/
+# test_torch_data_parallel.py): the same global batches on every rank.
+
+
+def _dp_result(net, losses):
+    """The rank's losses, flat params and layer state, and whether every
+    rank holds the same params (one update applied everywhere)."""
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    flat = net.params().toNumpy()
+    flats = [None] * dist.get_world_size()
+    dist.all_gather_object(flats, flat)
+    return {"losses": losses, "params": flat,
+            "state": [t.numpy() for t in tree_leaves(net._state)],
+            "iterations": net.getIterationCount(), "epochs": net.getEpochCount(),
+            "ranks_equal": all(np.array_equal(f, flat) for f in flats)}
+
+
+def dp_mln_case():
+    """tests/torch_graph_cases.py's dp_net through ParallelWrapper."""
+    import torch_graph_cases as GC
+    from deeplearning4j_tpu_torch import nd
+    import deeplearning4j_tpu_torch.nn as pnn
+    import deeplearning4j_tpu_torch.train as ptrain
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.parallel.data_parallel import ParallelWrapper
+    with nd.enableX64(True):
+        net = pnn.MultiLayerNetwork(GC.dp_net(pnn, ptrain), device="cpu").init()
+        pw = ParallelWrapper.Builder(net).workers(dist.get_world_size()).build()
+        losses = []
+        for x, y in GC.dp_batches():
+            pw.fit(DataSet(x, y))
+            losses.append(net.score())
+        return _dp_result(net, losses)
+
+
+def dp_graph_case():
+    """The multi-input graph (masks, dropout, a DropoutLayer,
+    BatchNormalization) through ParallelWrapper, and the same graph's
+    plain fit on the cyclic-padded global batches in this process."""
+    import torch_graph_cases as GC
+    from deeplearning4j_tpu_torch import nd
+    import deeplearning4j_tpu_torch.nn as pnn
+    import deeplearning4j_tpu_torch.train as ptrain
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+    from deeplearning4j_tpu_torch.parallel.data_parallel import ParallelWrapper
+    n = dist.get_world_size()
+    with nd.enableX64(True):
+        net = pnn.ComputationGraph(GC.multi_io(pnn, ptrain), device="cpu").init()
+        plain = net.clone()
+        pw = ParallelWrapper(net)
+        losses, plain_losses = [], []
+        for s, b in enumerate((6, 5)):
+            feats, labels, m2 = GC.multi_io_data(seed=s, batch=b)
+            pw.fit(MultiDataSet(feats, labels, [None, m2], None))
+            losses.append(net.score())
+            idx = np.resize(np.arange(b), b + (-b) % n)
+            plain.fit(MultiDataSet([f[idx] for f in feats], [y[idx] for y in labels],
+                                   [None, m2[idx]], None))
+            plain_losses.append(plain.score())
+        out = _dp_result(net, losses)
+        out.update(plain_losses=plain_losses, plain_params=plain.params().toNumpy())
+        return out
+
+
+def dp_infer_case():
+    """ParallelInference.output of 5 rows (padded to the n*2^k ladder) and
+    the network's own output."""
+    import torch_graph_cases as GC
+    import deeplearning4j_tpu_torch.nn as pnn
+    import deeplearning4j_tpu_torch.train as ptrain
+    from deeplearning4j_tpu_torch.parallel.data_parallel import ParallelInference
+    net = pnn.MultiLayerNetwork(GC.dp_net(pnn, ptrain), device="cpu").init()
+    x = GC.dp_batches(seed=3, sizes=(5,))[0][0]
+    pi = ParallelInference.Builder(net).workers(dist.get_world_size()).build()
+    try:
+        pi.engine()
+        refused = None
+    except TypeError as e:
+        refused = str(e)
+    return {"parallel": pi.output(x).toNumpy(), "plain": net.output(x).toNumpy(),
+            "bucket": pi._bucket(5), "engine_refusal": refused}
+
+
+def dataparallel_suite():
+    return [("mln", dp_mln_case), ("graph", dp_graph_case),
+            ("inference", dp_infer_case)]
+
+
 SUITES = {"parallel": parallel_suite, "multihost": multihost_suite,
           "train": train_suite, "serving": serving_suite,
-          "planlink": planlink_suite}
+          "planlink": planlink_suite, "dataparallel": dataparallel_suite}
 
 
 # ---------------------------------------------------------------- worker

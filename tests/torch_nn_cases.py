@@ -1,8 +1,10 @@
-"""Jax-free case recipes for the networks slice: one small configuration
-of each of the 30 ported layers (``deeplearning4j_tpu_torch/nn/conf/
-layers.py``), built by name from either package's ``layers`` module so
-the same recipe drives the JAX package and the port (``tests/
-test_torch_nn_*.py``; ``chip_smoke.py`` reads the names).
+"""Jax-free case recipes for the networks slices: one small configuration
+(or a few) of each of the reference's 57 layer types (``deeplearning4j_
+tpu_torch/nn/conf/layers.py``), built by name from either package's
+``layers`` module so the same recipe drives the JAX package and the port
+(``tests/test_torch_nn_*.py``; ``chip_smoke.py`` reads the names). The
+cases from ``prelu`` on (:data:`SECOND_HALF_IDS`) are the second half's 27
+types.
 
 A case is ``(id, layer spec, input spec, masked)``:
 
@@ -11,9 +13,10 @@ A case is ``(id, layer spec, input spec, masked)``:
   ``LastTimeStep.underlying``);
 - an input spec is ``(kind, *sizes)``: ``("ff", F)`` (B, F),
   ``("rnn", F, T)`` (B, T, F), ``("rnn_ncw", F, T)`` (B, F, T),
-  ``("cnn", H, W, C)`` (B, C, H, W), ``("cnnseq", H, W, C, T)``
-  (B, T, C, H, W), ``("ids", V)`` (B,) and ``("idseq", V, T)`` (B, T)
-  integer indices;
+  ``("rnn_padded", F, T)`` (B, T, F) whose rows after the first end in
+  all-zero steps, ``("cnn", H, W, C)`` (B, C, H, W), ``("cnn3d", D, H,
+  W, C)`` (B, C, D, H, W), ``("cnnseq", H, W, C, T)`` (B, T, C, H, W),
+  ``("ids", V)`` (B,) and ``("idseq", V, T)`` (B, T) integer indices;
 - ``masked``: the case also runs with a (B, T) features mask whose rows
   end at different lengths.
 """
@@ -105,9 +108,70 @@ CASES = [
     ("self_attention", ("SelfAttentionLayer", dict(nOut=8, nHeads=2)), ("rnn", 6, 8), True),
     ("self_attention_unprojected", ("SelfAttentionLayer", dict(projectInput=False)),
      ("rnn", 6, 8), True),
+    # ---- the second half: shape and elementwise
+    ("prelu", ("PReLULayer", dict(sharedAxes=(2, 3))), ("cnn", 3, 4, 2), False),
+    ("prelu_ff", ("PReLULayer", dict()), ("ff", 5), False),
+    ("elementwise_mult", ("ElementWiseMultiplicationLayer", dict(nIn=5, activation="TANH")),
+     ("ff", 5), False),
+    ("mask_zero", ("MaskZeroLayer", dict(underlying=("LSTM", dict(nOut=4)))),
+     ("rnn_padded", 3, 6), False),
+    ("reshape_cnn_to_seq", ("ReshapeLayer", dict(targetShape=(-1, 6))), ("cnn", 2, 3, 2),
+     False),
+    ("reshape_ff_to_cnn", ("ReshapeLayer", dict(targetShape=(3, 2, 2))), ("ff", 12), False),
+    ("permute", ("PermuteLayer", dict(permuteDims=(2, 1, 3))), ("cnn", 3, 4, 2), False),
+    ("space_to_depth", ("SpaceToDepthLayer", dict(blockSize=2)), ("cnn", 4, 6, 3), False),
+    ("upsampling1d", ("Upsampling1D", dict(size=3)), ("rnn", 3, 4), False),
+    ("upsampling3d", ("Upsampling3D", dict(size=(1, 2, 3))), ("cnn3d", 2, 2, 3, 2), False),
+    ("cropping1d", ("Cropping1D", dict(cropping=(1, 2))), ("rnn", 3, 7), False),
+    ("cropping3d", ("Cropping3D", dict(cropping=(1, 0, 0, 1, 1, 1))), ("cnn3d", 3, 4, 4, 2),
+     False),
+    ("zero_padding1d", ("ZeroPadding1DLayer", dict(padding=(2, 1))), ("rnn", 3, 4), False),
+    ("zero_padding3d", ("ZeroPadding3DLayer", dict(padding=(1, 0, 0, 2, 1, 1))),
+     ("cnn3d", 2, 2, 2, 2), False),
+    # ---- 3D convolution, 3D pooling, locally connected
+    ("conv3d", ("Convolution3D", dict(nOut=3, kernelSize=(2, 2, 2), activation="RELU")),
+     ("cnn3d", 3, 4, 4, 2), False),
+    ("conv3d_same_s2", ("Convolution3D", dict(nOut=2, kernelSize=(3, 3, 2), stride=(2, 2, 2),
+                                              convolutionMode="Same")),
+     ("cnn3d", 3, 5, 4, 2), False),
+    ("pool3d_max", ("Subsampling3DLayer", dict(poolingType="MAX")), ("cnn3d", 4, 4, 4, 2),
+     False),
+    ("pool3d_avg_same", ("Subsampling3DLayer", dict(poolingType="AVG", kernelSize=(3, 3, 3),
+                                                    convolutionMode="Same")),
+     ("cnn3d", 3, 5, 4, 2), False),
+    ("locally_connected1d", ("LocallyConnected1D", dict(nOut=3, kernelSize=3, stride=2)),
+     ("rnn", 4, 7), False),
+    ("locally_connected2d", ("LocallyConnected2D", dict(nOut=3, kernelSize=(2, 2),
+                                                        stride=(2, 1), activation="TANH")),
+     ("cnn", 5, 4, 2), False),
+    # ---- recurrent extras
+    ("graves_bidirectional_lstm", ("GravesBidirectionalLSTM", dict(nOut=4)), ("rnn", 3, 5),
+     True),
+    ("learned_self_attention", ("LearnedSelfAttentionLayer", dict(nOut=6, nHeads=2,
+                                                                  nQueries=3)),
+     ("rnn", 4, 5), True),
+    ("recurrent_attention", ("RecurrentAttentionLayer", dict(nOut=4)), ("rnn", 3, 5), True),
+    # ---- capsules
+    ("primary_capsules", ("PrimaryCapsules", dict(capsuleDimensions=4, channels=2,
+                                                  kernelSize=(3, 3), stride=(2, 2))),
+     ("cnn", 7, 7, 2), False),
+    ("capsule", ("CapsuleLayer", dict(capsules=3, capsuleDimensions=4, routings=3)),
+     ("rnn", 5, 6), False),
+    ("capsule_strength", ("CapsuleStrengthLayer", dict()), ("rnn", 4, 3), False),
+    # ---- heads
+    ("center_loss_output", ("CenterLossOutputLayer", dict(nOut=3, lambda_=0.1)), ("ff", 5),
+     False),
+    ("ocnn_output", ("OCNNOutputLayer", dict(hiddenSize=4)), ("ff", 5), False),
+    ("yolo2_output", ("Yolo2OutputLayer", dict(boundingBoxes=((1.0, 1.5), (2.0, 1.0)))),
+     ("cnn", 3, 3, 14), False),
+    # ---- pretrainable
+    ("autoencoder", ("AutoEncoder", dict(nOut=3, activation="SIGMOID")), ("ff", 5), False),
+    ("vae", ("VariationalAutoencoder", dict(nOut=2, encoderLayerSizes=(6,),
+                                            decoderLayerSizes=(5,), activation="TANH")),
+     ("ff", 4), False),
 ]
 
-# every layer type the cases above exercise: the 30 of the slice
+# every layer type the cases above exercise: the reference's 57
 LAYER_NAMES = (
     "DenseLayer", "EmbeddingLayer", "EmbeddingSequenceLayer", "ConvolutionLayer",
     "Convolution1DLayer", "Deconvolution2D", "DepthwiseConvolution2D",
@@ -116,9 +180,18 @@ LAYER_NAMES = (
     "Upsampling2D", "ZeroPaddingLayer", "Cropping2D", "GlobalPoolingLayer", "LSTM",
     "GravesLSTM", "SimpleRnn", "GRU", "Bidirectional", "ConvLSTM2D", "RepeatVector",
     "LastTimeStep", "OutputLayer", "RnnOutputLayer", "LossLayer", "SelfAttentionLayer",
+    # the second half
+    "PReLULayer", "ElementWiseMultiplicationLayer", "MaskZeroLayer", "ReshapeLayer",
+    "PermuteLayer", "SpaceToDepthLayer", "Upsampling1D", "Upsampling3D", "Cropping1D",
+    "Cropping3D", "ZeroPadding1DLayer", "ZeroPadding3DLayer", "Convolution3D",
+    "Subsampling3DLayer", "LocallyConnected1D", "LocallyConnected2D",
+    "GravesBidirectionalLSTM", "LearnedSelfAttentionLayer", "RecurrentAttentionLayer",
+    "PrimaryCapsules", "CapsuleLayer", "CapsuleStrengthLayer", "CenterLossOutputLayer",
+    "OCNNOutputLayer", "Yolo2OutputLayer", "AutoEncoder", "VariationalAutoencoder",
 )
 
 CASE_IDS = [c[0] for c in CASES]
+SECOND_HALF_IDS = CASE_IDS[CASE_IDS.index("prelu"):]
 
 
 def case(case_id):
@@ -138,10 +211,12 @@ def input_type(input_type_cls, spec):
     kind, *s = spec
     if kind == "ff":
         return input_type_cls.feedForward(s[0])
-    if kind in ("rnn", "rnn_ncw"):
+    if kind in ("rnn", "rnn_ncw", "rnn_padded"):
         return input_type_cls.recurrent(s[0], s[1])
     if kind == "cnn":
         return input_type_cls.convolutional(*s)
+    if kind == "cnn3d":
+        return input_type_cls.convolutional3D(*s)
     if kind == "cnnseq":
         return input_type_cls.convolutionalSequence(*s)
     if kind == "ids":
@@ -172,11 +247,18 @@ def inputs(case_id, seed=0):
         x = rng.standard_normal((B, s[0])).astype(np.float32)
     elif kind == "rnn":
         x = rng.standard_normal((B, s[1], s[0])).astype(np.float32)
+    elif kind == "rnn_padded":
+        x = rng.standard_normal((B, s[1], s[0])).astype(np.float32)
+        for row in range(1, B):
+            x[row, s[1] - 1 - row:] = 0.0
     elif kind == "rnn_ncw":
         x = rng.standard_normal((B, s[0], s[1])).astype(np.float32)
     elif kind == "cnn":
         H, W, C = s
         x = rng.standard_normal((B, C, H, W)).astype(np.float32)
+    elif kind == "cnn3d":
+        D, H, W, C = s
+        x = rng.standard_normal((B, C, D, H, W)).astype(np.float32)
     elif kind == "cnnseq":
         H, W, C, T = s
         x = rng.standard_normal((B, T, C, H, W)).astype(np.float32)
