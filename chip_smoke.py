@@ -171,6 +171,29 @@ seconds:
    ``ParallelWrapper`` at world size 1 over NCCL on (e)'s graph, bit-equal
    to ``fit``; (i) the 27 new layer types and 12 vertex types on the
    card against the CPU, forward and gradients;
+   samediff — SameDiff on the card (:func:`samediff_phase`): (a)
+   BASELINE config #4, the BERT-base encoder built through the graph API
+   as the TF importer emits it (``tests/torch_samediff_cases.py``: L=12,
+   H=768, A=12, V=30522, T=128, intermediate 3072), its constants made
+   trainable, ``fuseAttention`` (12 sites), an XAVIER MLM head,
+   ``loss.sparseMcxent`` and Adam(1e-4) at B=32, FLOAT and HALF: 2
+   warm-up and 8 timed steps, tokens/s, step ms, peak memory and rows
+   1-5's launches (none: the fused op takes the einsum below T = 768),
+   the loss falling; (b) the same 12-layer graph at T=1024, B=4, fp32
+   and bf16: rows 1 and 2 exactly 12 times a fit step and row 1 12 times
+   an ``output``, the fused graph against the unfused (layer 0's
+   attention output by ``judge``, the encoder output, the loss and four
+   gradients by networks (c)'s rule); (c) a 2-layer copy at T=2048, B=2
+   on rows 3-5 (2 each a step), the same comparisons; (d) (a)'s graph
+   saved with its Adam state and loaded: the output and one more step
+   bit-equal; (e) ``ModelRegistry``/``InferenceEngine`` serving (a)'s
+   encoder (``SameDiffAdapter``), LeNet (``MultiLayerNetworkAdapter``),
+   the graphs phase's attention graph (``ComputationGraphAdapter``) and
+   ``ParallelInference.engine()``: rows equal to the model's own call,
+   rows/s; (f) ``check_gradients`` in float64 on a dense and a conv net;
+   (g) ``train_with_checkpointing`` over a 2-layer fp32 BERT
+   ``make_train_step(cfg, mesh)`` at world size 1 on NCCL, stopped by
+   SIGTERM and resumed: bit-equal to the unbroken run;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -6011,6 +6034,523 @@ def request_paths(tracer, prefix, n):
     return resumed, paths
 
 
+# ---------------------------------------------------------------- samediff
+# SameDiff (BASELINE config #4's encoder, built through the graph API as
+# the TF importer emits it: tests/torch_samediff_cases.py), fuseAttention
+# on rows 1-5, save/load, the serving adapters, gradient checks and the
+# sharded checkpoint loop on the card (:func:`samediff_phase`)
+
+SD_B, SD_WARM, SD_STEPS = 32, 2, 8            # (a): config #4's B; T = 128
+SD_LONG_B, SD_LONG_T = 4, 1024                # (b): the packed rows
+SD_STREAM_L, SD_STREAM_B, SD_STREAM_T = 2, 2, 2048   # (c): the streamed rows
+ROWS_1_5 = ("mha_attention_packed", "mha_packed_backward", "flash_forward",
+            "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _sd_recipes():
+    """``tests/torch_samediff_cases.py`` (jax-free recipes)."""
+    _graph_recipes()   # puts tests/ on sys.path
+    import torch_samediff_cases
+
+    return torch_samediff_cases
+
+
+def _sd_launches():
+    got = read_launches()
+    return {k: got[k] for k in ROWS_1_5}
+
+
+def _sd_graph(C, L, T, B, compute=None, seed=0):
+    """Config #4's encoder at depth ``L`` and length ``T`` on the card,
+    constants made trainable, the MLM head (seeded XAVIER) and Adam(1e-4);
+    (sd, encoder output name, loss name)."""
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.train import Adam
+
+    cfg = dict(C.BERT_BASE, L=L, T=T)
+    sd, _, out = C.build_bert_encoder(**cfg, seed=seed, device=DEVICE)
+    n = sd.convertAllConstantsToVariables()
+    check(n == 4 + 12 * L, f"samediff: {n} constants made trainable, expected "
+          f"{4 + 12 * L}")
+    loss = C.add_mlm_head(sd, out, cfg["H"], cfg["V"], B, T)
+    sd.setTrainingConfig(TrainingConfig(updater=Adam(1e-4), computeDtype=compute))
+    return sd, out, loss
+
+
+class _KeepGrads:
+    """A listener that asks the graph to keep each step's gradients."""
+    requiresGradients = True
+
+    def iterationDone(self, model, iteration, epoch):
+        pass
+
+
+def _sd_timed_fit(sd, batch, warmup, steps):
+    """``warmup`` then ``steps`` fit steps on one batch, each ending in a
+    read of its loss; (tokens/s, mean step ms, timed losses, peak GB)."""
+    import torch
+
+    for _ in range(warmup):
+        sd.fit(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses += sd.fit(batch)
+    wall = time.perf_counter() - t0
+    B, T = batch["ids"].shape
+    return (B * T * steps / wall, wall / steps * 1e3, losses,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _sd_traced_step(sd, batch, label):
+    """One more fit step under the port's ``profiler.device_trace``: its
+    wall (the step ends in a read of its loss) against the device's busy
+    time, the sum of the kernels, copies and fills that ran on the card
+    (``report_profile``), and the busy share."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.profiler import device_trace
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with device_trace(d) as prof:
+            t0 = time.perf_counter()
+            sd.fit(batch)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = report_profile(prof, wall_ms, f"{label} one traced step ({CARD})")
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    if busy_ms == 0:   # torch.profiler can drop kernel records after a
+        # process's first profiled call: a reading, not a failure
+        log(f"{label}: device busy not measured (the trace holds no device events)")
+        return {"wall_ms": wall_ms, "device_busy_ms": None}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "device_events": sum(n for _, _, n in kernels)}
+
+
+def _sd_config4_part(C):
+    """(a) config #4 at its sizes, FLOAT then HALF from the same initial
+    values; returns the graph, trained SD_WARM steps in FLOAT, for (d)
+    and (e)."""
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.train import Adam
+
+    sd, out, _ = _sd_graph(C, 12, 128, SD_B)
+    fused = sd.fuseAttention()
+    check(fused == 12, f"samediff (a): fuseAttention fused {fused} sites, expected 12")
+    init = {n: sd._values[n].clone() for n in sd._trainable_names()}
+    batch = C.mlm_batch(C.BERT_BASE["V"], SD_B, 128)
+    res = {"fused_sites": fused, "params": sd.numParams()}
+    for compute in (None, "HALF"):
+        label = compute or "FLOAT"
+        if compute:
+            sd._values.update({n: v.clone() for n, v in init.items()})
+            sd.setTrainingConfig(TrainingConfig(updater=Adam(1e-4), computeDtype=compute))
+        reset_launches()
+        tok_s, step_ms, losses, peak = _sd_timed_fit(sd, batch, SD_WARM, SD_STEPS)
+        got = _sd_launches()
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"samediff (a) {label}: the loss did not fall over the timed steps: {losses}")
+        res[label] = {"tokens_per_sec": tok_s, "step_ms": step_ms, "losses": losses,
+                      "peak_gb": peak, "launches": got,
+                      "traced_step": _sd_traced_step(sd, batch, f"samediff (a) {label}")}
+        log(f"samediff (a) config #4 {label} ({CARD}): {tok_s:.1f} tokens/s, "
+            f"{step_ms:.3f} ms a step, peak {peak:.2f} GB, rows 1-5 {got} "
+            f"over {SD_WARM + SD_STEPS} steps (T = 128: the einsum route)")
+    # (d) and (e) take a FLOAT-trained state: from the initial values,
+    # SD_WARM steps in FLOAT
+    sd._values.update({n: v.clone() for n, v in init.items()})
+    sd.setTrainingConfig(TrainingConfig(updater=Adam(1e-4)))
+    for _ in range(SD_WARM):
+        sd.fit(batch)
+    return sd, out, batch, res
+
+
+def _sd_within(got, want, tol, what):
+    """max |got - want| against ``tol`` (an absolute bound); returns it."""
+    err = max_err(got, want)
+    check(err <= tol, f"{what}: max |err| {err:.3e} > {tol:.3e}")
+    return err
+
+
+def _sd_route_part(C, L, T, B, rows_fwd, rows_bwd, label):
+    """(b)/(c): the L-layer graph at length T, fp32 and bf16 (HALF: the
+    step's compute dtype, and the output on the values cast to it): one
+    ``output`` and one fit step unfused (the einsum chain), then the same
+    after ``fuseAttention`` (the kernels). Launch counts per output and
+    per step; layer 0's attention output (fused from the same inputs)
+    against the unfused one by ``judge``; the encoder output and the
+    step's gradients and loss by networks (c)'s rule: fp32 within 1e-4 of
+    each tensor's largest |value| (the loss 1e-5 relative), bf16 within
+    2^-6 of the fp32 einsum's largest |value| or twice the bf16 einsum's
+    own distance from fp32."""
+    import torch
+
+    rng = np.random.default_rng(2)
+    batch = {"ids": rng.integers(0, C.BERT_BASE["V"], (B, T)).astype(np.int32),
+             "targets": rng.integers(0, C.BERT_BASE["V"], (B, T)).astype(np.int32)}
+    res, ref32 = {}, None
+    for compute in (None, "HALF"):
+        dt = compute or "FLOAT"
+        sd, out, _ = _sd_graph(C, L, T, B, compute)
+        att0 = next(o for o in sd._ops if o.opname == "softmax")
+        att0 = next(o.outputs[0] for o in sd._ops if o.opname == "matmul"
+                    and o.inputs[0] == att0.outputs[0])
+        init = {n: v.clone() for n, v in sd._values.items()}
+        keep = _KeepGrads()
+        sd.listeners = [keep]
+        want_names = ["l0/qkv_w", f"l{L - 1}/fc2_w", "tok_emb", "lm_head"]
+
+        def run():
+            # the output in the step's compute dtype: computeDtype casts
+            # only fit's leaves, so a bf16 output runs on cast values
+            sd._values.update({n: v.to(torch.bfloat16) if compute and
+                               v.dtype == torch.float32 else v.clone()
+                               for n, v in init.items()})
+            reset_launches()
+            o = sd.output({"ids": batch["ids"]}, [out, att0])
+            n_out = _sd_launches()
+            sd._values.update({n: v.clone() for n, v in init.items()})
+            sd._opt_state = None
+            reset_launches()
+            step_loss = sd.fit(batch)[0]
+            n_step = _sd_launches()
+            torch.cuda.synchronize()
+            grads = {n: sd._last_grads[n].float() for n in want_names}
+            return {"out": o[out].torch.float(), "att0": o[att0].torch, "loss": step_loss,
+                    "grads": grads, "out_launches": n_out, "step_launches": n_step}
+
+        plain = run()
+        fused = sd.fuseAttention()
+        check(fused == L, f"samediff ({label}) {dt}: fuseAttention fused {fused}, expected {L}")
+        kern = run()
+        check(not any(plain["step_launches"].values()) and
+              not any(plain["out_launches"].values()),
+              f"samediff ({label}) {dt}: the unfused graph launched {plain['step_launches']}")
+        want_out = {r: (L if r in rows_fwd else 0) for r in ROWS_1_5}
+        want_step = {r: (L if r in rows_fwd + rows_bwd else 0) for r in ROWS_1_5}
+        check(kern["out_launches"] == want_out,
+              f"samediff ({label}) {dt}: an output launched {kern['out_launches']}, "
+              f"expected {want_out}")
+        check(kern["step_launches"] == want_step,
+              f"samediff ({label}) {dt}: a fit step launched {kern['step_launches']}, "
+              f"expected {want_step}")
+        def rows(t):   # (B, A, T, D) -> (B, T, A*D): one head's D values a row
+            return t.transpose(1, 2).flatten(2)
+
+        if compute is None:
+            a_err = max_err(kern["att0"], plain["att0"])
+            a_share = a_err / rel_bound(plain["att0"], 1e-5)
+            a_rule = "1e-5 of max|ref|"
+            check(a_share <= 1.0, f"samediff ({label}) FLOAT: layer 0 attention, "
+                  f"kernels vs einsum {a_err:.3e}")
+            errs = {"out": _sd_within(kern["out"], plain["out"],
+                                      1e-4 * plain["out"].abs().max().item(),
+                                      f"samediff ({label}) FLOAT: encoder output")}
+            for n in want_names:
+                g = plain["grads"][n]
+                errs[n] = _sd_within(kern["grads"][n], g, 1e-4 * g.abs().max().item(),
+                                     f"samediff ({label}) FLOAT: gradient of {n}")
+            loss_err = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+            check(loss_err <= 1e-5, f"samediff ({label}) FLOAT: loss {kern['loss']} vs "
+                  f"{plain['loss']}")
+            ref32 = plain
+        else:
+            # the ops phase's bf16 rule: judge against the fp32 einsum, or
+            # twice the bf16 einsum route's own share where that is larger
+            a_err, a_share, a_rule = judge(rows(kern["att0"]), rows(ref32["att0"]), 64,
+                                           False, FWD_FLOOR)
+            _, own, _ = judge(rows(plain["att0"]), rows(ref32["att0"]), 64, False,
+                              FWD_FLOOR)
+            a_rule += f"; the bf16 einsum route's share {own:.3f}"
+            check(a_share <= max(1.0, 2 * own), f"samediff ({label}) HALF: layer 0 "
+                  f"attention, kernels vs fp32 take {a_share:.3f} of the bound ({a_rule})")
+            errs = {}
+            for n, got, want, base in (
+                    [("out", kern["out"], plain["out"], ref32["out"])]
+                    + [(n, kern["grads"][n], plain["grads"][n], ref32["grads"][n])
+                       for n in want_names]):
+                tol = max(2 ** -6 * base.abs().max().item(), 2 * max_err(want, base))
+                errs[n] = _sd_within(got, want, tol, f"samediff ({label}) HALF: {n}")
+            loss_err = abs(kern["loss"] - plain["loss"]) / abs(ref32["loss"])
+            check(loss_err <= max(2 ** -6, 2 * abs(plain["loss"] - ref32["loss"])
+                                  / abs(ref32["loss"])),
+                  f"samediff ({label}) HALF: loss {kern['loss']} vs {plain['loss']}")
+        res[dt] = {"fused_sites": fused, "out_launches": kern["out_launches"],
+                   "step_launches": kern["step_launches"], "att0_max_abs_err": a_err,
+                   "att0_share_of_bound": a_share, "max_abs_err": errs,
+                   "loss_rel_err": loss_err, "loss": kern["loss"]}
+        log(f"samediff ({label}) L={L} T={T} B={B} {dt} ({CARD}): per output "
+            f"{kern['out_launches']}, per step {kern['step_launches']}; kernels vs "
+            f"einsum: layer 0 attention {a_err:.3e} ({a_share:.3f} of {a_rule}), "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        del sd, init, plain, kern
+        torch.cuda.empty_cache()
+    return res
+
+
+def _sd_save_load_part(sd, out, batch, tmp_dir):
+    """(d) (a)'s FLOAT graph written with its Adam state and read back on
+    the card: the output bit-equal, then one more step on each with the
+    same bits (deterministic algorithms for both steps: the embedding
+    gather's backward accumulates with atomics otherwise)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+
+    path = os.path.join(tmp_dir, "config4.sdz")
+    t0 = time.perf_counter()
+    sd.save(path, save_updater_state=True)
+    back = SameDiff.load(path, device=DEVICE)
+    io_s = time.perf_counter() - t0
+    ids = {"ids": batch["ids"]}
+    a, b = sd.output(ids, out)[out].torch, back.output(ids, out)[out].torch
+    check(torch.equal(a, b), f"samediff (d): the restored output differs by {max_err(a, b):.3e}")
+    same_state = all(torch.equal(x.cpu(), y.cpu()) for x, y in
+                     zip(tree_leaves(sd._opt_state), tree_leaves(back._opt_state)))
+    check(same_state, "samediff (d): the restored Adam state differs")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        la, lb = sd.fit(batch)[0], back.fit(batch)[0]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = [n for n in sd._trainable_names()
+            if not torch.equal(sd._values[n], back._values[n])]
+    check(la == lb and not diff, f"samediff (d): one more step: losses {la} / {lb}, "
+          f"params differing: {diff[:5]}")
+    out_d = {"save_load_s": io_s, "file_mb": os.path.getsize(path) / 1e6,
+             "loss_after": la}
+    log(f"samediff (d) ({CARD}): saved and loaded in {io_s:.2f} s "
+        f"({out_d['file_mb']:.1f} MB); output and the next step bit-equal")
+    return out_d
+
+
+def _sd_serving_part(C, sd, out):
+    """(e) the registry's adapters on the card: (a)'s encoder
+    (``SameDiffAdapter``, input ``ids``), LeNet
+    (``MultiLayerNetworkAdapter``), the graphs phase's attention graph at rows of
+    (512, 768) (``ComputationGraphAdapter``) and ``ParallelInference``'s
+    engine: each request of 3 rows padded to bucket 4 equals the model's
+    own call on the same padded batch bit for bit, and the unpadded call
+    within 1e-5 of its largest |value| (cuBLAS may take another kernel
+    for 3 rows); rows/s over 10 requests of 4 rows."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as pnn
+    from deeplearning4j_tpu_torch import train as ptrain
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.data_parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    from deeplearning4j_tpu_torch.serving.registry import SameDiffAdapter
+
+    rng = np.random.default_rng(6)
+    lenet = MultiLayerNetwork(_lenet_conf(), device=DEVICE).init()
+    GC = _graph_recipes()
+    cg = pnn.ComputationGraph(GC.attention_graph(pnn, ptrain, d=SA_D, heads=SA_HEADS,
+                                                 T=SA_T), device=DEVICE).init()
+    models = {
+        "samediff": (SameDiffAdapter(sd, input_name="ids", output_name=out),
+                     lambda x: sd.output({"ids": x}, out)[out].toNumpy(),
+                     lambda n: rng.integers(0, C.BERT_BASE["V"], (n, 128)).astype(np.int32)),
+        "lenet": (lenet, lambda x: lenet.output(x).toNumpy(),
+                  lambda n: rng.random((n, 784)).astype(np.float32)),
+        "attention_graph": (cg, lambda x: cg.outputSingle(x).toNumpy(),
+                            lambda n: rng.standard_normal((n, SA_T, SA_D)).astype(np.float32)),
+    }
+    reg = ModelRegistry(default_buckets=(1, 2, 4))
+    res = {}
+    for name, (model, call, rows) in models.items():
+        reg.deploy(name, model)
+        with reg.engine(name, max_wait_ms=0) as eng:
+            x = rows(3)
+            got = np.asarray(eng.output(x))
+            padded = np.concatenate([x, np.zeros((1,) + x.shape[1:], x.dtype)])
+            check(np.array_equal(got, call(padded)[:3]),
+                  f"samediff (e) {name}: the engine's rows differ from the padded call")
+            err = float(np.abs(got - call(x)).max())
+            check(err <= 1e-5 * max(float(np.abs(got).max()), 1.0),
+                  f"samediff (e) {name}: the engine's rows vs the unpadded call {err:.3e}")
+            x4 = rows(4)
+            eng.output(x4)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                eng.output(x4)
+            rps = 40 / (time.perf_counter() - t0)
+        res[name] = {"rows_per_sec": rps, "unpadded_max_abs_err": err}
+    pi = ParallelInference.Builder(lenet).batchLimit(4).build()
+    with pi.engine(max_wait_ms=0) as eng:
+        x = models["lenet"][2](3)
+        got = np.asarray(eng.output(x))
+        check(np.array_equal(got, pi.output(x).toNumpy()),
+              "samediff (e): ParallelInference.engine differs from its output()")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            eng.output(models["lenet"][2](4))
+        res["parallel_inference"] = {"rows_per_sec": 40 / (time.perf_counter() - t0)}
+    log(f"samediff (e) serving ({CARD}): " + ", ".join(
+        f"{k} {v['rows_per_sec']:.1f} rows/s" for k, v in res.items()))
+    del cg, lenet
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sd_gradcheck_part():
+    """(f) ``check_gradients`` on the card in float64: a dense net and a
+    conv net (tests/test_gradchecks.py's), 40 parameters each; the worst
+    relative error among the indices past ``min_abs_error`` must be under
+    the reference's ``max_rel_error`` (1e-3)."""
+    from deeplearning4j_tpu_torch import nn as pnn
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.train import Sgd
+    from deeplearning4j_tpu_torch.utils import gradientcheck as gc
+
+    rng = np.random.default_rng(42)
+    nets = {
+        "dense": ([L.DenseLayer(nOut=5, activation="TANH"),
+                   L.OutputLayer(nOut=3, lossFunction="MCXENT")],
+                  pnn.InputType.feedForward(4), rng.normal(size=(6, 4)),
+                  np.eye(3)[rng.integers(0, 3, 6)]),
+        "conv": ([L.ConvolutionLayer(nOut=3, kernelSize=(3, 3), activation="TANH"),
+                  L.SubsamplingLayer(poolingType="AVG", kernelSize=(2, 2), stride=(2, 2)),
+                  L.OutputLayer(nOut=2, lossFunction="MCXENT")],
+                 pnn.InputType.convolutional(8, 8, 2), rng.normal(size=(3, 2, 8, 8)),
+                 np.eye(2)[rng.integers(0, 2, 3)]),
+    }
+    res = {}
+    for name, (layers, itype, x, y) in nets.items():
+        conf = pnn.NeuralNetConfiguration.Builder().seed(7).updater(Sgd(0.1)).list()
+        for l in layers:
+            conf = conf.layer(l)
+        net = pnn.MultiLayerNetwork(conf.setInputType(itype).build(), device=DEVICE).init()
+        ok = gc.check_gradients(net, x, y, subset=40)
+        rows = gc.gradient_errors(net, x, y, subset=40)
+        worst = max([r[3] for r in rows if r[4] > 1e-8] or [0.0])
+        check(ok and worst < 1e-3, f"samediff (f) {name}: gradient check failed, worst "
+              f"relative error {worst:.3e}")
+        # the gate's reading (indices past min_abs_error), and the largest
+        # relative and absolute errors over every checked index
+        res[name] = {"checked": len(rows), "worst_rel_err": worst,
+                     "max_rel_err_all": max(r[3] for r in rows),
+                     "max_abs_err_all": max(r[4] for r in rows)}
+    log(f"samediff (f) gradient checks on the card ({CARD}): {res}")
+    return res
+
+
+def _sd_checkpoint_part(tmp_dir):
+    """(g) ``train_with_checkpointing`` over ``make_train_step(cfg, mesh)``
+    (2-layer fp32 BERT at full widths, B=8, T=128) at world size 1 on
+    NCCL: 6 steps without a break against a run stopped by SIGTERM during
+    step 3 and resumed from its latest checkpoint; the parameters and the
+    AdamW state bit-equal (deterministic algorithms for both runs)."""
+    import signal
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import TransformerConfig, init_params
+    from deeplearning4j_tpu_torch.models import bert as tbert
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    from deeplearning4j_tpu_torch.util.sharded_checkpoint import (
+        GracefulShutdown, ShardedCheckpointManager, train_with_checkpointing)
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+
+    steps, stop_at = 6, 3
+    cfg = TransformerConfig(layers=2, dtype=torch.float32, remat=False,
+                            attention_impl="flash")
+    batches = [train_batch(cfg, 8, 128, seed=s) for s in range(steps)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with nccl_world():
+            mesh = make_mesh()
+            init, step = tbert.make_train_step(cfg, mesh)
+
+            def fresh():
+                p = tbert.place_params(init_params(cfg, seed=0, device=DEVICE), cfg, mesh)
+                return p, init(p)
+
+            params, state = fresh()
+            whole = []
+            for s in range(steps):
+                params, state, loss = step(params, state, batches[s])
+                whole.append(float(loss))
+
+            class Preempt:
+                def iterationDone(self, model, it, ep):
+                    if it == stop_at - 1:
+                        signal.raise_signal(signal.SIGTERM)
+
+            path = os.path.join(tmp_dir, "ckpt")
+            mgr = ShardedCheckpointManager(path, keep_last=2, save_interval_steps=2,
+                                           mesh=mesh)
+            p, st = fresh()
+            t0 = time.perf_counter()
+            with GracefulShutdown() as stop:
+                p, st, done, first = train_with_checkpointing(
+                    step, p, st, lambda s: batches[s], steps, mgr, shutdown=stop,
+                    listeners=[Preempt()])
+            p, st, at, _ = ShardedCheckpointManager(path, mesh=mesh).restore(*fresh())
+            p, st, _, second = train_with_checkpointing(
+                step, p, st, lambda s: batches[s], steps, mgr, start_step=at)
+            wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(params))) \
+        and all((torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+                for a, b in zip(tree_leaves(st), tree_leaves(state)))
+    check(done == stop_at and at == stop_at and same and first + second == whole,
+          f"samediff (g): stopped at {done}, restored {at}, bit-equal {same}, "
+          f"losses {first + second} vs {whole}")
+    log(f"samediff (g) checkpointed training ({CARD}): stopped at step {done}, "
+        f"resumed from {at}, params and AdamW state bit-equal to the unbroken run; "
+        f"kept steps {mgr.all_steps()}; {wall:.2f} s for the broken run")
+    return {"stopped_at": done, "restored": at, "bit_equal": same,
+            "kept": mgr.all_steps(), "losses": whole, "wall_s": wall}
+
+
+def samediff_phase():
+    """SameDiff on the card (the module docstring's samediff phase): (a)
+    config #4 at its sizes, (b) the 12-layer graph at T = 1024 on rows
+    1-2, (c) a 2-layer copy at T = 2048 on rows 3-5, (d) save/load, (e)
+    the serving adapters, (f) gradient checks, (g) checkpointed training.
+    Every part's failure fails the phase."""
+    import tempfile
+
+    import torch
+
+    C = _sd_recipes()
+    out = {"card": CARD}
+    marks = [time.perf_counter()]
+    sd, enc, batch, out["config4"] = _sd_config4_part(C)
+    marks.append(time.perf_counter())
+    out["packed"] = _sd_route_part(C, 12, SD_LONG_T, SD_LONG_B,
+                                   ("mha_attention_packed",), ("mha_packed_backward",),
+                                   "b")
+    marks.append(time.perf_counter())
+    out["streamed"] = _sd_route_part(C, SD_STREAM_L, SD_STREAM_T, SD_STREAM_B,
+                                     ("flash_forward",), ("flash_bwd_dq", "flash_bwd_dkv"),
+                                     "c")
+    marks.append(time.perf_counter())
+    with tempfile.TemporaryDirectory() as d:
+        out["save_load"] = _sd_save_load_part(sd, enc, batch, d)
+        marks.append(time.perf_counter())
+        out["serving"] = _sd_serving_part(C, sd, enc)
+        marks.append(time.perf_counter())
+        del sd
+        torch.cuda.empty_cache()
+        out["gradcheck"] = _sd_gradcheck_part()
+        marks.append(time.perf_counter())
+        out["checkpoint"] = _sd_checkpoint_part(d)
+        marks.append(time.perf_counter())
+    out["part_s"] = dict(zip("abcdefg", np.diff(marks).tolist()))
+    log(f"samediff ({CARD}): " + json.dumps(out, default=str))
+    return out
+
+
 def timed_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6102,6 +6642,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     graphs = timed_phase("graphs", graphs_phase)
     torch.cuda.empty_cache()
+    sdiff = timed_phase("samediff", samediff_phase)
+    torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
     longctx = timed_phase("long-context train", long_context_phase)
     mesh = timed_phase("mesh", mesh_phase, mlm, longctx)
@@ -6190,6 +6732,16 @@ def main() -> int:
             kernels[-1]["launches_graphs"] = {
                 dt: run["launches"][name]
                 for dt, run in graphs["attention"].items()}
+        if name in ROWS_1_5:
+            # the samediff phase: config #4 at T = 128 (a, the einsum
+            # route: 0), per output and per fit step at T = 1024 (b) and
+            # T = 2048 (c)
+            kernels[-1]["launches_samediff"] = {
+                **{f"a {dt}": sdiff["config4"][dt]["launches"][name]
+                   for dt in ("FLOAT", "HALF")},
+                **{f"{part} {dt} {what}": sdiff[key][dt][f"{what}_launches"][name]
+                   for part, key in (("b", "packed"), ("c", "streamed"))
+                   for dt in ("FLOAT", "HALF") for what in ("out", "step")}}
         if name in ATTENTION_ROWS.values():
             # the ops phase: (a) and (b), by part
             parts = [(f"mha {k}", v) for k, v in ops_run["mha"].items()] \

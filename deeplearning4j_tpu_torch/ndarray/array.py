@@ -38,11 +38,12 @@ from deeplearning4j_tpu_torch.ndarray import dtypes as _dt
 
 
 def default_array_device() -> torch.device:
-    """The device of new arrays: ``nd.setDefaultDevice``'s, else
-    ``"cuda"``, which raises without a card."""
+    """The device of new arrays: this thread's ``dtypes.device_scope``'s,
+    else ``nd.setDefaultDevice``'s, else ``"cuda"``, which raises without
+    a card."""
     from deeplearning4j_tpu_torch import default_device
 
-    return default_device(_dt.defaults.device)
+    return default_device(_dt.array_device())
 
 
 def as_tensor(x, device=None, dtype=None) -> torch.Tensor:

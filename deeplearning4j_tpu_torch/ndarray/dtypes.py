@@ -12,7 +12,9 @@ The defaults (:data:`defaults`) also hold the process-wide default device
 of array creation (``nd.setDefaultDevice``): ``None`` means ``"cuda"``,
 resolved through :func:`deeplearning4j_tpu_torch.default_device` when an
 array is made, so creation without a card raises unless the CPU was asked
-for.
+for. :func:`device_scope` overrides it for one thread's block (a SameDiff
+graph runs its ops so), leaving other threads and the process-wide
+setting untouched; :func:`array_device` reads the two.
 
 They hold the 64-bit switch too (``nd.enableX64``), the counterpart of
 JAX's ``jax_enable_x64``, off unless set, as there. Off, no array holds a
@@ -22,6 +24,9 @@ JAX's ``jax_enable_x64``, off unless set, as there. Off, no array holds a
 (:func:`float_`, :func:`int_`) are 32-bit. On, they stay 64-bit.
 """
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -121,6 +126,28 @@ class _Defaults:
 
 
 defaults = _Defaults()
+
+_local = threading.local()
+
+
+def array_device():
+    """The device of arrays created without ``device=``: this thread's
+    innermost :func:`device_scope`, else ``defaults.device`` (None stands
+    for ``"cuda"``)."""
+    dev = getattr(_local, "device", None)
+    return dev if dev is not None else defaults.device
+
+
+@contextmanager
+def device_scope(device):
+    """Make ``device`` this thread's array device for the block. Other
+    threads, and ``defaults.device``, are not touched."""
+    prev = getattr(_local, "device", None)
+    _local.device = device
+    try:
+        yield
+    finally:
+        _local.device = prev
 
 
 def canonical(dtype: torch.dtype) -> torch.dtype:

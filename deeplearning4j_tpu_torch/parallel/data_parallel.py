@@ -181,9 +181,24 @@ class ParallelInference:
         return NDArray(out[:b])
 
     def engine(self, **engine_kwargs):
-        """The reference's BATCHED inference mode bridges a network to the
-        serving engine through ``MultiLayerNetworkAdapter``, which this
-        package does not have yet."""
-        raise TypeError(
-            "ParallelInference.engine: the serving adapter for networks "
-            "(MultiLayerNetworkAdapter) is not in deeplearning4j_tpu_torch yet")
+        """The reference's BATCHED inference mode: an
+        :class:`~deeplearning4j_tpu_torch.serving.InferenceEngine`
+        coalescing concurrent callers over this wrapper's model and mesh.
+        Each bucket batch goes through :meth:`output` on every rank of the
+        mesh (its rows split over 'data', the outputs gathered), as the
+        reference's engine shards its batch over the mesh."""
+        from deeplearning4j_tpu_torch.serving import InferenceEngine
+        from deeplearning4j_tpu_torch.serving.registry import ModelAdapter
+
+        wrapper = self
+
+        class _Adapter(ModelAdapter):
+            kind = "ParallelInference"
+
+            def infer(self, x) -> np.ndarray:
+                return wrapper.output(x).toNumpy()
+
+        if self.batchLimit and "max_batch_size" not in engine_kwargs:
+            engine_kwargs["max_batch_size"] = self.batchLimit
+        return InferenceEngine(_Adapter(self.model), mesh=self.mesh,
+                               **engine_kwargs)

@@ -1,21 +1,30 @@
-"""Model-flops accounting for training throughput — the port's copy of
-``mfu``, ``MFU_BASIS``, ``transformer_flops_per_token`` and
-``non_embedding_params`` from ``deeplearning4j_tpu/profiler/profiler.py``.
+"""Profiling, numerical-panic tooling and model-flops accounting
+(counterpart: ``deeplearning4j_tpu/profiler/profiler.py``; ref:
+org.nd4j.linalg.profiler.OpProfiler with ProfilerConfig's
+checkForNAN/checkForINF 'panic modes', and deeplearning4j's
+PerformanceListener timing hooks).
 
-``mfu`` takes the device's peak explicitly: the reference's default is a
-TPU's, and no peak is assumed here. For an NVIDIA H100 SXM the data
-sheet's dense bf16 tensor-core rate is 989e12 FLOP/s at 700 W.
-
-``cuda_launches`` reads what a call launches on the card from the CUDA
-driver: the call is captured into a CUDA graph and each kernel node gives
-its function's name, grid, block and shared memory per block (static and
-dynamic).
-
-``OpProfiler`` is the port of the reference's span collector (``getInstance``,
-``span``, ``summary``, ``export_chrome_trace``): named wall-clock spans,
-nestable, exported as a Chrome trace, optionally merged with a serving
-``Tracer``'s request lanes on one clock. The serving engine opens its
-``serving.*`` spans on it.
+- ``OpProfiler`` — named wall-clock spans, nestable, exported as a Chrome
+  trace, optionally merged with a serving ``Tracer``'s request lanes on
+  one clock. The serving engine opens its ``serving.*`` spans on it.
+- ``device_trace(logdir)`` — ``torch.profiler`` over the block (CPU and,
+  with a card, CUDA activity), written as a Chrome trace into ``logdir``
+  (the reference's ``jax.profiler.trace``).
+- panic modes — ``ProfilerConfig(checkForNAN=True)`` makes attached
+  ``ProfilingListener``s check score, parameters and gradients each
+  iteration and raise ``PanicException`` on the first non-finite value
+  (``check_tree_finite``: one reduction over the tree on its device, one
+  read of three flags).
+- ``cuda_launches`` reads what a call launches on the card from the CUDA
+  driver: the call is captured into a CUDA graph and each kernel node
+  gives its function's name, grid, block and shared memory per block
+  (static and dynamic).
+- ``mfu``, ``MFU_BASIS``, ``transformer_flops_per_token`` and
+  ``non_embedding_params``: model-flops utilization. ``mfu`` takes the
+  device's peak explicitly; ``peak_flops`` answers a card's dense bf16
+  tensor-core rate from its CUDA device name (NVIDIA data sheets; an
+  H100 SXM's 989e12 FLOP/s at 700 W) and raises for a card it does not
+  know. No TPU peak is assumed anywhere.
 """
 from __future__ import annotations
 
@@ -27,6 +36,10 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional
 
+import numpy as np
+
+from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+
 MFU_BASIS = "analytic_model_flops: 6*N_nonemb + 12*L*H*T per token"
 
 
@@ -34,6 +47,26 @@ def mfu(tokens_per_sec: float, flops_per_token: float,
         peak_flops: float) -> float:
     """Model FLOPs utilization against ``peak_flops`` (FLOP/s)."""
     return tokens_per_sec * flops_per_token / peak_flops
+
+
+# dense bf16 tensor-core peak by exact CUDA device name (NVIDIA's data
+# sheet): the H100 SXM this port runs on
+PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": 989e12}
+
+
+def peak_flops(device=None) -> float:
+    """The dense bf16 peak (FLOP/s) of a card: ``device`` is a CUDA
+    device name, a ``torch.device`` or an index (default the current
+    card). Raises ``ValueError`` for a card not in :data:`PEAK_FLOPS`."""
+    if device is None or not isinstance(device, str):
+        import torch
+
+        index = device.index if hasattr(device, "index") else device
+        device = torch.cuda.get_device_name(index or 0)
+    if device in PEAK_FLOPS:
+        return PEAK_FLOPS[device]
+    raise ValueError(f"peak_flops: no peak rate known for {device!r}; "
+                     f"pass the card's peak to mfu() explicitly")
 
 
 def transformer_flops_per_token(n_params_non_embedding: int, layers: int,
@@ -147,6 +180,45 @@ def cuda_launches(fn) -> list:
         graph.reset()
 
 
+class PanicException(RuntimeError):
+    """Non-finite value detected under panic mode (ref:
+    ND4JOpProfilerException)."""
+
+
+@dataclass
+class ProfilerConfig:
+    """(ref: org.nd4j.linalg.profiler.ProfilerConfig builder)."""
+
+    checkForNAN: bool = False
+    checkForINF: bool = False
+    collectSpans: bool = True
+
+
+def check_tree_finite(tree, what: str, check_nan=True, check_inf=True):
+    """Raise PanicException if any float leaf of ``tree`` (dicts, lists,
+    tuples of tensors) holds NaN (or Inf): one reduction on the leaves'
+    device and one read of its three flags."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops.pallas_updaters import tree_leaves
+
+    leaves = [l for l in tree_leaves(tree)
+              if isinstance(l, torch.Tensor) and (l.is_floating_point()
+                                                  or l.is_complex())]
+    if not leaves:
+        return
+    flat = torch.cat([l.detach().reshape(-1).float() for l in leaves])
+    ok, has_nan, has_inf = torch.stack([
+        torch.isfinite(flat).all(), torch.isnan(flat).any(),
+        torch.isinf(flat).any()]).tolist()
+    if ok:
+        return
+    if check_nan and has_nan:
+        raise PanicException(f"NaN detected in {what} (panic mode)")
+    if check_inf and has_inf:
+        raise PanicException(f"Inf detected in {what} (panic mode)")
+
+
 @dataclass
 class _Span:
     name: str
@@ -157,15 +229,14 @@ class _Span:
 
 
 class OpProfiler:
-    """Span collector with Chrome-trace export (counterpart:
-    ``deeplearning4j_tpu/profiler/profiler.py`` ``OpProfiler``; its
-    ``ProfilerConfig`` panic modes come with ``ProfilingListener``). Use
+    """Span collector with Chrome-trace export. Use
     ``with profiler.span("train_step"):`` around anything; nesting shows
     as Chrome trace's duration-event stacking per thread."""
 
     _instance: Optional["OpProfiler"] = None
 
-    def __init__(self):
+    def __init__(self, config: Optional[ProfilerConfig] = None):
+        self.config = config or ProfilerConfig()
         self._spans: List[_Span] = []
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
@@ -187,13 +258,18 @@ class OpProfiler:
         try:
             yield
         finally:
-            end = time.perf_counter()
-            with self._lock:
-                self._spans.append(_Span(
-                    name=name, start_us=(start - self._t0) * 1e6,
-                    dur_us=(end - start) * 1e6,
-                    tid=threading.get_ident() % 100000,
-                    args=args or None))
+            if self.config.collectSpans:
+                end = time.perf_counter()
+                with self._lock:
+                    self._spans.append(_Span(
+                        name=name, start_us=(start - self._t0) * 1e6,
+                        dur_us=(end - start) * 1e6,
+                        tid=threading.get_ident() % 100000,
+                        args=args or None))
+
+    def timeit(self, name: str, fn, *a, **kw):
+        with self.span(name):
+            return fn(*a, **kw)
 
     @property
     def spans(self) -> List[_Span]:
@@ -227,3 +303,74 @@ class OpProfiler:
         with open(path, "w") as f:
             json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
         return path
+
+
+@contextmanager
+def device_trace(logdir: str):
+    """``torch.profiler`` over the block — CPU activity, and CUDA activity
+    when a card is present — written as a Chrome trace,
+    ``logdir/trace_<n>.json`` (a new ``n`` per call). Yields the
+    profiler (its ``key_averages()`` and ``events()``)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    n = sum(1 for f in os.listdir(logdir) if f.startswith("trace_"))
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{n}.json"))
+
+
+class ProfilingListener(TrainingListener):
+    """Per-iteration spans + panic checks as a listener (ref: the reference
+    enables OpProfiler globally via the Nd4j environment; here it attaches
+    to the fit loop it should watch). It reads the model's ``score()``,
+    ``_params`` and, where the model keeps them (a network with a listener
+    that ``requiresGradients``), ``_last_grads``."""
+
+    def __init__(self, profiler: Optional[OpProfiler] = None,
+                 config: Optional[ProfilerConfig] = None,
+                 checkParams: bool = True, checkGradients: bool = True):
+        self.profiler = profiler or OpProfiler.getInstance()
+        if config is not None:
+            self.profiler.config = config
+        self.checkParams = checkParams
+        self.checkGradients = checkGradients
+        self._last_t: Optional[float] = None
+
+    @property
+    def requiresGradients(self) -> bool:
+        cfg = self.profiler.config
+        return self.checkGradients and (cfg.checkForNAN or cfg.checkForINF)
+
+    def iterationDone(self, model, iteration, epoch):
+        now = time.perf_counter()
+        if self._last_t is not None and self.profiler.config.collectSpans:
+            with self.profiler._lock:
+                self.profiler._spans.append(_Span(
+                    name="iteration",
+                    start_us=(self._last_t - self.profiler._t0) * 1e6,
+                    dur_us=(now - self._last_t) * 1e6,
+                    tid=0, args={"iteration": iteration, "epoch": epoch}))
+        self._last_t = now
+
+        cfg = self.profiler.config
+        if not (cfg.checkForNAN or cfg.checkForINF):
+            return
+        score = model.score()
+        if cfg.checkForNAN and np.isnan(score):
+            raise PanicException(f"NaN score at iteration {iteration} (panic mode)")
+        if cfg.checkForINF and np.isinf(score):
+            raise PanicException(f"Inf score at iteration {iteration} (panic mode)")
+        if self.checkParams:
+            check_tree_finite(model._params, f"parameters@iter{iteration}",
+                              cfg.checkForNAN, cfg.checkForINF)
+        grads = getattr(model, "_last_grads", None)
+        if self.checkGradients and grads is not None:
+            check_tree_finite(grads, f"gradients@iter{iteration}",
+                              cfg.checkForNAN, cfg.checkForINF)

@@ -3,14 +3,16 @@
 and Clipper's servable lifecycle: deploy -> warmup -> ready -> undeploy,
 with monotone integer versions per name and mutable aliases for routing.
 
-A model adapter normalizes a model to ONE row-in/row-out contract the
-batching engine can serve: ``infer(batch) -> np.ndarray`` on the host.
-The port serves :class:`CausalLMAdapter` (the causal LM of
-``models/bert.py``: last-position logits for the batching engine, and the
-continuous-batching generation engine) and any caller-written
-:class:`ModelAdapter`; the reference's adapters for ``MultiLayerNetwork``,
-``ComputationGraph`` and ``SameDiff`` come with the port of those model
-kinds.
+Model-kind adapters normalize the inference surfaces to ONE
+row-in/row-out contract the batching engine can serve: ``infer(batch) ->
+np.ndarray`` on the host:
+
+- ``MultiLayerNetwork.output(x)``        -> NDArray
+- ``ComputationGraph.output(x)[i]``      -> List[NDArray] (one per output)
+- ``SameDiff.output({ph: x}, [name])``   -> Dict[str, NDArray]
+- :class:`CausalLMAdapter` (the causal LM of ``models/bert.py``):
+  last-position logits for the batching engine, and the
+  continuous-batching generation engine.
 
 Warmup on deploy: ``deploy(warmup_example=...)`` tiles one example row to
 every bucket and runs the model once per rung before the deployment
@@ -65,9 +67,63 @@ class ModelAdapter:
 
     def cache_size(self) -> Optional[int]:
         """Live compiled-signature count of the model's executable cache,
-        or None when there is none (every port adapter: it runs
-        eagerly)."""
+        or None when there is none. Every port adapter answers None: the
+        port runs its models eagerly and compiles no per-shape executable
+        (the reference counts its ``jax.jit`` signatures here)."""
         return None
+
+
+class MultiLayerNetworkAdapter(ModelAdapter):
+    kind = "MultiLayerNetwork"
+
+    def infer(self, x) -> np.ndarray:
+        return self.model.output(x).toNumpy()
+
+
+class ComputationGraphAdapter(ModelAdapter):
+    """Single-feature graphs; ``output_index`` picks among multiple network
+    outputs (the engine contract is one array per request)."""
+
+    kind = "ComputationGraph"
+
+    def __init__(self, model, output_index: int = 0):
+        super().__init__(model)
+        self.output_index = output_index
+
+    def infer(self, x) -> np.ndarray:
+        return self.model.output(x)[self.output_index].toNumpy()
+
+
+class SameDiffAdapter(ModelAdapter):
+    """A SameDiff graph served through one placeholder and one output
+    variable: ``input_name`` defaults to the graph's only placeholder,
+    ``output_name`` to the last op's first output."""
+
+    kind = "SameDiff"
+
+    def __init__(self, model, input_name: Optional[str] = None,
+                 output_name: Optional[str] = None):
+        super().__init__(model)
+        from deeplearning4j_tpu_torch.autodiff.samediff import VariableType
+
+        if input_name is None:
+            phs = [n for n, v in model._vars.items()
+                   if v.varType == VariableType.PLACEHOLDER]
+            if len(phs) != 1:
+                raise ValueError(
+                    f"SameDiff graph has {len(phs)} placeholders {phs}; pass "
+                    "input_name= to pick the batch input")
+            input_name = phs[0]
+        if output_name is None:
+            if not model._ops:
+                raise ValueError("SameDiff graph has no ops to serve")
+            output_name = model._ops[-1].outputs[0]
+        self.input_name = input_name
+        self.output_name = output_name
+
+    def infer(self, x) -> np.ndarray:
+        out = self.model.output({self.input_name: x}, [self.output_name])
+        return out[self.output_name].toNumpy()
 
 
 class CausalLMAdapter(ModelAdapter):
@@ -129,17 +185,23 @@ class CausalLMAdapter(ModelAdapter):
 def as_adapter(model, input_name: Optional[str] = None,
                output_name: Optional[str] = None,
                output_index: int = 0) -> ModelAdapter:
-    """Passthrough for ready adapters. The reference also wraps
-    ``MultiLayerNetwork``, ``ComputationGraph`` and ``SameDiff`` models
-    (``input_name``/``output_name``/``output_index`` pick their surface);
-    those model kinds are not ported, so anything else raises."""
+    """Wrap any supported model kind; passthrough for ready adapters."""
     if isinstance(model, ModelAdapter):
         return model
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.nn.computation_graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    if isinstance(model, MultiLayerNetwork):
+        return MultiLayerNetworkAdapter(model)
+    if isinstance(model, ComputationGraph):
+        return ComputationGraphAdapter(model, output_index=output_index)
+    if isinstance(model, SameDiff):
+        return SameDiffAdapter(model, input_name=input_name,
+                               output_name=output_name)
     raise TypeError(
-        f"cannot serve {type(model).__name__}: the port serves a "
-        "ModelAdapter (CausalLMAdapter, or your own); the MultiLayerNetwork, "
-        "ComputationGraph and SameDiff adapters come with the port of the "
-        "nn/ and autodiff/ model kinds")
+        f"cannot serve {type(model).__name__}: expected MultiLayerNetwork, "
+        "ComputationGraph, SameDiff, or a ModelAdapter")
 
 
 @dataclass

@@ -1,2 +1,3 @@
 """Host-side utilities of the port (counterpart:
-``deeplearning4j_tpu/util``): crash forensics and model persistence."""
+``deeplearning4j_tpu/util``): crash forensics, model persistence, test
+resources and archives, and sharded checkpoints."""

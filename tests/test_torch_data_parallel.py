@@ -13,8 +13,9 @@ virtual CPU devices, which jits one step over the global batch:
 - a two-input ComputationGraph with a sequence mask through the wrapper,
   against the same graph's plain ``fit`` on the padded global batches;
 - ``ParallelInference.output`` of 5 rows (the 2·2^k ladder's 8) equal to
-  the network's own output, and ``engine()`` refused with a TypeError
-  naming the adapter it waits for.
+  the network's own output, and the same rows through ``engine()``, the
+  batching ``InferenceEngine`` over the wrapper's mesh (its buckets
+  multiples of the 'data' size), bit-equal.
 """
 import jax
 import numpy as np
@@ -74,7 +75,8 @@ def test_parallel_inference_pads_to_the_ladder(world):
     got = world.case("inference")
     assert got["bucket"] == 8
     np.testing.assert_array_equal(got["parallel"], got["plain"])
-    assert "MultiLayerNetworkAdapter" in got["engine_refusal"]
+    assert all(b % 2 == 0 for b in got["engine_buckets"])
+    np.testing.assert_array_equal(got["engine"], got["parallel"])
 
 
 def test_data_parallel_world_imports_no_jax(world):

@@ -223,8 +223,8 @@ class TestAdmission:
 
 def test_port_imports_no_jax():
     """Importing every module of the port (found by walking the package,
-    so a new module is covered) leaves ``jax``, ``optax`` and the JAX
-    package out of ``sys.modules``."""
+    so a new module is covered) leaves ``jax``, ``optax``, ``tensorflow``
+    and the JAX package out of ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import deeplearning4j_tpu_torch as pkg\n"
@@ -243,11 +243,14 @@ def test_port_imports_no_jax():
         "             'train.regularization', 'train.losses', 'nn.conf.inputs',\n"
         "             'nn.conf.weights', 'nn.conf.dropout', 'nn.conf.layers',\n"
         "             'nn.conf.builder', 'eval.evaluation', 'nn.multilayer',\n"
-        "             'optimize.listeners', 'util.model_serializer'):\n"
+        "             'optimize.listeners', 'util.model_serializer',\n"
+        "             'autodiff.samediff', 'autodiff.rewrites',\n"
+        "             'modelimport.tensorflow.importer', 'utils.gradientcheck',\n"
+        "             'util.resources', 'util.sharded_checkpoint'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + want in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib', 'optax', 'deeplearning4j_tpu.')) "
-        "or m == 'deeplearning4j_tpu')\n"
+        "or m.startswith(('jax.', 'jaxlib', 'optax', 'deeplearning4j_tpu.', "
+        "'tensorflow')) or m == 'deeplearning4j_tpu')\n"
         "assert not bad, bad\n"
         "print(len(names), 'clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

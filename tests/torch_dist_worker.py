@@ -899,8 +899,10 @@ def dp_graph_case():
 
 
 def dp_infer_case():
-    """ParallelInference.output of 5 rows (padded to the n*2^k ladder) and
-    the network's own output."""
+    """ParallelInference.output of 5 rows (padded to the n*2^k ladder), the
+    network's own output, and the same rows through ``engine()`` (every
+    rank builds it; the driver submits, the other rank follows its
+    batches)."""
     import torch_graph_cases as GC
     import deeplearning4j_tpu_torch.nn as pnn
     import deeplearning4j_tpu_torch.train as ptrain
@@ -908,13 +910,11 @@ def dp_infer_case():
     net = pnn.MultiLayerNetwork(GC.dp_net(pnn, ptrain), device="cpu").init()
     x = GC.dp_batches(seed=3, sizes=(5,))[0][0]
     pi = ParallelInference.Builder(net).workers(dist.get_world_size()).build()
-    try:
-        pi.engine()
-        refused = None
-    except TypeError as e:
-        refused = str(e)
+    with pi.engine(max_wait_ms=0) as eng:
+        served = np.asarray(eng.output(x)) if eng.is_driver else None
+        buckets = eng.buckets
     return {"parallel": pi.output(x).toNumpy(), "plain": net.output(x).toNumpy(),
-            "bucket": pi._bucket(5), "engine_refusal": refused}
+            "bucket": pi._bucket(5), "engine": served, "engine_buckets": buckets}
 
 
 def dataparallel_suite():
@@ -922,9 +922,80 @@ def dataparallel_suite():
             ("inference", dp_infer_case)]
 
 
+# ------------------------------------------------ sharded checkpoints
+# util/sharded_checkpoint.py over a 2-rank 'model' mesh (tests/
+# test_torch_profiler_util.py): the world's directory holds the
+# checkpoints (``OUT_DIR``, set by ``main``).
+
+OUT_DIR = None
+CKPT_STEPS, CKPT_STOP = 6, 3
+
+
+def checkpoint_case():
+    """``make_train_step(cfg, mesh)`` (TINY, fp32, a 2-rank 'model' mesh)
+    for 6 steps without a break, against ``train_with_checkpointing``
+    stopped by a SIGTERM during step 3 (``GracefulShutdown``; saves every
+    2 steps, keeping 2, and the forced save at 3), then a fresh manager's
+    restore of the latest step into new state and the run's last 3 steps.
+    Returns the losses of both runs, whether every rank's params and
+    optimizer state are bit-equal at the end, the kept steps and the
+    restored step."""
+    import signal as _signal
+
+    from deeplearning4j_tpu_torch.util.sharded_checkpoint import (
+        GracefulShutdown, ShardedCheckpointManager, train_with_checkpointing)
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    mesh = make_mesh({"model": 2})
+    cfg = _tcfg(TINY, "full", False)
+    init, step = tbert.make_train_step(cfg, mesh, learning_rate=LR)
+    batches = [np_batch(TINY["vocab_size"], 4, 16, 10 + s) for s in range(CKPT_STEPS)]
+
+    def batch_fn(s):
+        return {k: torch.from_numpy(v) for k, v in batches[s].items()}
+
+    def fresh():
+        p = tbert.place_params(_tree(np_params(TINY, 0)), cfg, mesh)
+        return p, init(p)
+
+    params, state = fresh()
+    whole = []
+    for s in range(CKPT_STEPS):
+        params, state, loss = step(params, state, batch_fn(s))
+        whole.append(float(loss))
+
+    class Preempt:
+        def iterationDone(self, model, it, ep):
+            if it == CKPT_STOP - 1:
+                _signal.raise_signal(_signal.SIGTERM)
+
+    path = os.path.join(OUT_DIR, "ckpt")
+    mgr = ShardedCheckpointManager(path, keep_last=2, save_interval_steps=2, mesh=mesh)
+    p, st = fresh()
+    with GracefulShutdown() as stop:
+        p, st, done, first = train_with_checkpointing(
+            step, p, st, batch_fn, CKPT_STEPS, mgr, shutdown=stop, listeners=[Preempt()])
+    mgr2 = ShardedCheckpointManager(path, keep_last=2, save_interval_steps=2, mesh=mesh)
+    like_p, like_st = fresh()
+    p, st, at, meta = mgr2.restore(like_p, like_st)
+    p, st, _, second = train_with_checkpointing(step, p, st, batch_fn, CKPT_STEPS, mgr2,
+                                                start_step=at)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(params))) \
+        and all((torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+                for a, b in zip(tree_leaves(st), tree_leaves(state)))
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, same)
+    return {"whole": whole, "first": first, "second": second, "stopped_at": done,
+            "restored": at, "meta": meta, "steps": mgr2.all_steps(), "bit_equal": flags}
+
+
+def checkpoint_suite():
+    return [("resume", checkpoint_case)]
+
+
 SUITES = {"parallel": parallel_suite, "multihost": multihost_suite,
           "train": train_suite, "serving": serving_suite,
-          "planlink": planlink_suite, "dataparallel": dataparallel_suite}
+          "planlink": planlink_suite, "dataparallel": dataparallel_suite,
+          "checkpoint": checkpoint_suite}
 
 
 # ---------------------------------------------------------------- worker
@@ -948,6 +1019,8 @@ def main(argv) -> int:
         joined = multihost.initialize(f"file://{store}", world, rank,
                                       device="cpu")
     results = {"_joined": joined}
+    global OUT_DIR
+    OUT_DIR = out
     with open(os.path.join(out, f"{suite}.rank{rank}.log"), "w") as log:
         for name, fn in SUITES[suite]():
             t0 = time.perf_counter()
