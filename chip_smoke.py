@@ -157,8 +157,8 @@ seconds:
    and on the CPU, one more step on each on the same trajectory;
    graphs — ``ComputationGraph`` and the rest of the networks on the card
    (:func:`graphs_phase`): (e) ResNet-50 as a graph at full width (the
-   reference zoo's, BASELINE config #2: B=32, 3x224x224, 1000 classes,
-   Adam 1e-3; ``tests/torch_graph_cases.py``'s recipe), FLOAT and HALF,
+   port's ``zoo.ResNet50``, BASELINE config #2: B=32, 3x224x224, 1000
+   classes, Adam 1e-3), FLOAT and HALF,
    2 warm-up and 8 timed steps: images/s, step ms, peak memory; the
    restored graph's output bit-equal; 2 steps at B=2 against the CPU;
    (f) the attention graph at x (32, 512, 768), 12 heads (two residual
@@ -194,6 +194,23 @@ seconds:
    (g) ``train_with_checkpointing`` over a 2-layer fp32 BERT
    ``make_train_step(cfg, mesh)`` at world size 1 on NCCL, stopped by
    SIGTERM and resumed: bit-equal to the unbroken run;
+   importers — the ONNX importer, ``OnnxRunner`` and the zoo on the card
+   (:func:`importers_phase`): (a) config #4 written as ONNX bytes by the
+   port's pure-Python writer (``tests/torch_onnx_cases.py``: the encoder
+   node for node as an opset-13 exporter writes it) and imported with
+   ``OnnxFrameworkImporter.runImport(bytes, device="cuda")``: the
+   import's seconds, ``fuseAttention`` (12 sites), ``output`` at B=32,
+   T=128 (tokens/s over 5 calls, peak memory, rows 1-5 none: the einsum
+   below T = 768), the output against the unfused graph, the API-built
+   encoder and the CPU import; (b) the same graph written at T=1024,
+   B=4, constants made trainable, an MLM head: row 1 exactly 12 launches
+   an ``output`` and rows 1 and 2 12 a fit step, fp32 and bf16, fused
+   against unfused by (b)'s rule of the samediff phase; (c)
+   ``OnnxRunner`` over (a)'s bytes bit-equal to (a)'s output; (d) the 16
+   zoo architectures at their default input shapes, one ``output`` at
+   B=2 each, against the CPU with the card's parameters (1e-4 of the
+   largest |value|). The card has no ``h5py``: the Keras importer is
+   tested on the CPU only;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -4574,11 +4591,13 @@ def _graph_recipes():
 
 
 def _resnet(dtype_name="FLOAT", device=None):
+    """Config #2: the port's ``zoo.ResNet50`` at 224x224 and 1000 classes,
+    its data type set to ``dtype_name``."""
     from deeplearning4j_tpu_torch import nn as pnn
-    from deeplearning4j_tpu_torch import train as ptrain
+    from deeplearning4j_tpu_torch.zoo import ResNet50
 
-    conf = _graph_recipes().resnet50(pnn, ptrain, num_classes=RESNET_CLASSES,
-                                     hw=RESNET_HW, dtype=dtype_name)
+    conf = ResNet50(numClasses=RESNET_CLASSES, inputShape=(3, RESNET_HW, RESNET_HW)).conf()
+    conf.dataType = dtype_name
     return pnn.ComputationGraph(conf, device=device or DEVICE)
 
 
@@ -5904,13 +5923,26 @@ def migrate_faults_part(cfg, params, prompts, plain, device, max_new):
 
 def timed_remote_host():
     """``RemoteHost`` that records each migrate RPC's kind, wall time and
-    page payload (base64 characters)."""
+    page payload (base64 characters), and every HTTP call's path, start,
+    wall time and error."""
     from deeplearning4j_tpu_torch.serving import RemoteHost
 
     class TimedRemoteHost(RemoteHost):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.migrate_calls = []
+            self.http_calls = []   # (path, start, ms, error or None)
+
+        def _http_json(self, path, payload, timeout_s=None):
+            t, err = time.perf_counter(), None
+            try:
+                return super()._http_json(path, payload, timeout_s=timeout_s)
+            except BaseException as e:
+                err = f"{type(e).__name__}: {e}"
+                raise
+            finally:
+                self.http_calls.append(
+                    (path, t, (time.perf_counter() - t) * 1e3, err))
 
         def _migrate_rpc(self, req):
             t = time.perf_counter()
@@ -5928,30 +5960,53 @@ def rpc_disagg_part(hosts, urls, cfg, prompts, plain, front, max_new):
     """Part b of :func:`disagg_phase` over the started host processes."""
     from deeplearning4j_tpu_torch.serving import (
         ClusterDirectory, ClusterFrontDoor, DisaggPolicy, HeartbeatPump,
-        LoopbackTransport)
+        LoopbackTransport, Tracer)
 
     n = len(prompts)
     remote = timed_remote_host()
     d = ClusterDirectory(heartbeat_timeout_s=5.0)
-    pumps, rems = [], []
+    tracer = Tracer(sample_rate=1.0, capacity=256)
+
+    class StampedTransport(LoopbackTransport):
+        """Records when each heartbeat reaches the directory."""
+
+        def __init__(self, directory):
+            super().__init__(directory)
+            self.stamps = []
+
+        def publish(self, status):
+            self.stamps.append(time.perf_counter())
+            super().publish(status)
+
+    pumps, rems, transports = [], [], []
     for i, url in enumerate(urls):
         rem = remote(i, url)
         d.join(rem)
-        pump = HeartbeatPump(rem, LoopbackTransport(d), interval_s=0.2)
+        tp = StampedTransport(d)
+        pump = HeartbeatPump(rem, tp, interval_s=0.2)
         pump.pump_once()
         pumps.append(pump.start())
         rems.append(rem)
+        transports.append(tp)
     try:
-        fd = ClusterFrontDoor(d, disagg=DisaggPolicy())
+        fd = ClusterFrontDoor(d, disagg=DisaggPolicy(), tracer=tracer)
         check(fd.disagg.enabled(d), "disagg rpc: the policy is not enabled")
         before = [h.ask("report") for h in hosts]
+        t0, cpu0 = time.perf_counter(), time.process_time()
         report, streams, itl = disagg_replay(fd, prompts, max_new)
+        t1, cpu1 = time.perf_counter(), time.process_time()
         after = [h.ask("report") for h in hosts]
     finally:
         for pump in pumps:
             pump.stop()
+    wire = rpc_wire_record(t0, t1, transports, rems, tracer, streams)
+    if report.reasons() != {"ok": n} \
+            or fd.metrics.kv_migrate_fallbacks_total.value:
+        log("disagg rpc: the wire when it failed: "
+            + json.dumps(wire, default=str))
     check(report.reasons() == {"ok": n},
-          f"disagg rpc: requests ended {report.reasons()}")
+          f"disagg rpc: requests ended {report.reasons()}: "
+          f"{wire['failed']}")
     bad = [i for i, (a, b) in enumerate(zip(streams, plain)) if a != b]
     check(not bad, f"disagg rpc: streams {bad} differ from the engine "
           "phase's")
@@ -5992,6 +6047,11 @@ def rpc_disagg_part(hosts, urls, cfg, prompts, plain, front, max_new):
           f"{[(k, len(v)) for k, v in walls.items()]}")
     rep = report.to_dict()
     out = {"fleet_tokens_per_sec": report.tokens_per_sec,
+           "heartbeat_gap_max_ms": wire["heartbeat_gap_max_ms"],
+           "http_ms_max": wire["http_ms_max"],
+           "connect_retries": wire["connect_retries"],
+           "front_process_cores": (cpu1 - cpu0) / (t1 - t0),
+           "front_process_threads": sum(wire["threads"].values()),
            "ttft_p50_ms": rep["ttft_p50_ms"],
            "ttft_p99_ms": rep["ttft_p99_ms"],
            "itl_p99_ms": float(np.percentile(itl, 99)),
@@ -6010,6 +6070,58 @@ def rpc_disagg_part(hosts, urls, cfg, prompts, plain, front, max_new):
         "fleet_tokens_per_sec", "fleet_ttft_p50_ms", "fleet_ttft_p99_ms")}
     log("disagg rpc: " + json.dumps(out))
     return out
+
+
+def rpc_wire_record(t0, t1, transports, rems, tracer, streams):
+    """What the wire did while the replay ran from ``t0`` to ``t1``
+    (``time.perf_counter``): each host's longest gap between heartbeats
+    reaching the directory, each HTTP path's slowest call, every failed
+    HTTP call, each host's handshakes tried again
+    (``RemoteHost.connect_retries``, counted over the whole part), each
+    failed stream's exception chain, and the events of every request
+    that was shed, bounced or fell back (ms from ``t0``)."""
+    def rel(t):
+        return round((t - t0) * 1e3, 1)
+
+    gaps = []
+    for tp in transports:
+        st = [t0] + [t for t in tp.stamps if t0 <= t <= t1] + [t1]
+        gap, at = max((b - a, a) for a, b in zip(st, st[1:]))
+        gaps.append({"ms": round(gap * 1e3, 1), "from_ms": rel(at)})
+    slowest, errors = {}, []
+    for h, rem in enumerate(rems):
+        for path, t, ms, err in rem.http_calls:
+            if not t0 <= t <= t1:
+                continue
+            key = path.rsplit("/", 1)[-1]
+            if ms > slowest.get(key, (0.0,))[0]:
+                slowest[key] = (round(ms, 1), h, rel(t))
+            if err is not None:
+                errors.append({"host": h, "path": key, "at_ms": rel(t),
+                               "ms": round(ms, 1), "error": err[:300]})
+    failed = {}
+    for i, s in enumerate(streams):
+        chain, e = [], s if isinstance(s, BaseException) else None
+        while e is not None and len(chain) < 6:
+            chain.append(f"{type(e).__name__}: {e}"[:300])
+            e = e.__cause__ or e.__context__
+        if chain:
+            failed[i] = chain
+    odd = [[(name, rel(t), a) for name, t, a in tr.events]
+           for tr in tracer.traces()
+           if any(name in ("cluster.shed", "cluster.bounce",
+                           "cluster.migrate.fallback")
+                  for name, _, _ in tr.events)]
+    threads = {}
+    for th in threading.enumerate():
+        key = th.name.split("[")[0].split("-")[0]
+        threads[key] = threads.get(key, 0) + 1
+    return {"heartbeat_gap_max_ms": [g["ms"] for g in gaps],
+            "connect_retries": [rem.connect_retries for rem in rems],
+            "heartbeat_gaps": gaps, "threads": threads,
+            "http_ms_max": {k: v[0] for k, v in slowest.items()},
+            "http_slowest": slowest, "http_errors": errors,
+            "failed": failed, "odd_requests": odd}
 
 
 def request_paths(tracer, prefix, n):
@@ -6177,8 +6289,10 @@ def _sd_within(got, want, tol, what):
     return err
 
 
-def _sd_route_part(C, L, T, B, rows_fwd, rows_bwd, label):
-    """(b)/(c): the L-layer graph at length T, fp32 and bf16 (HALF: the
+def _sd_route_part(C, L, T, B, rows_fwd, rows_bwd, label, make=None, phase="samediff"):
+    """(b)/(c): the L-layer graph at length T (``make(compute)`` gives
+    (sd, output name, loss name); by default the API-built encoder of
+    :func:`_sd_graph`), fp32 and bf16 (HALF: the
     step's compute dtype, and the output on the values cast to it): one
     ``output`` and one fit step unfused (the einsum chain), then the same
     after ``fuseAttention`` (the kernels). Launch counts per output and
@@ -6194,9 +6308,10 @@ def _sd_route_part(C, L, T, B, rows_fwd, rows_bwd, label):
     batch = {"ids": rng.integers(0, C.BERT_BASE["V"], (B, T)).astype(np.int32),
              "targets": rng.integers(0, C.BERT_BASE["V"], (B, T)).astype(np.int32)}
     res, ref32 = {}, None
+    make = make or (lambda compute: _sd_graph(C, L, T, B, compute))
     for compute in (None, "HALF"):
         dt = compute or "FLOAT"
-        sd, out, _ = _sd_graph(C, L, T, B, compute)
+        sd, out, _ = make(compute)
         att0 = next(o for o in sd._ops if o.opname == "softmax")
         att0 = next(o.outputs[0] for o in sd._ops if o.opname == "matmul"
                     and o.inputs[0] == att0.outputs[0])
@@ -6226,18 +6341,18 @@ def _sd_route_part(C, L, T, B, rows_fwd, rows_bwd, label):
 
         plain = run()
         fused = sd.fuseAttention()
-        check(fused == L, f"samediff ({label}) {dt}: fuseAttention fused {fused}, expected {L}")
+        check(fused == L, f"{phase} ({label}) {dt}: fuseAttention fused {fused}, expected {L}")
         kern = run()
         check(not any(plain["step_launches"].values()) and
               not any(plain["out_launches"].values()),
-              f"samediff ({label}) {dt}: the unfused graph launched {plain['step_launches']}")
+              f"{phase} ({label}) {dt}: the unfused graph launched {plain['step_launches']}")
         want_out = {r: (L if r in rows_fwd else 0) for r in ROWS_1_5}
         want_step = {r: (L if r in rows_fwd + rows_bwd else 0) for r in ROWS_1_5}
         check(kern["out_launches"] == want_out,
-              f"samediff ({label}) {dt}: an output launched {kern['out_launches']}, "
+              f"{phase} ({label}) {dt}: an output launched {kern['out_launches']}, "
               f"expected {want_out}")
         check(kern["step_launches"] == want_step,
-              f"samediff ({label}) {dt}: a fit step launched {kern['step_launches']}, "
+              f"{phase} ({label}) {dt}: a fit step launched {kern['step_launches']}, "
               f"expected {want_step}")
         def rows(t):   # (B, A, T, D) -> (B, T, A*D): one head's D values a row
             return t.transpose(1, 2).flatten(2)
@@ -6246,17 +6361,17 @@ def _sd_route_part(C, L, T, B, rows_fwd, rows_bwd, label):
             a_err = max_err(kern["att0"], plain["att0"])
             a_share = a_err / rel_bound(plain["att0"], 1e-5)
             a_rule = "1e-5 of max|ref|"
-            check(a_share <= 1.0, f"samediff ({label}) FLOAT: layer 0 attention, "
+            check(a_share <= 1.0, f"{phase} ({label}) FLOAT: layer 0 attention, "
                   f"kernels vs einsum {a_err:.3e}")
             errs = {"out": _sd_within(kern["out"], plain["out"],
                                       1e-4 * plain["out"].abs().max().item(),
-                                      f"samediff ({label}) FLOAT: encoder output")}
+                                      f"{phase} ({label}) FLOAT: encoder output")}
             for n in want_names:
                 g = plain["grads"][n]
                 errs[n] = _sd_within(kern["grads"][n], g, 1e-4 * g.abs().max().item(),
-                                     f"samediff ({label}) FLOAT: gradient of {n}")
+                                     f"{phase} ({label}) FLOAT: gradient of {n}")
             loss_err = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
-            check(loss_err <= 1e-5, f"samediff ({label}) FLOAT: loss {kern['loss']} vs "
+            check(loss_err <= 1e-5, f"{phase} ({label}) FLOAT: loss {kern['loss']} vs "
                   f"{plain['loss']}")
             ref32 = plain
         else:
@@ -6267,7 +6382,7 @@ def _sd_route_part(C, L, T, B, rows_fwd, rows_bwd, label):
             _, own, _ = judge(rows(plain["att0"]), rows(ref32["att0"]), 64, False,
                               FWD_FLOOR)
             a_rule += f"; the bf16 einsum route's share {own:.3f}"
-            check(a_share <= max(1.0, 2 * own), f"samediff ({label}) HALF: layer 0 "
+            check(a_share <= max(1.0, 2 * own), f"{phase} ({label}) HALF: layer 0 "
                   f"attention, kernels vs fp32 take {a_share:.3f} of the bound ({a_rule})")
             errs = {}
             for n, got, want, base in (
@@ -6275,16 +6390,16 @@ def _sd_route_part(C, L, T, B, rows_fwd, rows_bwd, label):
                     + [(n, kern["grads"][n], plain["grads"][n], ref32["grads"][n])
                        for n in want_names]):
                 tol = max(2 ** -6 * base.abs().max().item(), 2 * max_err(want, base))
-                errs[n] = _sd_within(got, want, tol, f"samediff ({label}) HALF: {n}")
+                errs[n] = _sd_within(got, want, tol, f"{phase} ({label}) HALF: {n}")
             loss_err = abs(kern["loss"] - plain["loss"]) / abs(ref32["loss"])
             check(loss_err <= max(2 ** -6, 2 * abs(plain["loss"] - ref32["loss"])
                                   / abs(ref32["loss"])),
-                  f"samediff ({label}) HALF: loss {kern['loss']} vs {plain['loss']}")
+                  f"{phase} ({label}) HALF: loss {kern['loss']} vs {plain['loss']}")
         res[dt] = {"fused_sites": fused, "out_launches": kern["out_launches"],
                    "step_launches": kern["step_launches"], "att0_max_abs_err": a_err,
                    "att0_share_of_bound": a_share, "max_abs_err": errs,
                    "loss_rel_err": loss_err, "loss": kern["loss"]}
-        log(f"samediff ({label}) L={L} T={T} B={B} {dt} ({CARD}): per output "
+        log(f"{phase} ({label}) L={L} T={T} B={B} {dt} ({CARD}): per output "
             f"{kern['out_launches']}, per step {kern['step_launches']}; kernels vs "
             f"einsum: layer 0 attention {a_err:.3e} ({a_share:.3f} of {a_rule}), "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -6551,6 +6666,231 @@ def samediff_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The importers phase: config #4 imported from ONNX bytes and fused onto
+# rows 1-2, OnnxRunner over the same bytes, and the 16 zoo models on the
+# card against the CPU (:func:`importers_phase`)
+
+IMP_WARM, IMP_CALLS = 1, 5        # (a): output calls, warm-up then timed
+IMP_CPU_ROWS = 4                  # (a): rows of the batch the CPU recomputes
+ZOO_B, ZOO_CHARS_T = 2, 50        # (d): the batch; TextGenerationLSTM's length
+
+
+def _onnx_recipes():
+    """``tests/torch_onnx_cases.py`` (jax-free: the port's ONNX writer)."""
+    _graph_recipes()   # puts tests/ on sys.path
+    import torch_onnx_cases
+
+    return torch_onnx_cases
+
+
+def _imp_config4_part(C, O):
+    """(a) config #4 written as ONNX bytes and imported on the card: the
+    import's seconds, ``output`` unfused then fused (12 sites; at T = 128
+    the fused op takes the einsum, so rows 1-5 launch 0 times), tokens/s
+    and peak memory over IMP_CALLS timed calls; the fused output against
+    the unfused (1e-6 of its largest |value|: the einsum route is the
+    chain's arithmetic), against ``build_bert_encoder``'s API-built graph
+    at the same weights on the card and against the port's CPU import of
+    the same bytes on the batch's first IMP_CPU_ROWS rows (each 1e-4 of
+    the largest |value|: layernorm's Pow/Sqrt/Div against the API graph's
+    rsqrt, and the card's GEMMs against the host's). Returns (bytes, ids,
+    the unfused output, results)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.modelimport.onnx import OnnxFrameworkImporter
+
+    cfg = C.BERT_BASE
+    t0 = time.perf_counter()
+    data = O.bert_onnx_bytes(**cfg)
+    write_s = time.perf_counter() - t0
+    ids = C.mlm_batch(cfg["V"], SD_B, cfg["T"])["ids"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = OnnxFrameworkImporter.runImport(data, device=DEVICE)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    feed = {"ids": ids}
+    unfused = sd.output(feed, O.OUTPUT)[O.OUTPUT].torch
+    fused_sites = sd.fuseAttention()
+    check(fused_sites == 12, f"importers (a): fuseAttention fused {fused_sites}, expected 12")
+    for _ in range(IMP_WARM):
+        sd.output(feed, O.OUTPUT)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(IMP_CALLS):
+        out = sd.output(feed, O.OUTPUT)[O.OUTPUT].torch
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _sd_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tok_s = ids.size * IMP_CALLS / wall
+    check(tuple(out.shape) == (SD_B, cfg["T"], cfg["H"]) and bool(torch.isfinite(out).all()),
+          f"importers (a): output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    check(not any(launches.values()), f"importers (a): T = 128 launched {launches}")
+    errs = {"fused_vs_unfused": _sd_within(out, unfused, 1e-6 * unfused.abs().max().item(),
+                                           "importers (a): fused against unfused")}
+    del sd
+    api, _, api_out = C.build_bert_encoder(**cfg, device=DEVICE)
+    want = api.output({"ids": ids}, api_out)[api_out].torch
+    errs["api_graph"] = _sd_within(out, want, 1e-4 * want.abs().max().item(),
+                                   "importers (a): the ONNX import against the API-built graph")
+    del api, want
+    host = OnnxFrameworkImporter.runImport(data, device="cpu")
+    t0 = time.perf_counter()
+    want = host.output({"ids": ids[:IMP_CPU_ROWS]}, O.OUTPUT)[O.OUTPUT].torch
+    cpu_s = time.perf_counter() - t0
+    errs["cpu"] = _sd_within(out[:IMP_CPU_ROWS].cpu(), want, 1e-4 * want.abs().max().item(),
+                             "importers (a): the card against the CPU")
+    del host, want
+    res = {"bytes": len(data), "write_s": write_s, "import_s": import_s,
+           "fused_sites": fused_sites, "tokens_per_sec": tok_s,
+           "output_ms": wall / IMP_CALLS * 1e3, "peak_gb": peak, "launches": launches,
+           "max_abs_err": errs, "cpu_rows_s": cpu_s}
+    log(f"importers (a) config #4 from {len(data) / 1e6:.1f} MB of ONNX bytes ({CARD}): "
+        f"written in {write_s:.2f} s, imported in {import_s:.2f} s, {fused_sites} sites fused; "
+        f"output {tok_s:.1f} tokens/s ({wall / IMP_CALLS * 1e3:.3f} ms a call, B={SD_B}, "
+        f"T={cfg['T']}), peak {peak:.2f} GB, rows 1-5 {launches}; max |err|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return data, ids, unfused, res
+
+
+def _imp_route_part(C, O):
+    """(b) the same ONNX graph written at T = 1024 and imported on the card,
+    12 layers, B = 4, its constants made trainable and the MLM head of
+    :func:`_sd_graph`: through :func:`_sd_route_part`, unfused then after
+    ``fuseAttention`` — row 1 exactly 12 launches an ``output``, rows 1
+    and 2 exactly 12 a fit step, fused against unfused (output, loss,
+    gradients) by the samediff phase's (b) rule; fp32 and bf16."""
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.modelimport.onnx import OnnxFrameworkImporter
+    from deeplearning4j_tpu_torch.train import Adam
+
+    L, T, B = 12, SD_LONG_T, SD_LONG_B
+    cfg = dict(C.BERT_BASE, L=L, T=T)
+    data = O.bert_onnx_bytes(**cfg)
+
+    def make(compute):
+        sd = OnnxFrameworkImporter.runImport(data, device=DEVICE)
+        n = sd.convertAllConstantsToVariables()
+        check(n == 4 + 12 * L, f"importers (b): {n} constants made trainable, expected "
+              f"{4 + 12 * L}")
+        loss = C.add_mlm_head(sd, O.OUTPUT, cfg["H"], cfg["V"], B, T)
+        sd.setTrainingConfig(TrainingConfig(updater=Adam(1e-4), computeDtype=compute))
+        return sd, O.OUTPUT, loss
+
+    return _sd_route_part(C, L, T, B, ("mha_attention_packed",), ("mha_packed_backward",),
+                          "b", make=make, phase="importers")
+
+
+def _imp_runner_part(data, ids, unfused):
+    """(c) ``OnnxRunner`` over (a)'s bytes on the card: its names, and its
+    ``run`` bit-equal to (a)'s unfused ``output`` (the same graph, the same
+    kernels, one card)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.interop import OnnxRunner
+
+    t0 = time.perf_counter()
+    runner = OnnxRunner(data, device=DEVICE)
+    got = runner.run({"ids": ids})
+    wall = time.perf_counter() - t0
+    check(runner.input_names == ["ids"] and runner.output_names == ["encoder_out"],
+          f"importers (c): names {runner.input_names} -> {runner.output_names}")
+    got = torch.from_numpy(got["encoder_out"])
+    want = unfused.cpu()
+    err = max_err(got, want)
+    check(torch.equal(got, want), f"importers (c): OnnxRunner against (a)'s output "
+          f"max |err| {err:.3e}")
+    log(f"importers (c) OnnxRunner ({CARD}): built and run in {wall:.2f} s, bit-equal to "
+        f"(a)'s output")
+    return {"bit_equal": True, "max_abs_err": err, "wall_s": wall}
+
+
+def _imp_zoo_part():
+    """(d) each of the 16 zoo architectures, ``init()`` on the card at its
+    own default input shape, one ``output`` at B = ZOO_B, held against the
+    port's CPU network carrying the card's parameters and state (no
+    second init): the same shape, finite, within 1e-4 of the CPU's
+    largest |value| (fp32, TF32 off)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn import ComputationGraph, MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+
+    rng = np.random.default_rng(5)
+    res = {}
+    for name in zoo.__all__[1:]:
+        t0 = time.perf_counter()
+        m = getattr(zoo, name)()
+        net = m.init(device=DEVICE)
+        graph = isinstance(net, ComputationGraph)
+        shape = (ZOO_B, ZOO_CHARS_T, m.numClasses) \
+            if name == "TextGenerationLSTM" else (ZOO_B, *m.inputShape)
+        x = rng.normal(size=shape).astype(np.float32)
+        card = (net.outputSingle(x) if graph else net.output(x)).torch
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        host = (ComputationGraph if graph else MultiLayerNetwork)(net.conf, device="cpu")
+        host.setParamTrees(tree_map(lambda t: t.cpu().numpy(), net._params),
+                           tree_map(lambda t: t.cpu().numpy(), net._state))
+        t1 = time.perf_counter()
+        want = (host.outputSingle(x) if graph else host.output(x)).torch
+        cpu_s = time.perf_counter() - t1
+        err = max_err(card.cpu(), want)
+        bound = 1e-4 * want.abs().max().item()
+        check(card.shape == want.shape and bool(torch.isfinite(card).all()),
+              f"importers (d) {name}: card {tuple(card.shape)} against CPU {tuple(want.shape)}")
+        check(err <= bound, f"importers (d) {name}: card vs CPU max |err| {err:.3e} > "
+              f"{bound:.3e}")
+        res[name] = {"input": list(shape), "output": list(card.shape),
+                     "params": net.numParams(), "max_abs_err": err,
+                     "share_of_bound": err / bound if bound else 0.0,
+                     "card_s": card_s, "cpu_s": cpu_s}
+        del net, host, card, want
+        torch.cuda.empty_cache()
+    worst = max(res, key=lambda k: res[k]["share_of_bound"])
+    log(f"importers (d) the zoo ({CARD}): {len(res)} architectures at their default "
+        f"shapes, B={ZOO_B}, card against CPU; worst {worst} "
+        f"{res[worst]['max_abs_err']:.3e} ({res[worst]['share_of_bound']:.3f} of 1e-4 "
+        f"of max|CPU|)")
+    return res
+
+
+def importers_phase():
+    """The ONNX importer, ``OnnxRunner`` and the zoo on the card (the
+    module docstring's importers phase): (a) config #4 imported from ONNX
+    bytes, (b) the same graph at T = 1024 on rows 1-2, (c) ``OnnxRunner``,
+    (d) the 16 zoo models against the CPU. The card has no ``h5py``, so
+    the Keras importer is held to the JAX package on the CPU only. Every
+    part's failure fails the phase."""
+    import torch
+
+    C, O = _sd_recipes(), _onnx_recipes()
+    out = {"card": CARD}
+    marks = [time.perf_counter()]
+    data, ids, unfused, out["config4"] = _imp_config4_part(C, O)
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["packed"] = _imp_route_part(C, O)
+    marks.append(time.perf_counter())
+    out["runner"] = _imp_runner_part(data, ids, unfused)
+    del data, unfused
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["zoo"] = _imp_zoo_part()
+    marks.append(time.perf_counter())
+    out["part_s"] = dict(zip("abcd", np.diff(marks).tolist()))
+    log(f"importers ({CARD}): parts' seconds " + json.dumps(out["part_s"]))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/importers_phase.json", "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def timed_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6643,6 +6983,8 @@ def main() -> int:
     graphs = timed_phase("graphs", graphs_phase)
     torch.cuda.empty_cache()
     sdiff = timed_phase("samediff", samediff_phase)
+    torch.cuda.empty_cache()
+    imps = timed_phase("importers", importers_phase)
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
     longctx = timed_phase("long-context train", long_context_phase)
@@ -6741,6 +7083,13 @@ def main() -> int:
                    for dt in ("FLOAT", "HALF")},
                 **{f"{part} {dt} {what}": sdiff[key][dt][f"{what}_launches"][name]
                    for part, key in (("b", "packed"), ("c", "streamed"))
+                   for dt in ("FLOAT", "HALF") for what in ("out", "step")}}
+            # the importers phase: config #4 from ONNX bytes at T = 128
+            # (a, the einsum route: 0), per output and per fit step of the
+            # same graph at T = 1024 (b)
+            kernels[-1]["launches_importers"] = {
+                "a FLOAT": imps["config4"]["launches"][name],
+                **{f"b {dt} {what}": imps["packed"][dt][f"{what}_launches"][name]
                    for dt in ("FLOAT", "HALF") for what in ("out", "step")}}
         if name in ATTENTION_ROWS.values():
             # the ops phase: (a) and (b), by part

@@ -27,23 +27,35 @@ def prng_key(seed: int) -> np.ndarray:
     return np.array([(seed >> 32) & _M32, seed & _M32], np.uint32)
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _M32
+_CHUNK = 1 << 16   # elements a pass on the host: the words stay in cache
 
 
 def threefry2x32(k1, k2, x0, x1):
     """The Threefry-2x32 block (20 rounds) on broadcastable int64 tensors
-    of 32-bit words; returns the two output words."""
-    ks = (k1, k2, (k1 ^ k2 ^ _KS_PARITY) & _M32)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0, x1
+    of 32-bit words; returns the two output words. Each round updates the
+    words in place; on the host a cache-sized chunk of elements at a time
+    (on the card the whole tensor: a launch an operation)."""
+    k3 = (k1 ^ k2 ^ _KS_PARITY) & _M32
+    x0, x1 = torch.broadcast_tensors(x0 + k1, x1 + k2)
+    shape = x0.shape
+    x0, x1 = x0.reshape(-1).bitwise_and(_M32), x1.reshape(-1).bitwise_and(_M32)
+    ks = [k.reshape(()) if k.numel() == 1 else k.broadcast_to(shape).reshape(-1)
+          for k in map(torch.as_tensor, (k1, k2, k3))]
+    chunk = max(x0.numel(), 1) if x0.is_cuda else _CHUNK
+    tmp = torch.empty(min(x0.numel(), chunk), dtype=x0.dtype, device=x0.device)
+    for lo in range(0, x0.numel(), chunk):
+        a, b = x0[lo:lo + chunk], x1[lo:lo + chunk]
+        t = tmp[:a.numel()]
+        k = [kk if kk.dim() == 0 else kk[lo:lo + chunk] for kk in ks]
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                a.add_(b).bitwise_and_(_M32)
+                torch.bitwise_left_shift(b, r, out=t)    # b = rotl(b, r) ^ a
+                b.bitwise_right_shift_(32 - r).bitwise_or_(t).bitwise_and_(_M32)
+                b.bitwise_xor_(a)
+            a.add_(k[(i + 1) % 3]).bitwise_and_(_M32)
+            b.add_(k[(i + 2) % 3]).add_(i + 1).bitwise_and_(_M32)
+    return x0.reshape(shape), x1.reshape(shape)
 
 
 def as_key(key, device=None) -> torch.Tensor:

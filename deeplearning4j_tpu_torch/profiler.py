@@ -165,7 +165,7 @@ def cuda_launches(fn) -> list:
     bytes plus the launch's dynamic bytes. Memory copies and sets are not
     kernels and are left out. Needs a card; ``fn`` must be capturable (no
     host sync) and launch the same kernels each call. (The profiler's
-    kernel records drop launches: ``tools/cuda_trace_drops.py``.)"""
+    kernel records drop launches: ``torch_tools/cuda_trace_drops.py``.)"""
     import torch
 
     fn()

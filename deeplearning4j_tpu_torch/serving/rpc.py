@@ -50,6 +50,8 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import functools
+import http.client
 import itertools
 import json
 import threading
@@ -1034,6 +1036,43 @@ class RemoteStream:
             pass   # the host may already be gone — that IS the cancel
 
 
+class _ConnectTimeout(TimeoutError):
+    """A TCP handshake that timed out: the host never saw the request."""
+
+
+class _HandshakeTimedConnection(http.client.HTTPConnection):
+    """An HTTP connection whose handshake has a timeout of its own,
+    ``connect_timeout``; the socket then takes the call's timeout for
+    the request and the reply."""
+
+    def __init__(self, host, *, connect_timeout: float, **kw):
+        super().__init__(host, **kw)
+        self.connect_timeout = connect_timeout
+
+    def connect(self):
+        timeout = self.timeout
+        self.timeout = min(timeout, self.connect_timeout)
+        try:
+            super().connect()
+        except TimeoutError as e:
+            raise _ConnectTimeout(f"connect timed out after "
+                                  f"{self.timeout:.1f} s") from e
+        finally:
+            self.timeout = timeout
+        self.sock.settimeout(timeout)
+
+
+class _HandshakeTimedHandler(urllib.request.HTTPHandler):
+    def __init__(self, connect_timeout: float):
+        super().__init__()
+        self.connect_timeout = connect_timeout
+
+    def http_open(self, req):
+        return self.do_open(functools.partial(
+            _HandshakeTimedConnection,
+            connect_timeout=self.connect_timeout), req)
+
+
 class RemoteHost(HostHandle):
     """A host reached over the RPC data plane — the HTTP implementation
     of the :class:`HostHandle` seam. The directory and
@@ -1050,14 +1089,29 @@ class RemoteHost(HostHandle):
     network loss raises ``host_unavailable``; a payload this client
     cannot interpret raises ``rpc_error`` — all three chain the
     underlying cause. ``clock`` is injectable so deadline-budget tests
-    drive a fake clock."""
+    drive a fake clock.
+
+    A call's TCP handshake times out after ``connect_timeout_s`` and is
+    tried again on a fresh socket (a new source port) until the call's
+    ``timeout_s`` is spent: the host never saw a request whose handshake
+    failed, so any call may be retried. Without this, one handshake that
+    goes unanswered (seen on a loopback host, under a fleet's stream
+    long-polls) holds its call for the whole ``timeout_s`` and then fails
+    a stream that may have no other host to go to. ``connect_retries``
+    counts the retries."""
 
     def __init__(self, host_id: int, url: str, *, timeout_s: float = 30.0,
+                 connect_timeout_s: float = 2.0,
                  poll_wait_ms: float = 200.0, clock=time.perf_counter,
                  name: Optional[str] = None):
         self.host_id = int(host_id)
         self.url = url.rstrip("/")
         self.timeout_s = float(timeout_s)
+        self.connect_timeout_s = float(connect_timeout_s)
+        self.connect_retries = 0
+        self._retries_lock = threading.Lock()
+        self._opener = urllib.request.build_opener(
+            _HandshakeTimedHandler(self.connect_timeout_s))
         self.poll_wait_ms = float(poll_wait_ms)
         self._clock = clock
         self.name = name if name is not None else f"h{host_id}"
@@ -1069,13 +1123,23 @@ class RemoteHost(HostHandle):
     def _http_json(self, path: str, payload: Optional[dict],
                    timeout_s: Optional[float] = None):
         data = None if payload is None else json.dumps(payload).encode()
-        req = urllib.request.Request(
-            self.url + path, data=data,
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(
-                req, timeout=timeout_s if timeout_s is not None
-                else self.timeout_s) as resp:
-            return json.loads(resp.read().decode())
+        timeout = timeout_s if timeout_s is not None else self.timeout_s
+        give_up = time.monotonic() + timeout
+        while True:
+            left = give_up - time.monotonic()
+            req = urllib.request.Request(
+                self.url + path, data=data,
+                headers={"Content-Type": "application/json"})
+            try:
+                with self._opener.open(req, timeout=max(left, 1e-3)) as resp:
+                    return json.loads(resp.read().decode())
+            except urllib.error.URLError as e:
+                # a handshake cut short by the call's own budget is final
+                if not isinstance(e.reason, _ConnectTimeout) \
+                        or left <= self.connect_timeout_s:
+                    raise
+                with self._retries_lock:
+                    self.connect_retries += 1
 
     def _rpc(self, path: str, payload: Optional[dict], *,
              point: Optional[str], timeout_s: Optional[float] = None):

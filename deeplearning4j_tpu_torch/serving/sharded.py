@@ -165,7 +165,9 @@ class _Link:
             self._endpoints.pop(tag, None)
             self._open -= 1
             last = self._open == 0
-        if last and self.is_driver:
+        if not last:
+            return
+        if self.is_driver:
             # under the lock a beat takes before it sends: none follows
             # the close
             with self.lock:
@@ -175,8 +177,13 @@ class _Link:
                         self.send(None, {"op": "close"})
                     except MeshBrokenError:
                         pass
-            if self._thread is not None:
-                self._thread.join(timeout=self.timeout_s)
+        # a follower waits for the driver's close on its dispatcher: one
+        # that went on (or whose process ended) before the close came
+        # would leave the driver's close broadcast waiting for it until
+        # the group's timeout
+        if self._thread is not None \
+                and self._thread is not threading.current_thread():
+            self._thread.join(timeout=self.timeout_s)
 
     def _start(self):
         if self._thread is not None and self._thread.is_alive():

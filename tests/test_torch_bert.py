@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from deeplearning4j_tpu.models import bert as jbert
 from deeplearning4j_tpu_torch.models import bert as tbert
 from deeplearning4j_tpu_torch.models import random as trandom
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 JCFG = jbert.TransformerConfig(vocab_size=1024, hidden=128, layers=2,
                                heads=4, mlp_dim=512, max_seq=128,

@@ -29,6 +29,7 @@ from deeplearning4j_tpu.parallel.data_parallel import ParallelWrapper as JPW
 import torch_dist_worker as W
 import torch_graph_cases as GC
 import torch_nn_parity as H
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 TIMEOUT = 240.0
 REL = 1e-5

@@ -34,6 +34,7 @@ from deeplearning4j_tpu_torch import data as pdata
 from deeplearning4j_tpu_torch.data import fetchers as pfetch
 from deeplearning4j_tpu_torch.data import normalizers as pnorm
 from deeplearning4j_tpu_torch import eval as peval
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.models import (
 from deeplearning4j_tpu_torch.serving import (
     DeadlineExceededError, GenerationEngine, KVBlocksExhaustedError,
     QueueFullError, RejectedError, prefill_buckets)
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTHS = dict(vocab_size=1024, hidden=128, layers=2, heads=4, mlp_dim=512,
@@ -223,8 +224,9 @@ class TestAdmission:
 
 def test_port_imports_no_jax():
     """Importing every module of the port (found by walking the package,
-    so a new module is covered) leaves ``jax``, ``optax``, ``tensorflow``
-    and the JAX package out of ``sys.modules``."""
+    so a new module is covered) leaves ``jax``, ``optax``, ``tensorflow``,
+    ``h5py``, ``google.protobuf`` and the JAX package out of
+    ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import deeplearning4j_tpu_torch as pkg\n"
@@ -246,11 +248,15 @@ def test_port_imports_no_jax():
         "             'optimize.listeners', 'util.model_serializer',\n"
         "             'autodiff.samediff', 'autodiff.rewrites',\n"
         "             'modelimport.tensorflow.importer', 'utils.gradientcheck',\n"
-        "             'util.resources', 'util.sharded_checkpoint'):\n"
+        "             'util.resources', 'util.sharded_checkpoint',\n"
+        "             'modelimport.onnx.importer', 'modelimport.onnx.wire',\n"
+        "             'modelimport.keras.importer', 'interop.onnx_runner',\n"
+        "             'interop.tf_runner', 'zoo.models'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + want in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'optax', 'deeplearning4j_tpu.', "
-        "'tensorflow')) or m == 'deeplearning4j_tpu')\n"
+        "'tensorflow', 'h5py', 'google.protobuf')) "
+        "or m in ('deeplearning4j_tpu', 'google.protobuf'))\n"
         "assert not bad, bad\n"
         "print(len(names), 'clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

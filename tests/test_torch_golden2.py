@@ -23,6 +23,7 @@ from deeplearning4j_tpu_torch.data import DataSet
 
 import test_golden_trajectories as G
 import torch_nn_parity as H
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REL = 1e-5
 GOLDEN = ["graph_merge_adam", "vae_pretrain_adam", "learned_recurrent_attention_adam",

@@ -41,6 +41,7 @@ from deeplearning4j_tpu_torch.serving.registry import (
 from deeplearning4j_tpu_torch.utils import gradientcheck as pgc
 
 import jax
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 
 @pytest.fixture(autouse=True)

@@ -13,6 +13,7 @@ import torch
 from deeplearning4j_tpu.parallel import gradient_sharing as jgs
 from deeplearning4j_tpu_torch import nd
 from deeplearning4j_tpu_torch.parallel import gradient_sharing as tgs
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 STEPS = 6
 

@@ -27,10 +27,12 @@ import torch
 
 import deeplearning4j_tpu.nn as jnn
 import deeplearning4j_tpu.train as jtrain
+import deeplearning4j_tpu.zoo as jzoo
 from deeplearning4j_tpu.data import MultiDataSet as JMDS
 from deeplearning4j_tpu.nn.conf import graph as jgraph
 import deeplearning4j_tpu_torch.nn as pnn
 import deeplearning4j_tpu_torch.train as ptrain
+import deeplearning4j_tpu_torch.zoo as pzoo
 from deeplearning4j_tpu_torch import nd
 from deeplearning4j_tpu_torch.data import MultiDataSet as PMDS
 from deeplearning4j_tpu_torch.nn.conf import graph as pgraph
@@ -38,6 +40,7 @@ from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
 
 import torch_graph_cases as G
 import torch_nn_parity as H
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REL = 1e-5
 NORMAL_ABS = 4e-6
@@ -57,7 +60,7 @@ def _confs(recipe):
         return G.multi_io(jnn, jtrain), G.multi_io(pnn, ptrain)
     if recipe == "resnet_cut":
         kw = dict(num_classes=10, hw=32, blocks=(1, 1, 1, 1), width_div=8)
-        return G.resnet50(jnn, jtrain, **kw), G.resnet50(pnn, ptrain, **kw)
+        return G.resnet50(jzoo, jtrain, **kw), G.resnet50(pzoo, ptrain, **kw)
     if recipe == "attention":
         kw = dict(d=8, heads=2, T=5, classes=3)
         return G.attention_graph(jnn, jtrain, **kw), G.attention_graph(pnn, ptrain, **kw)

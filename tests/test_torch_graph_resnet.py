@@ -1,5 +1,5 @@
-"""The ResNet-50 recipe of ``tests/torch_graph_cases.py`` (the reference
-zoo's graph layer for layer) cut to one block a stage, widths /8, 32x32
+"""ResNet-50 from each package's ``zoo.ResNet50``, cut by
+``tests/torch_graph_cases.py`` to one block a stage, widths /8, 32x32
 inputs and 10 classes, on the CPU against the JAX package's
 ComputationGraph: the configuration's string, the seeded init (normal
 draws within 1e-5 of the largest |value|: ``erfinv``'s last bits differ
@@ -26,10 +26,12 @@ import pytest
 
 import deeplearning4j_tpu.nn as jnn
 import deeplearning4j_tpu.train as jtrain
+import deeplearning4j_tpu.zoo as jzoo
 from deeplearning4j_tpu.data import DataSet as JDataSet
 from deeplearning4j_tpu.util.model_serializer import ModelSerializer as JSerializer
 import deeplearning4j_tpu_torch.nn as pnn
 import deeplearning4j_tpu_torch.train as ptrain
+import deeplearning4j_tpu_torch.zoo as pzoo
 from deeplearning4j_tpu_torch import nd
 from deeplearning4j_tpu_torch.data import DataSet
 from deeplearning4j_tpu_torch.train.updaters import tree_leaves
@@ -38,6 +40,7 @@ from deeplearning4j_tpu_torch.util.model_serializer import ModelSerializer
 
 import torch_graph_cases as G
 import torch_nn_parity as H
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REL = 1e-5
 CUT = dict(num_classes=10, hw=32, blocks=(1, 1, 1, 1), width_div=8)
@@ -69,9 +72,9 @@ def _same(pg, jg, what):
 def trained():
     """(reference graph, port graph) after 2 steps from the same seed."""
     with nd.enableX64(True):
-        jg = jnn.ComputationGraph(G.resnet50(jnn, jtrain, **MOMENTUM)).init()
+        jg = jnn.ComputationGraph(G.resnet50(jzoo, jtrain, **MOMENTUM)).init()
         jg.fuseSteps = 0
-        pg = pnn.ComputationGraph(G.resnet50(pnn, ptrain, **MOMENTUM), device="cpu").init()
+        pg = pnn.ComputationGraph(G.resnet50(pzoo, ptrain, **MOMENTUM), device="cpu").init()
         assert pg.conf.to_json() == jg.conf.to_json()
         init_ok = all(
             np.abs(a.numpy() - np.asarray(b)).max() <= REL * np.abs(np.asarray(b)).max()
@@ -131,9 +134,9 @@ def test_serializer_port_to_reference(trained, tmp_path):
 
 def test_resnet_cut_adam_losses():
     """The recipe as it is (Adam 1e-3): 2 steps, the reference's losses."""
-    jg = jnn.ComputationGraph(G.resnet50(jnn, jtrain, **CUT)).init()
+    jg = jnn.ComputationGraph(G.resnet50(jzoo, jtrain, **CUT)).init()
     jg.fuseSteps = 0
-    pg = pnn.ComputationGraph(G.resnet50(pnn, ptrain, **CUT), device="cpu").init()
+    pg = pnn.ComputationGraph(G.resnet50(pzoo, ptrain, **CUT), device="cpu").init()
     for step in range(2):
         x, y = _data(10 + step)
         jg.fit(JDataSet(x, y))

@@ -36,6 +36,7 @@ from deeplearning4j_tpu_torch.models import bert as tbert
 from deeplearning4j_tpu_torch.serving import GenerationEngine
 
 import torch_dist_worker as W
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 TIMEOUT = 300.0
 

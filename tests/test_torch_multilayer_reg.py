@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.models import random as prng
 from deeplearning4j_tpu_torch.nn.conf import dropout as pdrop
 from deeplearning4j_tpu_torch.train.updaters import tree_leaves
 from deeplearning4j_tpu_torch.util import crash_reporting
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 
 REL = 1e-5

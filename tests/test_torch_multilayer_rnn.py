@@ -21,6 +21,7 @@ from deeplearning4j_tpu_torch import nd
 from deeplearning4j_tpu_torch.data import DataSet
 from deeplearning4j_tpu_torch.train.updaters import tree_leaves
 from deeplearning4j_tpu_torch.util import crash_reporting
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 
 REL = 1e-5

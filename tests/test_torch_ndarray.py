@@ -22,6 +22,7 @@ import deeplearning4j_tpu.ndarray as jnd
 import deeplearning4j_tpu_torch.ndarray as tnd
 from deeplearning4j_tpu_torch.models.random import prng_key
 from deeplearning4j_tpu_torch.ndarray import random as trandom
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REPO = __file__.rsplit("/tests/", 1)[0]
 

@@ -9,6 +9,7 @@ import pytest
 import deeplearning4j_tpu.ndarray as jnd
 import deeplearning4j_tpu_torch.ndarray as tnd
 from test_torch_ndarray import SCENARIOS, _out, _same
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 
 @pytest.fixture(autouse=True)

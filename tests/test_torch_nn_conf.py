@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.nn.conf import dropout as pdrop
 from deeplearning4j_tpu_torch.train.updaters import tree_leaves
 
 import torch_nn_cases as C
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 NORMAL_ABS = 4e-6
 

@@ -23,6 +23,7 @@ from deeplearning4j_tpu_torch.train.updaters import tree_leaves
 
 import torch_nn_parity as H
 from test_torch_nn_layers2_heads import _head_labels
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REL = 1e-5
 

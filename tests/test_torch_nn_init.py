@@ -21,6 +21,7 @@ from deeplearning4j_tpu_torch import nd
 from deeplearning4j_tpu_torch.models import random as prng
 from deeplearning4j_tpu_torch.nn.conf import dropout as pdrop
 from deeplearning4j_tpu_torch.nn.conf import weights as pw
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 
 NORMAL_ABS = 4e-6

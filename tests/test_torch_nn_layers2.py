@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch import nd
 
 import torch_nn_cases as C
 import torch_nn_parity as H
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 IDS = C.SECOND_HALF_IDS[:C.SECOND_HALF_IDS.index("graves_bidirectional_lstm")]
 

@@ -22,6 +22,7 @@ from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
 
 import torch_nn_cases as C
 import torch_nn_parity as H
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 IDS = C.SECOND_HALF_IDS[C.SECOND_HALF_IDS.index("graves_bidirectional_lstm"):]
 REL = 1e-5

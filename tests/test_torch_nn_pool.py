@@ -19,6 +19,7 @@ from deeplearning4j_tpu_torch import nd
 
 import torch_nn_cases as C
 import torch_nn_parity as H
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 IDS = C.CASE_IDS[C.CASE_IDS.index("pool_max"):C.CASE_IDS.index("lstm")]
 

@@ -18,6 +18,7 @@ from deeplearning4j_tpu_torch import NDArray, nd
 from torch_op_cases import CASES, flat_outputs, to_torch
 from torch_op_parity import (
     check_forward, check_gradient, grad_keys, keys_of, np_of, rng)
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 KEYS = keys_of("nn", "loss", "image")
 

@@ -8,6 +8,7 @@ reference's dtype, so none is 64-bit, and its value."""
 import pytest
 
 from torch_op_parity import check_forward_32, keys_of
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 KEYS = keys_of('nn', 'cnn', 'rnn', 'loss', 'image')
 

@@ -5,6 +5,7 @@ namespaces against the JAX package's registry on the CPU
 import pytest
 
 from torch_op_parity import check_forward, check_gradient, grad_keys, keys_of
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 KEYS = keys_of('math', 'bitwise', 'reduce')
 

@@ -6,6 +6,7 @@ import pytest
 
 from torch_op_parity import (
     check_forward, check_forward_32, check_gradient, grad_keys, keys_of)
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 KEYS = keys_of(modules=("more_defs",))
 

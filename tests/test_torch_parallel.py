@@ -31,6 +31,7 @@ from deeplearning4j_tpu_torch.parallel import sequence_parallel as sp
 from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
 
 import torch_dist_worker as W
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 TIMEOUT = 300.0
 

@@ -1,7 +1,7 @@
 """The sharded engines' plan link (``serving/sharded.py`` ``_Link``)
 closes in seconds when its heartbeat reaches the link's lock just as the
 last endpoint closes, and no beat reaches the followers after the
-``close`` plan.
+``close`` plan; a follower's close waits for the driver's.
 
 A 2-rank gloo world (``tests/torch_dist_worker.py``'s ``planlink``
 suite) with a link timeout of 2 s, so a beat every 0.25 s. The driver's
@@ -12,6 +12,7 @@ close, a gloo broadcast that waits out the group's timeout."""
 import pytest
 
 import torch_dist_worker as W
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 TIMEOUT = 120.0
 
@@ -37,3 +38,18 @@ def test_close_with_beat_held_at_lock_sends_no_beat_after_close(world):
 
 def test_plan_link_world_imports_no_jax(world):
     assert world.results()["_jax_imported"] == []
+
+
+def test_follower_close_waits_for_the_drivers(tmp_path):
+    """A 2-rank world (the ``planleave`` suite) whose follower's process
+    ends as soon as its last endpoint closed, half a second before the
+    driver closes its own: the follower's close returns only once the
+    driver's came, so the driver's close reaches it, in seconds and
+    without breaking the link."""
+    w = W.World("planleave", 2, tmp_path, TIMEOUT)
+    try:
+        row = w.case("close-after-follower-left")
+    finally:
+        w.close()
+    assert row["link_error"] is None, row
+    assert row["close_s"] < W.LINK_TIMEOUT_S / 2, row

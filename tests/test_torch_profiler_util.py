@@ -33,6 +33,7 @@ from deeplearning4j_tpu_torch.util.sharded_checkpoint import (
     GracefulShutdown, ShardedCheckpointManager, train_with_checkpointing)
 
 import torch_dist_worker as W
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 
 def _finite_verdict(check, tree, **kw):

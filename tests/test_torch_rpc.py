@@ -24,6 +24,7 @@ The tolerance is equality: payload bytes, tokens, results, schedules.
 """
 import dataclasses
 import json
+import socket
 import threading
 import time
 
@@ -693,6 +694,83 @@ class TestDeadlinePropagation:
             assert ei.value.reason == "deadline"
         finally:
             served.stop()
+
+
+# --------------------------------------------------------------------------
+# The handshake: its own timeout, retried on a fresh socket
+# --------------------------------------------------------------------------
+class TestHandshake:
+    """The port's client gives a TCP handshake ``connect_timeout_s`` and
+    tries a timed-out one again on a fresh socket while the call's
+    ``timeout_s`` lasts (the host never saw the request); the JAX
+    package's client spends the whole call on the one handshake."""
+
+    def test_lost_handshake_is_retried_on_a_fresh_socket(self,
+                                                         monkeypatch):
+        served = Served(T, 0)
+        real, tries = socket.create_connection, []
+
+        def lose_first(addr, *a, **kw):
+            tries.append(addr)
+            if len(tries) == 1:
+                raise TimeoutError("timed out")
+            return real(addr, *a, **kw)
+
+        monkeypatch.setattr(socket, "create_connection", lose_first)
+        try:
+            with pytest.raises(J.RejectedError) as ei:
+                J.RemoteHost(0, served.srv.url).status()
+            assert ei.value.reason == "host_unavailable"
+            del tries[:]
+            remote = T.RemoteHost(0, served.srv.url, connect_timeout_s=0.5)
+            assert remote.status().host_id == 0
+            assert (remote.connect_retries, len(tries)) == (1, 2)
+            got = remote.submit_infer(row()).result(timeout=30)
+            np.testing.assert_array_equal(
+                host(got), host(served.eng.submit(row()).result(
+                    timeout=30)))
+            assert remote.connect_retries == 1
+        finally:
+            monkeypatch.undo()
+            served.stop()
+
+    @pytest.mark.parametrize("pkg", ["jax", "torch"])
+    def test_unanswered_handshakes_fail_typed_within_the_call(self, pkg):
+        # listen(0) with one connection queued and never accepted: the
+        # kernel drops every further SYN, so no handshake is answered
+        lst = socket.socket()
+        lst.bind(("127.0.0.1", 0))
+        lst.listen(0)
+        filler = socket.create_connection(lst.getsockname(), timeout=5)
+        url = f"http://127.0.0.1:{lst.getsockname()[1]}"
+        kw = {"connect_timeout_s": 0.3} if pkg == "torch" else {}
+        remote = PKGS[pkg].RemoteHost(0, url, timeout_s=1.2, **kw)
+        t0 = time.monotonic()
+        try:
+            with pytest.raises(PKGS[pkg].RejectedError) as ei:
+                remote.status()
+            wall = time.monotonic() - t0
+        finally:
+            filler.close()
+            lst.close()
+        assert ei.value.reason == "host_unavailable"
+        assert 1.2 <= wall < 3.0
+        if pkg == "torch":
+            assert remote.connect_retries == 3   # 4 handshakes of 0.3 s
+
+    def test_refused_connection_is_not_retried(self):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        remote = T.RemoteHost(0, f"http://127.0.0.1:{port}", timeout_s=5.0,
+                              connect_timeout_s=0.3)
+        t0 = time.monotonic()
+        with pytest.raises(T.RejectedError) as ei:
+            remote.status()
+        assert ei.value.reason == "host_unavailable"
+        assert time.monotonic() - t0 < 0.3
+        assert remote.connect_retries == 0
 
 
 # --------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import deeplearning4j_tpu_torch.train as ptrain
 from deeplearning4j_tpu_torch import nd
 
 import test_golden_trajectories as G
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REL = 1e-5
 

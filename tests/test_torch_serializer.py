@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.util import crash_reporting
 from deeplearning4j_tpu_torch.util.model_serializer import ModelSerializer
 
 import test_golden_trajectories as G
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REL = 1e-5
 

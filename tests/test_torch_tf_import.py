@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.train import Adam as PAdam  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from tools.tf_bert import build_frozen_bert  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 RNG = np.random.default_rng(0)
 

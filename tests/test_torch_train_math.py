@@ -35,6 +35,7 @@ from deeplearning4j_tpu_torch.train import regularization as preg
 from deeplearning4j_tpu_torch.train import schedules as psched
 from deeplearning4j_tpu_torch.train import updaters as pupd
 from deeplearning4j_tpu_torch.train.updaters import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 STEPS = 10
 UPD_REL = 1e-6

@@ -39,6 +39,7 @@ from deeplearning4j_tpu_torch.util import crash_reporting
 
 import torch_graph_cases as G
 import torch_nn_parity as H
+from torch_threads import one_torch_thread  # noqa: F401,E402
 
 REL = 1e-5
 

@@ -829,8 +829,37 @@ def close_after_beat_case():
     return rows
 
 
+def close_after_follower_left_case():
+    """The follower closes its last endpoint and its process ends at
+    once; the driver closes its own 0.5 s later (a driver still finishing
+    its engine's shutdown). The follower's close waits for the driver's:
+    a follower gone before the close leaves the driver's close broadcast
+    waiting out the group's timeout. The follower's process ends in this
+    case, so it is its suite's only one. Returns the driver's close
+    seconds and the link's error, if any."""
+    from deeplearning4j_tpu_torch.serving import sharded
+
+    global WORLD_BROKEN
+    WORLD_BROKEN = True
+    link = sharded._Link((0, 1), LINK_TIMEOUT_S)
+    tag = link.attach(_Endpoint())
+    dist.barrier()
+    if not link.is_driver:
+        link.detach(tag)
+        os._exit(0)
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    link.detach(tag)
+    return {"close_s": time.perf_counter() - t0,
+            "link_error": None if link.error is None else repr(link.error)}
+
+
 def planlink_suite():
     return [("close-after-beat", close_after_beat_case)]
+
+
+def planleave_suite():
+    return [("close-after-follower-left", close_after_follower_left_case)]
 
 
 # ---------------------------------------------------- data parallelism
@@ -994,7 +1023,8 @@ def checkpoint_suite():
 
 SUITES = {"parallel": parallel_suite, "multihost": multihost_suite,
           "train": train_suite, "serving": serving_suite,
-          "planlink": planlink_suite, "dataparallel": dataparallel_suite,
+          "planlink": planlink_suite, "planleave": planleave_suite,
+          "dataparallel": dataparallel_suite,
           "checkpoint": checkpoint_suite}
 
 

@@ -5,10 +5,9 @@ drives the JAX package and the port (``tests/test_torch_graph*.py``,
 test_torch_data_parallel.py``; ``chip_smoke.py``'s ``graphs`` phase
 imports this module, so it imports no JAX):
 
-- :func:`resnet50` — the reference zoo's ResNet-50 (``deeplearning4j_tpu/
-  zoo/models.py``, ``ResNet50.conf``) layer for layer, with knobs to cut
-  it (blocks a stage, a width divisor, the input size, the classes, the
-  data type); the zoo is not ported yet, so this copy stands in for it;
+- :func:`resnet50` — either package's ``zoo.ResNet50`` configuration,
+  cut (blocks a stage, a width divisor, the input size, the classes, the
+  data type, the updater);
 - :func:`attention_graph` — two SelfAttentionLayers, each in a residual
   ``ElementWiseVertex(Add)``, a ``MergeVertex`` of the two block outputs,
   global pooling and a softmax output; :func:`attention_vertex_graph` —
@@ -22,63 +21,37 @@ imports this module, so it imports no JAX):
 import numpy as np
 
 
-def resnet50(nn, train, *, num_classes=1000, hw=224, channels=3, blocks=(3, 4, 6, 3),
+def resnet50(zoo, train, *, num_classes=1000, hw=224, channels=3, blocks=(3, 4, 6, 3),
              width_div=1, seed=123, dtype="FLOAT", updater=None):
-    """The zoo's ResNet-50 configuration (bottleneck blocks, Same-padded
-    convolutions, BatchNormalization, ``ElementWiseVertex(Add)``
-    shortcuts, Adam 1e-3, He init); ``blocks``/``width_div``/``hw`` cut it
-    and ``updater`` (a function of ``train``) replaces Adam."""
-    L = nn.layers
-    w = lambda n: max(n // width_div, 1)  # noqa: E731
-    g = (nn.NeuralNetConfiguration.Builder().seed(seed).dataType(dtype)
-         .updater(updater(train) if updater else train.Adam(1e-3)).weightInit("RELU")
-         .graphBuilder()
-         .addInputs("input")
-         .setInputTypes(nn.InputType.convolutional(hw, hw, channels)))
-    g.addLayer("stem_conv", L.ConvolutionLayer(nOut=w(64), kernelSize=(7, 7), stride=(2, 2),
-                                               convolutionMode="Same",
-                                               activation="IDENTITY"), "input")
-    g.addLayer("stem_bn", L.BatchNormalization(activation="RELU"), "stem_conv")
-    g.addLayer("stem_pool", L.SubsamplingLayer(poolingType="MAX", kernelSize=(3, 3),
-                                               stride=(2, 2), convolutionMode="Same"),
-               "stem_bn")
-    prev = "stem_pool"
-    stages = [(blocks[0], 64, 256, 1), (blocks[1], 128, 512, 2),
-              (blocks[2], 256, 1024, 2), (blocks[3], 512, 2048, 2)]
-    for si, (n_blocks, mid, out, first_stride) in enumerate(stages):
-        mid, out = w(mid), w(out)
-        for bi in range(n_blocks):
-            stride = first_stride if bi == 0 else 1
-            name = f"s{si}b{bi}"
-            g.addLayer(f"{name}_c1", L.ConvolutionLayer(nOut=mid, kernelSize=(1, 1),
-                                                        stride=(stride, stride),
-                                                        activation="IDENTITY"), prev)
-            g.addLayer(f"{name}_bn1", L.BatchNormalization(activation="RELU"), f"{name}_c1")
-            g.addLayer(f"{name}_c2", L.ConvolutionLayer(nOut=mid, kernelSize=(3, 3),
-                                                        convolutionMode="Same",
-                                                        activation="IDENTITY"), f"{name}_bn1")
-            g.addLayer(f"{name}_bn2", L.BatchNormalization(activation="RELU"), f"{name}_c2")
-            g.addLayer(f"{name}_c3", L.ConvolutionLayer(nOut=out, kernelSize=(1, 1),
-                                                        activation="IDENTITY"), f"{name}_bn2")
-            g.addLayer(f"{name}_bn3", L.BatchNormalization(activation="IDENTITY"),
-                       f"{name}_c3")
-            if bi == 0:
-                g.addLayer(f"{name}_sc", L.ConvolutionLayer(nOut=out, kernelSize=(1, 1),
-                                                            stride=(stride, stride),
-                                                            activation="IDENTITY"), prev)
-                g.addLayer(f"{name}_scbn", L.BatchNormalization(activation="IDENTITY"),
-                           f"{name}_sc")
-                shortcut = f"{name}_scbn"
-            else:
-                shortcut = prev
-            g.addVertex(f"{name}_add", nn.ElementWiseVertex(op="Add"), f"{name}_bn3", shortcut)
-            g.addLayer(f"{name}_relu", L.ActivationLayer(activation="RELU"), f"{name}_add")
-            prev = f"{name}_relu"
-    g.addLayer("avgpool", L.GlobalPoolingLayer(poolingType="AVG"), prev)
-    g.addLayer("output", L.OutputLayer(nOut=num_classes, activation="SOFTMAX",
-                                       lossFunction="MCXENT"), "avgpool")
-    g.setOutputs("output")
-    return g.build()
+    """The zoo's ResNet-50 configuration (``zoo.ResNet50``: bottleneck
+    blocks, Same-padded convolutions, BatchNormalization,
+    ``ElementWiseVertex(Add)`` shortcuts, Adam 1e-3, He init), built by
+    either package's ``zoo`` and cut: the first ``blocks[s]`` blocks of
+    stage ``s`` kept (the next stage and the pooling read the last kept
+    block), every width but the input's channels and the classes divided
+    by ``width_div``; ``dtype`` set, and ``updater`` (a function of
+    ``train``) in place of Adam."""
+    conf = zoo.ResNet50(numClasses=num_classes, seed=seed,
+                        inputShape=(channels, hw, hw)).conf()
+    full = (3, 4, 6, 3)
+    rename = {f"s{s}b{full[s] - 1}_relu": f"s{s}b{blocks[s] - 1}_relu" for s in range(4)}
+    nodes = []
+    for n in conf.nodes:
+        if n.name[0] == "s" and n.name[1].isdigit() and \
+                int(n.name[3:n.name.index("_")]) >= blocks[int(n.name[1])]:
+            continue
+        n.inputs = [rename.get(i, i) for i in n.inputs]
+        for attr in ("nIn", "nOut"):
+            v = getattr(n.op, attr, None)
+            if v and not (n.name == "stem_conv" and attr == "nIn") \
+                    and not (n.name == "output" and attr == "nOut"):
+                setattr(n.op, attr, max(v // width_div, 1))
+        nodes.append(n)
+    conf.nodes = nodes
+    conf.dataType = dtype
+    if updater:
+        conf.updater = updater(train)
+    return conf
 
 
 def attention_graph(nn, train, *, d=768, heads=12, T=512, classes=10, seed=5,

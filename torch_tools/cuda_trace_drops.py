@@ -26,7 +26,7 @@ It prints one JSON line per (call, way): the sessions run, the sessions
 whose record is short of the call's launches, and the sessions whose
 record is longer. Needs one card; from the repo root:
 
-    python3 tools/cuda_trace_drops.py [--sessions 100] [--ways bare,forced]
+    python3 torch_tools/cuda_trace_drops.py [--sessions 100] [--ways bare,forced]
 """
 from __future__ import annotations
 

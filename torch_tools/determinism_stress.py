@@ -23,7 +23,7 @@ process of large bf16 matmuls beside them. Prints one JSON line per case
 and process, then how many processes saw a differing call; exits 1 when
 any call differed. Needs one card; from the repo root:
 
-    python3 tools/determinism_stress.py [--calls 2000] [--procs 2] [--burn]
+    python3 torch_tools/determinism_stress.py [--calls 2000] [--procs 2] [--burn]
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ host's decode steps, prefills and mean decode-step and prefill ms:
 - ``processes``: each host a process of its own
   (``chip_smoke.HostProcess``, as the front door phase runs them).
 
-Needs one card; from the repo root: ``python3 tools/front_door_probe.py``
+Needs one card; from the repo root: ``python3 torch_tools/front_door_probe.py``
 """
 from __future__ import annotations
 

@@ -44,7 +44,7 @@ them), prints rank 0's lines and each failure, then ``{"ok": ...,
 "device": ...}``; exits 1 when a check failed. Needs N cards; from the
 repo root:
 
-    python3 tools/mesh_probe.py [--ranks 4] [--timeout 600]
+    python3 torch_tools/mesh_probe.py [--ranks 4] [--timeout 600]
         [--parts ring,ulysses,long_context,mlm,serving]
 """
 from __future__ import annotations

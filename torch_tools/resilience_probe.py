@@ -12,7 +12,7 @@ post-restart passes, the five longest admission turns of the
 for each count of prefills it ran. The phase arms a 500 ms watchdog; a
 turn longer than that without a heartbeat restarts the scheduler.
 
-Needs one card; from the repo root: ``python3 tools/resilience_probe.py``
+Needs one card; from the repo root: ``python3 torch_tools/resilience_probe.py``
 """
 from __future__ import annotations
 

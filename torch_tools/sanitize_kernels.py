@@ -18,7 +18,7 @@ accepted the device) and exits non-zero when a tool reported an error or
 could not run. Needs one card; from the
 repo root:
 
-    python3 tools/sanitize_kernels.py [--timeout 900]
+    python3 torch_tools/sanitize_kernels.py [--timeout 900]
 """
 from __future__ import annotations
 
