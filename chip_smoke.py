@@ -211,6 +211,32 @@ seconds:
    B=2 each, against the CPU with the card's parameters (1e-4 of the
    largest |value|). The card has no ``h5py``: the Keras importer is
    tested on the CPU only;
+   embeddings and rl — ``text/``, ``graph/``, ``rl/`` and ``arbiter/`` on
+   the card (:func:`embeddings_rl_phase`; recipes in
+   ``tests/torch_embedding_cases.py``; each cut printed on a ``reduced``
+   line): (a) Word2Vec at 71,290 x 300 (text8's vocabulary at min-count
+   5, GoogleNews' width, word2vec.c's window 5, 5 negatives, sample 1e-3,
+   batch 512) on a seeded 1M-token corpus with 16 planted topic groups:
+   skip-gram and CBOW, pairs/s, step ms, table bytes and peak memory, the
+   groups nearest each other; skip-gram and CBOW on the full vocabulary
+   in ~72k tokens, twice on the card (bit-equal, and equal to the same
+   fit launched eagerly, without its CUDA graph) and once on the CPU
+   (tables within 1e-5 of max|CPU|, the same nearest words up to ties),
+   the device's busy share of a short fit (torch.profiler); (b) DeepWalk
+   (d 128, window 10, walk length 40, 1 walk a vertex) on a
+   BlogCatalog-sized power-law graph, twice (bit-equal), and on a
+   1,000-vertex copy against the CPU; (c) GloVe (d 300, x_max 100, alpha
+   0.75, window 10) on 40k tokens, FastText (fastText's dim 100, bucket
+   2M, n-grams 3-6) on the full vocabulary in ~72k tokens with an OOV
+   word, ParagraphVectors (fit, inferVector), each against the CPU on a
+   cut copy; (a)'s vectors through the binary format read on the CPU and
+   the card (bit-equal, rewrites byte-equal) and the doc vectors through
+   npz; (d) DQN on CartPole at rl4j-examples' configuration for
+   5000 steps (the last 10 episodes above the first 10), 20 updates on
+   the card against the CPU from the same parameters, n-step Q and A2C
+   over 16 lockstep CartPoles and 5 updates of each against the CPU; (e)
+   a random search (4 candidates, lr and width of a dense net on the
+   MNIST surrogate) on the card against the same search on the CPU;
 9. mlm train — the port's ``make_train_step`` on bench.py's MLM step
    (BERT-base, bidirectional, ``attention_impl="flash"``, bf16, B=96,
    T=512, batch from numpy seed 0): 2 warm-up, 5 timed and 3 more steps
@@ -4090,7 +4116,8 @@ def _updaters_part(params):
     log(f"ops (g) updaters ({CARD}): {out['leaves']} leaves, "
         f"{out['params']} params, worst {worst[1]} {worst[0]:.3f} of its "
         f"bound; adamUpdater leaf by leaf {out['adam_ms']['adamUpdater']:.3f}"
-        f" ms against fused_adamw {out['adam_ms']['fused_adamw']:.3f} ms")
+        f" ms against fused_adamw {out['adam_ms']['fused_adamw']:.3f} ms; "
+        f"bit-equal to the CPU: {out['bit_equal']}")
     return out
 
 
@@ -6891,6 +6918,684 @@ def importers_phase():
     return out
 
 
+# ------------------------------------------------------- embeddings and rl
+# text/, graph/, rl/ and arbiter/ on the card (:func:`embeddings_rl_phase`);
+# the recipes are tests/torch_embedding_cases.py's
+
+# text8's 17M tokens cut to 1M: the pairs are built on the host each epoch
+EMB_TOKENS = 1_000_000
+# word2vec.c's defaults (window 5, 5 negatives, sample 1e-3, min-count 5,
+# alpha 0.025 skip-gram / 0.05 CBOW) at GoogleNews-vectors-negative300's
+# width; the reference's batch of 512
+W2V_CONF = dict(layerSize=300, windowSize=5, negativeSample=5, sampling=1e-3,
+                batchSize=512, epochs=1, seed=1)
+W2V_LR = {"SkipGram": 0.025, "CBOW": 0.05}
+# Perozzi et al.: d 128, window 10, walk length 40; walks per vertex cut
+# from 80 to 1 for the phase's time
+DW_CONF = dict(vectorSize=128, windowSize=10, walkLength=40, walksPerVertex=1,
+               seed=3)
+DW_CUT = (1000, 32_400)          # the CPU's copy: BlogCatalog's mean degree
+# GloVe paper: d 300, x_max 100, alpha 0.75, window 10; the glove demo's
+# vocab min count 5; 2 iterations of its 15+ (the phase's time); the corpus
+# cut to what the host's co-occurrence pass does in seconds
+GLOVE_CONF = dict(layerSize=300, xMax=100.0, alpha=0.75, windowSize=10,
+                  minWordFrequency=5, iterations=2, learningRate=0.05, seed=4)
+GLOVE_SENTENCES, GLOVE_CUT_SENTENCES = 40, 8
+# fastText's defaults: dim 100, bucket 2M, n-grams 3-6, window 5, 5
+# negatives, lr 0.05, t 1e-4, min count 5; one epoch of its 5
+FT_CONF = dict(layerSize=100, bucket=2_000_000, minn=3, maxn=6, windowSize=5,
+               negativeSample=5, learningRate=0.05, sampling=1e-4, epochs=1,
+               seed=5)
+FT_CUT_SENTENCES = 20    # the CPU's copy: 20k tokens of the cut, bucket 2M
+PV_CONF = dict(layerSize=300, windowSize=5, negativeSample=5, epochs=5,
+               learningRate=0.025, minWordFrequency=1, seed=6)
+# Card against CPU, a table's largest difference over its largest |CPU
+# value|: both run the same gathers, the same scatters in the same order
+# (the CUDA scatter adds a row's contributions in their order, as the CPU
+# does); they differ in the summation order of the D-term dots and the
+# sigmoid's last bit. The same differences between the port and the JAX
+# package on the CPU (tests/test_torch_text.py) reach 2.3e-6 over up to
+# 3 epochs, and card against CPU here 1.2e-6 (the H100): held to 1e-5.
+CARD_CPU_TOL = 1e-5
+# a nearest list may swap two neighbours whose CPU cosines differ by less
+NEAREST_TIE = 1e-4
+# rl4j-examples' Cartpole QLConfiguration (seed 123, maxEpochStep 200,
+# replay 150000, batch 32, hard target update 500, 10 warm-up steps,
+# gamma 0.99, TD clamp 1.0, min epsilon 0.1 over 1000 steps, double DQN)
+# without its reward scaling, maxStep cut from 150000
+DQN_CONF = dict(seed=123, maxEpochStep=200, expRepMaxSize=150_000, batchSize=32,
+                targetDqnUpdateFreq=500, updateStart=10, gamma=0.99,
+                errorClamp=1.0, minEpsilon=0.1, epsilonNbStep=1000,
+                doubleDQN=True)
+DQN_MAX_STEP = 5_000
+EMB_PROFILE_SENTENCES = 10   # a profiled fit of ~120 steps
+# after rl4j-examples' async CartPole learners: 16 workers (here
+# lockstep envs), nStep 5, gamma 0.99; maxStep cut
+NSTEP_CONF = dict(seed=123, gamma=0.99, nStep=5, numEnvs=16,
+                  targetDqnUpdateFreq=100, minEpsilon=0.1, epsilonNbStep=9000,
+                  maxEpochStep=200, errorClamp=100.0, maxStep=16 * 5 * 100)
+A2C_CONF = dict(seed=123, gamma=0.99, nStep=5, numEnvs=16, maxEpochStep=200,
+                maxStep=16 * 5 * 100)
+# Card against CPU after 20 updates (5 for the vector learners) of one
+# network from the same parameters on the same batches: each loss and
+# the Q-values within 1e-4 of their size; the parameters within 1e-3 of
+# their norm (Adam moves a weight whose gradient sits at rounding level by
+# +-lr either way: one such weight of these 16-wide nets is ~1e-4 of it)
+RL_LOSS_TOL, RL_PARAM_TOL = 1e-4, 1e-3
+ARBITER_TOL = 1e-4       # a candidate's test loss, relative
+
+
+_EMB_T0 = [0.0]
+
+
+def _tick(label):
+    """Log the seconds since the embeddings phase began."""
+    log(f"  [{time.perf_counter() - _EMB_T0[0]:.1f} s] {label}")
+
+
+@contextlib.contextmanager
+def _counting():
+    """Every fit's steps (``word2vec.StepRunner`` runs them all) counted:
+    calls, batch rows, and the time of the first call."""
+    import deeplearning4j_tpu_torch.text.word2vec as w2v
+
+    call = w2v.StepRunner.__call__
+    st = {"steps": 0, "rows": 0, "t0": None}
+
+    def wrapped(self, batch, lr):
+        if st["t0"] is None:
+            st["t0"] = time.perf_counter()
+        st["steps"] += 1
+        st["rows"] += len(batch)
+        return call(self, batch, lr)
+
+    w2v.StepRunner.__call__ = wrapped
+    try:
+        yield st
+    finally:
+        w2v.StepRunner.__call__ = call
+
+
+def _emb_fit(fit, device, label):
+    """Run ``fit()``; (its result, the fit's stats): wall seconds, steps,
+    rows (pairs), the loop's wall from the first step to the tables back
+    on the host, rows/s, and on the card the peak memory; logged under
+    ``label``."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _counting() as st:
+        out = fit()
+    _sync()
+    t1 = time.perf_counter()
+    loop = t1 - (st["t0"] or t1)
+    stats = {"fit_s": t1 - t0, "steps": st["steps"], "pairs": st["rows"],
+             "loop_s": loop, "pairs_per_s": st["rows"] / max(loop, 1e-9)}
+    stats["peak_bytes"] = (torch.cuda.max_memory_allocated() if device == "cuda"
+                           else None)
+    log(f"  {label} on {device}: " + json.dumps(stats))
+    return out, stats
+
+
+def _vs_cpu(card, cpu, label, tol=CARD_CPU_TOL):
+    """The largest |card - cpu| over the largest |cpu|, checked <= tol."""
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    check(card.shape == cpu.shape, f"{label}: shapes {card.shape} {cpu.shape}")
+    rel = float(np.abs(card - cpu).max() / max(np.abs(cpu).max(), 1e-30))
+    check(rel <= tol, f"{label}: card against CPU {rel:.3e} of max|CPU| "
+          f"(allowed {tol:g})")
+    return rel
+
+
+def _same_nearest(card_list, cpu_list, cpu_sim, label):
+    """Two nearest lists equal, but where the CPU's cosines of the two
+    neighbours at a position differ by less than NEAREST_TIE; returns the
+    positions that swapped."""
+    swaps = 0
+    check(len(card_list) == len(cpu_list), f"{label}: lengths")
+    for a, b in zip(card_list, cpu_list):
+        if a != b:
+            swaps += 1
+            gap = abs(cpu_sim(a) - cpu_sim(b))
+            check(gap <= NEAREST_TIE, f"{label}: {a!r} against {b!r}, CPU "
+                  f"cosines {gap:.2e} apart (a tie is < {NEAREST_TIE:g})")
+    return swaps
+
+
+def _topic_hits(model, topics, k):
+    """Planted groups whose first word has its k nearest words all in its
+    group. (Every vector of a one-epoch fit shares one strong direction,
+    cosines ~0.999 between most words: the groups show in the order of the
+    nearest, not as well-separated clusters.)"""
+    return sum(set(model.wordsNearest(g[0], k)) <= set(g[1:]) for g in topics)
+
+
+def _w2v_part(sents, words, topics):
+    """(a) Word2Vec skip-gram and CBOW (see :func:`embeddings_rl_phase`)."""
+    import torch
+
+    import torch_embedding_cases as E
+    import deeplearning4j_tpu_torch.text.word2vec as w2v
+    from deeplearning4j_tpu_torch.text import CollectionSentenceIterator, Word2Vec
+
+    def fit(algo, sentences, device, min_count):
+        kw = dict(W2V_CONF, learningRate=W2V_LR[algo], minWordFrequency=min_count,
+                  elementsLearningAlgorithm=algo)
+        model = Word2Vec(iterate=CollectionSentenceIterator(sentences),
+                         device=device, **kw)
+        return _emb_fit(model.fit, device,
+                        f"embeddings (a) {algo} {len(sentences)} sentences")
+
+    out = {}
+    sg, out["skipgram"] = fit("SkipGram", sents, DEVICE, E.MIN_COUNT)
+    V, D = sg.syn0.shape
+    check(V == E.TEXT8_VOCAB and D == 300, f"embeddings (a): table {V}x{D}")
+    out["table_bytes"] = 2 * V * D * 4
+    hits = out["skipgram_topic_hits"] = _topic_hits(sg, topics, 3)
+    out["skipgram_topic_hits_top7"] = _topic_hits(sg, topics, 7)
+    check(hits >= 14, f"embeddings (a): {hits} of {len(topics)} planted groups "
+          f"nearest each other (skip-gram, top 3; want >= 14)")
+    cb, out["cbow"] = fit("CBOW", sents, DEVICE, E.MIN_COUNT)
+    hits = out["cbow_topic_hits"] = _topic_hits(cb, topics, 3)
+    out["cbow_topic_hits_top7"] = _topic_hits(cb, topics, 7)
+    check(hits >= 14, f"embeddings (a): {hits} of {len(topics)} planted groups "
+          f"nearest each other (CBOW, top 3; want >= 14)")
+    del cb
+    _tick("embeddings (a) full fits and planted groups")
+    # one step's device time at the fit's shapes, eager (as the fit runs)
+    gen = torch.Generator().manual_seed(0)
+    s0 = torch.from_numpy(sg.syn0).to(DEVICE)
+    s1 = torch.from_numpy(sg._syn1).to(DEVICE)
+    idx = torch.randint(0, V, (512, 7), generator=gen).to(DEVICE)
+    def step():
+        w2v._sg_step(s0, s1, idx[:, 0], idx[:, 1], idx[:, 2:], 1e-4)
+
+    # device time of one step's kernels (replayed from a graph, as the fit
+    # runs them), and of one eager step launched from the host
+    out["sg_step_ms"] = time_ms(step, iters=20, reps=5, graph=True)
+    out["sg_step_eager_ms"] = time_ms(step, iters=50, reps=3, graph=False)
+    del s0, s1
+    # card against CPU on the cut corpus: the full vocabulary, ~72k tokens
+    cut = E.text8_cut(words)
+    for algo in ("SkipGram", "CBOW"):
+        card, st = fit(algo, cut, DEVICE, 1)
+        again, _ = fit(algo, cut, DEVICE, 1)
+        check(np.array_equal(card.syn0, again.syn0)
+              and np.array_equal(card._syn1, again._syn1),
+              f"embeddings (a) {algo} cut: two card fits differ")
+        # the same fit with every step launched eagerly (no graph captured)
+        capture = w2v.StepRunner._capture
+        w2v.StepRunner._capture = lambda self: None
+        try:
+            eager, _ = fit(algo, cut, DEVICE, 1)
+        finally:
+            w2v.StepRunner._capture = capture
+        check(np.array_equal(card.syn0, eager.syn0)
+              and np.array_equal(card._syn1, eager._syn1),
+              f"embeddings (a) {algo} cut: the replayed fit differs from the eager fit")
+        host, hst = fit(algo, cut, "cpu", 1)
+        check(card.vocab.numWords() == E.TEXT8_VOCAB, "embeddings (a): cut vocabulary")
+        res = {"card": st, "cpu": hst,
+               "syn0_rel": _vs_cpu(card.syn0, host.syn0, f"embeddings (a) {algo} syn0"),
+               "syn1_rel": _vs_cpu(card._syn1, host._syn1, f"embeddings (a) {algo} syn1"),
+               "nearest_swaps": sum(
+                   _same_nearest(card.wordsNearest(g[0], 10), host.wordsNearest(g[0], 10),
+                                 lambda w, g=g: host.similarity(g[0], w),
+                                 f"embeddings (a) {algo} nearest {g[0]}")
+                   for g in topics)}
+        out[f"cut_{algo}"] = res
+        _tick(f"embeddings (a) {algo} card vs CPU")
+    log(f"embeddings (a) Word2Vec ({CARD}): {V}x{D}, tables "
+        f"{out['table_bytes']} B, skip-gram {out['skipgram']['pairs_per_s']:.0f} "
+        f"pairs/s ({out['skipgram']['steps']} steps, fit {out['skipgram']['fit_s']:.2f} s, "
+        f"peak {out['skipgram']['peak_bytes']} B), step {out['sg_step_ms']:.4f} ms "
+        f"replayed, {out['sg_step_eager_ms']:.4f} ms eager, "
+        f"CBOW {out['cbow']['pairs_per_s']:.0f} pairs/s; planted groups "
+        f"{out['skipgram_topic_hits']}/{out['cbow_topic_hits']} of {len(topics)}; "
+        f"card vs CPU (cut) skip-gram {out['cut_SkipGram']['syn0_rel']:.3e}, "
+        f"CBOW {out['cut_CBOW']['syn0_rel']:.3e}; two fits of each bit-equal, and "
+        f"equal to an eager fit")
+    return out, sg
+
+
+def _emb_profile(sents):
+    """The device's busy share over one card fit on the cut corpus."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.text import CollectionSentenceIterator, Word2Vec
+
+    model = Word2Vec(iterate=CollectionSentenceIterator(sents), device=DEVICE,
+                     minWordFrequency=1, learningRate=W2V_LR["SkipGram"], **W2V_CONF)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.fit()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = report_profile(prof, wall, "embeddings (a) skip-gram fit profile")
+    busy = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall}
+
+
+def _deepwalk_part():
+    """(b) DeepWalk on a BlogCatalog-sized graph."""
+    import torch_embedding_cases as E
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+
+    def graph(n, edges):
+        g = Graph(n)
+        for a, b in edges.tolist():
+            g.addEdge(a, b)
+        return g
+
+    def fit(g, device):
+        return _emb_fit(lambda: DeepWalk(device=device, **DW_CONF).fit(g), device,
+                        f"embeddings (b) DeepWalk {g.numVertices()} vertices")
+
+    n, edges = E.blogcatalog_like()
+    g = graph(n, edges)
+    out = {"vertices": n, "edges": len(edges),
+           "max_degree": max(g.getDegree(v) for v in range(g.numVertices())),
+           "table_bytes": 2 * g.numVertices() * DW_CONF["vectorSize"] * 4}
+    _tick("embeddings (b) graph built")
+    gv, out["fit"] = fit(g, DEVICE)
+    gv2, out["fit_again"] = fit(g, DEVICE)
+    check(np.array_equal(gv.vectors, gv2.vectors),
+          "embeddings (b): two DeepWalk fits from one seed differ on the card")
+    check(np.isfinite(gv.vectors).all(), "embeddings (b): non-finite vectors")
+    del g, gv, gv2
+    cut = graph(*E.blogcatalog_like(*DW_CUT, seed=1))
+    card, out["cut_card"] = fit(cut, DEVICE)
+    host, out["cut_cpu"] = fit(cut, "cpu")
+    out["cut_rel"] = _vs_cpu(card.vectors, host.vectors, "embeddings (b) cut vectors")
+    out["nearest_swaps"] = sum(
+        _same_nearest([int(u) for u in card.verticesNearest(v, 10)],
+                      [int(u) for u in host.verticesNearest(v, 10)],
+                      lambda u, v=v: host.similarity(v, u),
+                      f"embeddings (b) nearest {v}") for v in range(10))
+    log(f"embeddings (b) DeepWalk ({CARD}): {out['vertices']} vertices, "
+        f"{out['edges']} edges (max degree {out['max_degree']}), d 128, "
+        f"{out['fit']['pairs_per_s']:.0f} pairs/s ({out['fit']['steps']} steps, "
+        f"fit {out['fit']['fit_s']:.2f} s, peak {out['fit']['peak_bytes']} B), "
+        f"two fits bit-equal; card vs CPU (cut) {out['cut_rel']:.3e}")
+    return out
+
+
+def _glove_ft_pv_part(sents, words, topics, sg, tmp_dir):
+    """(c) GloVe, FastText, ParagraphVectors and the serializer."""
+    import torch_embedding_cases as E
+    from deeplearning4j_tpu_torch.text import (
+        CollectionSentenceIterator, FastText, Glove, ParagraphVectors,
+        WordVectorSerializer)
+    from deeplearning4j_tpu_torch.text.paragraph_vectors import LabelledDocument
+
+    out = {}
+
+    def glove(sentences, device):
+        m = Glove(iterate=CollectionSentenceIterator(sentences), device=device,
+                  **GLOVE_CONF)
+        return _emb_fit(m.fit, device, f"embeddings (c) GloVe {len(sentences)} sentences")
+
+    g, out["glove"] = glove(sents[:GLOVE_SENTENCES], DEVICE)
+    V = g.vocab.numWords()
+    out["glove"].update(vocab=V, table_bytes=4 * V * 300 * 4 + 4 * V * 4)
+    check(np.isfinite(g.syn0).all(), "embeddings (c): GloVe vectors not finite")
+    _tick("embeddings (c) GloVe")
+    gc, _ = glove(sents[:GLOVE_CUT_SENTENCES], DEVICE)
+    gh, _ = glove(sents[:GLOVE_CUT_SENTENCES], "cpu")
+    out["glove_cut_rel"] = _vs_cpu(gc.syn0, gh.syn0, "embeddings (c) GloVe cut")
+    del g, gc, gh
+
+    def fasttext(sentences, device, min_count):
+        m = FastText(iterate=CollectionSentenceIterator(sentences), device=device,
+                     minWordFrequency=min_count, **FT_CONF)
+        return _emb_fit(m.fit, device,
+                        f"embeddings (c) FastText {len(sentences)} sentences")
+
+    # the full vocabulary at min count 1 in ~72k tokens: the whole
+    # (71,290 + 2M) x 100 input table on the card
+    cut = E.text8_cut(words)
+    _tick("embeddings (c) GloVe card vs CPU")
+    ft, out["fasttext"] = fasttext(cut, DEVICE, 1)
+    V = ft.vocab.numWords()
+    check(V == E.TEXT8_VOCAB, f"embeddings (c): FastText vocabulary {V}")
+    out["fasttext"]["table_bytes"] = (V + FT_CONF["bucket"]) * 100 * 4 + V * 100 * 4
+    # one OOV word: a planted word with a letter doubled shares most of
+    # its n-grams, and lands nearer its source than another group's word
+    src, other = topics[0][0], topics[1][0]
+    oov = src[:2] + src[2] + src[2:]
+    check(not ft.hasWord(oov), f"embeddings (c): {oov!r} is in the vocabulary")
+    vo = ft.getWordVector(oov)
+
+    def cos(a, b):
+        return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    out["oov"] = {"word": oov, "cos_source": cos(vo, ft.getWordVector(src)),
+                  "cos_other": cos(ft.getWordVector(other), ft.getWordVector(src))}
+    check(np.isfinite(vo).all() and out["oov"]["cos_source"] > out["oov"]["cos_other"],
+          f"embeddings (c): OOV vector {out['oov']}")
+    del ft
+    _tick("embeddings (c) FastText and the OOV word")
+    fc, out["fasttext_cut_card"] = fasttext(cut[:FT_CUT_SENTENCES], DEVICE, 1)
+    fh, out["fasttext_cut_cpu"] = fasttext(cut[:FT_CUT_SENTENCES], "cpu", 1)
+    out["fasttext_cut_rel"] = _vs_cpu(fc._bucket_table, fh._bucket_table,
+                                      "embeddings (c) FastText cut table")
+    _vs_cpu(fc.getWordVector(oov), fh.getWordVector(oov), "embeddings (c) FastText OOV")
+    del fc, fh
+    _tick("embeddings (c) FastText card vs CPU")
+
+    docs = E.documents(words, topics)
+
+    def pv(device):
+        m = ParagraphVectors(labelledDocuments=[LabelledDocument(*d) for d in docs],
+                             device=device, **PV_CONF)
+        return _emb_fit(m.fit, device, "embeddings (c) ParagraphVectors")
+
+    pc, out["pv"] = pv(DEVICE)
+    ph, _ = pv("cpu")
+    probe = " ".join(topics[2][:6])
+    out["pv_rel"] = _vs_cpu(pc.doc_vectors, ph.doc_vectors, "embeddings (c) doc vectors")
+    out["pv_infer_rel"] = _vs_cpu(pc.inferVector(probe), ph.inferVector(probe),
+                                  "embeddings (c) inferVector")
+
+    # the serializer: (a)'s card vectors in Google's binary format, read
+    # back on the CPU and written again, then read on the card and written
+    # again: every vector bit-equal, the two rewrites byte-equal (a read
+    # model's vocabulary is indexed anew, by count then word, as the
+    # reference's is, so the first rewrite orders the words so)
+    _tick("embeddings (c) ParagraphVectors")
+    files = [os.path.join(tmp_dir, f"w2v{i}.bin") for i in range(3)]
+    WordVectorSerializer.writeBinaryModel(sg, files[0])
+    for dev, src_f, dst_f in (("cpu", files[0], files[1]), (DEVICE, files[1], files[2])):
+        back = WordVectorSerializer.readBinaryModel(src_f, device=dev)
+        check(np.array_equal(back.syn0[[back.vocab.indexOf(w) for w in sg.vocab.words()]],
+                             sg.syn0), f"embeddings (c): binary read on {dev}")
+        WordVectorSerializer.writeBinaryModel(back, dst_f)
+    blobs = [open(f, "rb").read() for f in files]
+    check(len(blobs[0]) == len(blobs[1]) and blobs[1] == blobs[2],
+          "embeddings (c): binary round trip bytes")
+    out["binary_bytes"] = len(blobs[0])
+    _tick("embeddings (c) binary round trip")
+    npz = os.path.join(tmp_dir, "pv.npz")
+    WordVectorSerializer.writeParagraphVectors(pc, npz)
+    back = WordVectorSerializer.readParagraphVectors(npz, device=DEVICE)
+    check(np.array_equal(back.doc_vectors, pc.doc_vectors) and back.doc_labels == pc.doc_labels,
+          "embeddings (c): ParagraphVectors npz round trip")
+    _tick("embeddings (c) npz round trip")
+    log(f"embeddings (c) ({CARD}): GloVe {out['glove']['vocab']} words "
+        f"{out['glove']['pairs_per_s']:.0f} triples/s, card vs CPU (cut) "
+        f"{out['glove_cut_rel']:.3e}; FastText ({E.TEXT8_VOCAB} + 2M) x 100, "
+        f"tables {out['fasttext']['table_bytes']} B, "
+        f"{out['fasttext']['pairs_per_s']:.0f} pairs/s, peak "
+        f"{out['fasttext']['peak_bytes']} B, OOV {out['oov']}, card vs CPU (cut) "
+        f"{out['fasttext_cut_rel']:.3e}; ParagraphVectors {len(docs)} docs "
+        f"{out['pv']['pairs_per_s']:.0f} pairs/s, card vs CPU {out['pv_rel']:.3e}, "
+        f"inferVector {out['pv_infer_rel']:.3e}; binary {out['binary_bytes']} B "
+        f"round trip byte-equal")
+    return out
+
+
+def _rl_params(tree):
+    """A parameter tree's leaves as one float64 host vector."""
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+
+    return np.concatenate([l.detach().double().cpu().numpy().ravel()
+                           for l in tree_leaves(tree)])
+
+
+def _rl_compare(card_fn, host_fn, batches, label):
+    """Run ``card_fn(batch)`` and ``host_fn(batch)`` (each an update,
+    returning (loss, params tree)) over the same batches: the largest
+    relative loss difference, and the parameters' relative norm
+    difference at the end; both checked."""
+    worst = 0.0
+    for b in batches:
+        lc, pc = card_fn(b)
+        lh, ph = host_fn(b)
+        worst = max(worst, abs(float(lc) - float(lh)) / max(abs(float(lh)), 1e-30))
+    a, h = _rl_params(pc), _rl_params(ph)
+    norm = float(np.linalg.norm(a - h) / np.linalg.norm(h))
+    check(worst <= RL_LOSS_TOL and norm <= RL_PARAM_TOL,
+          f"{label}: card vs CPU over {len(batches)} updates: loss {worst:.3e} "
+          f"(allowed {RL_LOSS_TOL:g}), params {norm:.3e} of their norm "
+          f"(allowed {RL_PARAM_TOL:g})")
+    return {"loss_rel": worst, "param_rel_norm": norm}
+
+
+def _rl_part():
+    """(d) rl4j's learners on CartPole."""
+    import torch
+
+    import torch_embedding_cases as E
+    import deeplearning4j_tpu_torch.rl as rl
+    from deeplearning4j_tpu_torch.rl.qlearning import clone_tree, to_device
+    from deeplearning4j_tpu_torch.train.updaters import tree_map
+
+    out = {}
+    # DQN at the example's configuration, maxStep cut
+    cfg = rl.QLearningConfiguration(maxStep=DQN_MAX_STEP, **DQN_CONF)
+    _tick("rl (d) start")
+    dqn = rl.QLearningDiscreteDense(rl.CartPole(seed=123, max_steps=200),
+                                    E.cartpole_dqn_conf(), cfg, device=DEVICE)
+    _tick("rl (d) DQN built")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rewards = dqn.train()
+    wall = time.perf_counter() - t0
+    first, last = float(np.mean(rewards[:10])), float(np.mean(rewards[-10:]))
+    batch = dqn.replay.sample(32)
+    out["dqn"] = {"episodes": len(rewards), "first10": first, "last10": last,
+                  "env_steps_per_s": DQN_MAX_STEP / wall, "wall_s": wall,
+                  "peak_bytes": torch.cuda.max_memory_allocated(),
+                  "param_bytes": int(_rl_params(dqn._params).size * 4),
+                  "update_ms": time_ms(lambda: dqn._update(batch), iters=20, reps=3,
+                                       graph=False)}
+    check(last > first, f"rl (d): DQN's last 10 episodes {last:.1f} <= its first "
+          f"10 {first:.1f}")
+    # card against CPU: 20 updates from the same parameters on the same
+    # replay batches
+    host, card = (rl.QLearningDiscreteDense(rl.CartPole(seed=123), E.cartpole_dqn_conf(),
+                                            rl.QLearningConfiguration(**DQN_CONF), device=d)
+                  for d in ("cpu", DEVICE))
+    card._params = tree_map(lambda t: t.to(DEVICE), host._params)
+    card._target, card._opt_state = clone_tree(card._params), card._tx.init(card._params)
+    batches = [dqn.replay.sample(32) for _ in range(20)]
+
+    def update(m):
+        def run(b):
+            loss = m._update(b)
+            return loss, m._params
+        return run
+
+    _tick("rl (d) DQN run")
+    out["dqn_vs_cpu"] = _rl_compare(update(card), update(host), batches, "rl (d) DQN")
+    obs = batches[0][0]
+    qc = card._q_fn(card._params, torch.from_numpy(obs).to(DEVICE)).cpu().numpy()
+    qh = host._q_fn(host._params, torch.from_numpy(obs)).detach().numpy()
+    out["dqn_q_rel"] = _vs_cpu(qc, qh, "rl (d) DQN Q-values", tol=RL_LOSS_TOL)
+    del dqn, host, card
+
+    def venv():
+        return rl.VectorizedMDP([lambda i=i: rl.CartPole(seed=123 + i, max_steps=200)
+                                 for i in range(16)])
+
+    nq = rl.AsyncNStepQLearningDiscreteDense(
+        venv(), E.cartpole_dqn_conf(l2=0.0), rl.AsyncQLearningConfiguration(**NSTEP_CONF),
+        device=DEVICE)
+    pi, v = E.cartpole_a2c_confs()
+    a2 = rl.A2CDiscreteDense(venv(), pi, v, rl.A2CConfiguration(**A2C_CONF),
+                             device=DEVICE)
+    for key, learner in (("nstep_q", nq), ("a2c", a2)):
+        t0 = time.perf_counter()
+        r = learner.train()
+        wall = time.perf_counter() - t0
+        out[key] = {"episodes": len(r), "first10": float(np.mean(r[:10])),
+                    "last10": float(np.mean(r[-10:])), "wall_s": wall,
+                    "env_steps_per_s": learner.config.maxStep / wall}
+        check(len(r) > 10 and np.isfinite(r).all(), f"rl (d) {key}: {len(r)} episodes")
+    _tick("rl (d) DQN card vs CPU, vector learners' runs")
+    # their updates on the card against the CPU from the same parameters
+    rng = np.random.RandomState(0)
+    ups = [(rng.randn(80, 4).astype(np.float32) * 0.1, rng.randint(2, size=80).astype(np.int32),
+            rng.randn(80).astype(np.float32) * 3) for _ in range(5)]
+    hq = rl.AsyncNStepQLearningDiscreteDense(
+        venv(), E.cartpole_dqn_conf(l2=0.0), rl.AsyncQLearningConfiguration(**NSTEP_CONF),
+        device="cpu")
+    cq = rl.AsyncNStepQLearningDiscreteDense(
+        venv(), E.cartpole_dqn_conf(l2=0.0), rl.AsyncQLearningConfiguration(**NSTEP_CONF),
+        device=DEVICE)
+    cq._params = tree_map(lambda t: t.to(DEVICE), hq._params)
+    cq._opt_state = cq._tx.init(cq._params)
+
+    def nq_update(m):
+        def run(b):
+            m._params, m._opt_state, loss = m._update_fn(
+                m._params, m._opt_state, *to_device(m.device, *b))
+            return loss, m._params
+        return run
+
+    out["nstep_q_vs_cpu"] = _rl_compare(nq_update(cq), nq_update(hq), ups, "rl (d) n-step Q")
+    ha = rl.A2CDiscreteDense(venv(), pi, v, rl.A2CConfiguration(**A2C_CONF), device="cpu")
+    ca = rl.A2CDiscreteDense(venv(), pi, v, rl.A2CConfiguration(**A2C_CONF), device=DEVICE)
+    ca._pi = tree_map(lambda t: t.to(DEVICE), ha._pi)
+    ca._v = tree_map(lambda t: t.to(DEVICE), ha._v)
+    ca._opt = ca._tx.init({"pi": ca._pi, "v": ca._v})
+
+    def a2c_update(m):
+        def run(b):
+            loss = m._update(*b)
+            return loss, {"pi": m._pi, "v": m._v}
+        return run
+
+    out["a2c_vs_cpu"] = _rl_compare(a2c_update(ca), a2c_update(ha), ups, "rl (d) A2C")
+    log(f"rl (d) ({CARD}): DQN {out['dqn']['episodes']} episodes in {DQN_MAX_STEP} "
+        f"steps, first 10 {first:.1f} -> last 10 {last:.1f}, "
+        f"{out['dqn']['env_steps_per_s']:.1f} env steps/s, update "
+        f"{out['dqn']['update_ms']:.3f} ms, parameters {out['dqn']['param_bytes']} B, "
+        f"peak {out['dqn']['peak_bytes']} B; "
+        f"card vs CPU {out['dqn_vs_cpu']}; n-step Q {out['nstep_q']['env_steps_per_s']:.1f}"
+        f" and A2C {out['a2c']['env_steps_per_s']:.1f} env steps/s (16 envs); "
+        f"{out['nstep_q_vs_cpu']}, {out['a2c_vs_cpu']}")
+    return out
+
+
+def _arbiter_part():
+    """(e) a random search on the card against the same search on the CPU."""
+    import torch
+
+    import torch_embedding_cases as E
+    from deeplearning4j_tpu_torch.arbiter import (
+        ContinuousParameterSpace, IntegerParameterSpace, MaxCandidatesCondition,
+        OptimizationConfiguration, OptimizationRunner, RandomSearchGenerator)
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+    train = list(MnistDataSetIterator(256, train=True, num_examples=2560))
+    test = next(iter(MnistDataSetIterator(1000, train=False, num_examples=1000)))
+
+    def search(device):
+        def build(hp):
+            return MultiLayerNetwork(E.mnist_mlp_conf(hp["lr"], hp["hidden"]),
+                                     device=device).init()
+
+        def score(model, hp):
+            for ds in train:
+                model.fit(ds)
+            return model.score(test)
+
+        runner = OptimizationRunner(OptimizationConfiguration(
+            candidate_generator=RandomSearchGenerator(
+                {"lr": ContinuousParameterSpace(1e-4, 1e-2, log_uniform=True),
+                 "hidden": IntegerParameterSpace(64, 1024)}, seed=7),
+            model_builder=build, score_function=score,
+            termination_conditions=[MaxCandidatesCondition(4)]))
+        t0 = time.perf_counter()
+        best = runner.execute()
+        return best, runner.results, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    best, res, wall = search(DEVICE)
+    peak = torch.cuda.max_memory_allocated()
+    hbest, hres, hwall = search("cpu")
+    check(len(res) == 4 and all(r.score is not None for r in res),
+          f"arbiter (e): {[r.exception for r in res]}")
+    rel = max(abs(a.score - b.score) / abs(b.score) for a, b in zip(res, hres))
+    check(rel <= ARBITER_TOL and best.candidate.index == hbest.candidate.index,
+          f"arbiter (e): card vs CPU scores {rel:.3e} (allowed {ARBITER_TOL:g}), best "
+          f"{best.candidate.index} against {hbest.candidate.index}")
+    param_bytes = max(4 * (784 * r.candidate.hyperparameters["hidden"]
+                           + r.candidate.hyperparameters["hidden"] * 11 + 10)
+                      for r in res)
+    out = {"candidates": [{"hp": r.candidate.hyperparameters, "score": r.score,
+                           "s": r.duration_sec} for r in res],
+           "best": best.candidate.index, "score_rel": rel, "wall_s": wall,
+           "cpu_wall_s": hwall, "peak_bytes": peak, "max_param_bytes": param_bytes,
+           "images_per_s": 4 * len(train) * 256 / wall}
+    log(f"arbiter (e) ({CARD}): 4 candidates in {wall:.2f} s (CPU {hwall:.2f} s), "
+        f"{out['images_per_s']:.0f} training images/s, peak {peak} B, the largest "
+        f"candidate's parameters {param_bytes} B, "
+        f"best {best.candidate.index} {best.candidate.hyperparameters}, card vs CPU "
+        f"scores {rel:.3e}")
+    return out
+
+
+def embeddings_rl_phase():
+    """``text/``, ``graph/``, ``rl/`` and ``arbiter/`` on the card (the
+    module docstring's embeddings and rl phase). Every part's failure
+    fails the phase."""
+    import tempfile
+
+    import torch
+
+    _graph_recipes()   # puts tests/ on sys.path
+    import torch_embedding_cases as E
+
+    reduced = {
+        "word2vec corpus": f"text8's 17M tokens -> {EMB_TOKENS} (pairs are built "
+                           "on the host each epoch, as in the reference)",
+        "word2vec card vs CPU": "the full vocabulary once each + 4 phrases a "
+                                "planted group, ~72k tokens (the CPU's fit time)",
+        "deepwalk walks per vertex": "80 -> 1 (the phase's time); card vs CPU on a "
+                                     "1,000-vertex copy",
+        "glove": f"corpus -> {GLOVE_SENTENCES}k tokens (the host's co-occurrence "
+                 f"pass), iterations -> 2; card vs CPU on {GLOVE_CUT_SENTENCES}k",
+        "fasttext": "epochs 5 -> 1, on the ~72k-token cut (the full vocabulary "
+                    "at min count 1); card vs CPU on 20k tokens of it",
+        "dqn maxStep": f"150000 -> {DQN_MAX_STEP} (the phase's time)",
+        "n-step Q / A2C maxStep": f"-> {A2C_CONF['maxStep']}"}
+    for what, why in reduced.items():
+        log(f"reduced: {what}: {why}")
+    out = {"card": CARD, "reduced": reduced}
+    marks = [time.perf_counter()]
+    _EMB_T0[0] = marks[0]
+    sents, words, topics = E.text8_like(EMB_TOKENS)
+    out["w2v"], sg = _w2v_part(sents, words, topics)
+    out["profile"] = _emb_profile(E.text8_cut(words)[:EMB_PROFILE_SENTENCES])
+    _tick("embeddings (a) profile")
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["deepwalk"] = _deepwalk_part()
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    with tempfile.TemporaryDirectory() as d:
+        out["glove_fasttext_pv"] = _glove_ft_pv_part(sents, words, topics, sg, d)
+    del sg
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["rl"] = _rl_part()
+    marks.append(time.perf_counter())
+    out["arbiter"] = _arbiter_part()
+    marks.append(time.perf_counter())
+    out["part_s"] = dict(zip("abcde", np.diff(marks).tolist()))
+    log(f"embeddings and rl ({CARD}): parts' seconds " + json.dumps(out["part_s"]))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/embeddings_rl_phase.json", "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def timed_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6985,6 +7690,8 @@ def main() -> int:
     sdiff = timed_phase("samediff", samediff_phase)
     torch.cuda.empty_cache()
     imps = timed_phase("importers", importers_phase)
+    torch.cuda.empty_cache()
+    timed_phase("embeddings and rl", embeddings_rl_phase)
     torch.cuda.empty_cache()
     mlm = timed_phase("mlm train", mlm_phase)
     longctx = timed_phase("long-context train", long_context_phase)

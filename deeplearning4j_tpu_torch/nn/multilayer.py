@@ -50,15 +50,10 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 )
 from deeplearning4j_tpu_torch.nn.data_shard import sync_loss_and_grads as _sync_loss_and_grads
 from deeplearning4j_tpu_torch.train.updaters import (
-    apply_updates, tree_leaves, tree_map, tree_unflatten,
+    apply_updates, rtrue_div, tree_leaves, tree_map, tree_unflatten,
 )
 
 _DTYPES = {"FLOAT": torch.float32, "DOUBLE": torch.float64, "HALF": torch.bfloat16}
-
-
-def _sdiv(v: float, t: torch.Tensor) -> torch.Tensor:
-    """v / t rounded once (``v / t`` in torch is a reciprocal times v)."""
-    return torch.tensor(v, dtype=t.dtype, device=t.device) / t
 
 
 def _clip_grads(grads, mode: Optional[str], threshold: float):
@@ -80,7 +75,7 @@ def _clip_grads(grads, mode: Optional[str], threshold: float):
                 out.append(g)
                 continue
             norm = torch.sqrt(sum(torch.sum(l * l) for l in leaves))
-            scale = torch.where(norm > threshold, _sdiv(threshold, norm + 1e-12), 1.0)
+            scale = torch.where(norm > threshold, rtrue_div(threshold, norm + 1e-12), 1.0)
             out.append(tree_map(lambda l: l * scale, g))
         return out
     if mode == "RenormalizeL2PerLayer":
@@ -98,7 +93,7 @@ def _clip_grads(grads, mode: Optional[str], threshold: float):
 
 def _clip_l2(g, threshold):
     norm = torch.sqrt(torch.sum(g * g))
-    return g * torch.where(norm > threshold, _sdiv(threshold, norm + 1e-12), 1.0)
+    return g * torch.where(norm > threshold, rtrue_div(threshold, norm + 1e-12), 1.0)
 
 
 def _zero_frozen(tree_list, frozen):

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ndarray import dtypes as _dt
 from deeplearning4j_tpu_torch.ops.registry import op
+from deeplearning4j_tpu_torch.train.updaters import rtrue_div, true_div
 
 # ------------------------------------------------------------- updaters
 # Hyperparameter names follow the reference's config classes
@@ -40,6 +41,29 @@ def _bias(beta, t):
     if isinstance(t, torch.Tensor):
         return beta ** t.to(_dt.float_())
     return beta ** t
+
+
+def _div(a, b):
+    """a / b rounded once, as the reference divides: on CUDA torch
+    multiplies a tensor by the reciprocal of a Python number (and
+    ``number / tensor`` is a reciprocal times the number everywhere)."""
+    if isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+        return true_div(a, b)
+    if isinstance(b, torch.Tensor) and not isinstance(a, torch.Tensor):
+        return rtrue_div(a, b)
+    return a / b
+
+
+def _sqrt(x):
+    """The correctly rounded square root on either device, as the
+    reference (XLA's) takes it. torch's float32 ``sqrt`` on the CPU is not
+    correctly rounded (its AVX-512 path: one ulp off numpy's for ~0.7% of
+    inputs), so the root is taken in float64 and rounded back once:
+    exact, since float64 carries more than twice float32's precision plus
+    two bits."""
+    if x.dtype != torch.float64:
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
 
 
 def _up(x, *scalars):
@@ -68,19 +92,19 @@ def nesterovs_updater(grad, v, lr=0.1, momentum=0.9):
 @op("adaGradUpdater", "updaters")
 def adagrad_updater(grad, h, lr=0.1, eps=1e-6):
     h_new = h + grad * grad
-    return lr * grad / (torch.sqrt(h_new) + eps), h_new
+    return lr * grad / (_sqrt(h_new) + eps), h_new
 
 
 @op("rmsPropUpdater", "updaters")
 def rmsprop_updater(grad, g2, lr=0.1, decay=0.95, eps=1e-8):
     g2_new = decay * g2 + (1.0 - decay) * grad * grad
-    return lr * grad / (torch.sqrt(g2_new) + eps), g2_new
+    return lr * grad / (_sqrt(g2_new) + eps), g2_new
 
 
 @op("adaDeltaUpdater", "updaters")
 def adadelta_updater(grad, msg, msdx, rho=0.95, eps=1e-6):
     msg_new = rho * msg + (1.0 - rho) * grad * grad
-    dx = torch.sqrt(msdx + eps) / torch.sqrt(msg_new + eps) * grad
+    dx = _sqrt(msdx + eps) / _sqrt(msg_new + eps) * grad
     msdx_new = rho * msdx + (1.0 - rho) * dx * dx
     return dx, msg_new, msdx_new
 
@@ -91,9 +115,9 @@ def adam_updater(grad, m, v, t, lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8):
     m_new = beta1 * m + (1.0 - beta1) * grad
     v_new = beta2 * v + (1.0 - beta2) * grad * grad
     b1, b2 = _bias(beta1, t), _bias(beta2, t)
-    mhat = _up(m_new, b1) / (1.0 - b1)
-    vhat = _up(v_new, b2) / (1.0 - b2)
-    return lr * mhat / (torch.sqrt(vhat) + eps), m_new, v_new, t
+    mhat = _div(_up(m_new, b1), 1.0 - b1)
+    vhat = _div(_up(v_new, b2), 1.0 - b2)
+    return lr * mhat / (_sqrt(vhat) + eps), m_new, v_new, t
 
 
 @op("adaMaxUpdater", "updaters")
@@ -102,7 +126,7 @@ def adamax_updater(grad, m, u, t, lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8):
     m_new = beta1 * m + (1.0 - beta1) * grad
     u_new = torch.maximum(beta2 * u, torch.abs(grad))
     b1 = _bias(beta1, t)
-    return lr / (1.0 - b1) * _up(m_new, b1) / (u_new + eps), m_new, u_new, t
+    return _div(lr, 1.0 - b1) * _up(m_new, b1) / (u_new + eps), m_new, u_new, t
 
 
 @op("nadamUpdater", "updaters")
@@ -112,10 +136,10 @@ def nadam_updater(grad, m, v, t, lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8):
     v_new = beta2 * v + (1.0 - beta2) * grad * grad
     b1, b2 = _bias(beta1, t), _bias(beta2, t)
     bc1 = 1.0 - b1
-    mhat = _up(m_new, b1) / bc1
-    vhat = _up(v_new, b2) / (1.0 - b2)
-    m_bar = beta1 * mhat + (1.0 - beta1) / bc1 * grad
-    return lr * m_bar / (torch.sqrt(vhat) + eps), m_new, v_new, t
+    mhat = _div(_up(m_new, b1), bc1)
+    vhat = _div(_up(v_new, b2), 1.0 - b2)
+    m_bar = beta1 * mhat + _div(1.0 - beta1, bc1) * grad
+    return lr * m_bar / (_sqrt(vhat) + eps), m_new, v_new, t
 
 
 @op("amsGradUpdater", "updaters")
@@ -128,9 +152,9 @@ def amsgrad_updater(grad, m, v, vhat_max, t, lr=1e-3, beta1=0.9, beta2=0.999,
     # Reddi et al. / DL4J form: alpha_t = lr*sqrt(1-b2^t)/(1-b1^t) folds the
     # bias corrections of both moments into the step size
     b1, b2 = _bias(beta1, t), _bias(beta2, t)
-    alpha_t = lr * (torch.sqrt(1.0 - b2) if isinstance(b2, torch.Tensor)
-                    else math.sqrt(1.0 - b2)) / (1.0 - b1)
-    return alpha_t * _up(m_new, b1) / (torch.sqrt(vhat_new) + eps), m_new, \
+    alpha_t = _div(lr * (_sqrt(1.0 - b2) if isinstance(b2, torch.Tensor)
+                         else math.sqrt(1.0 - b2)), 1.0 - b1)
+    return alpha_t * _up(m_new, b1) / (_sqrt(vhat_new) + eps), m_new, \
         v_new, vhat_new, t
 
 
@@ -142,9 +166,9 @@ def adabelief_updater(grad, m, s, t, lr=1e-3, beta1=0.9, beta2=0.999,
     diff = grad - m_new
     s_new = beta2 * s + (1.0 - beta2) * diff * diff + eps
     b1, b2 = _bias(beta1, t), _bias(beta2, t)
-    mhat = _up(m_new, b1) / (1.0 - b1)
-    shat = _up(s_new, b2) / (1.0 - b2)
-    return lr * mhat / (torch.sqrt(shat) + eps), m_new, s_new, t
+    mhat = _div(_up(m_new, b1), 1.0 - b1)
+    shat = _div(_up(s_new, b2), 1.0 - b2)
+    return lr * mhat / (_sqrt(shat) + eps), m_new, s_new, t
 
 
 # -------------------------------------------------------- boolean checks

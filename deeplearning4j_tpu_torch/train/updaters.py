@@ -135,8 +135,18 @@ def _inc(count: torch.Tensor) -> torch.Tensor:
 def true_div(t: torch.Tensor, v) -> torch.Tensor:
     """t / v rounded once, as the reference divides: v as a tensor of t's
     dtype on t's device, since CUDA multiplies a tensor by the reciprocal
-    of a Python number instead of dividing by it."""
-    return t / torch.as_tensor(v, dtype=t.dtype, device=t.device)
+    of a Python number instead of dividing by it. The 0-d divisor is
+    filled on the device (``torch.as_tensor(v, device=...)`` copies from
+    pageable memory, which waits for the card, twice a leaf a step)."""
+    if isinstance(v, torch.Tensor):
+        return t / v.to(dtype=t.dtype, device=t.device)
+    return t / torch.full((), v, dtype=t.dtype, device=t.device)
+
+
+def rtrue_div(v, t: torch.Tensor) -> torch.Tensor:
+    """v / t rounded once (``v / t`` in torch is a reciprocal times v),
+    the 0-d numerator filled on t's device."""
+    return torch.full((), v, dtype=t.dtype, device=t.device) / t
 
 
 def _bias(moment, decay: float, count: int):

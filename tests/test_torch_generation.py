@@ -225,8 +225,8 @@ class TestAdmission:
 def test_port_imports_no_jax():
     """Importing every module of the port (found by walking the package,
     so a new module is covered) leaves ``jax``, ``optax``, ``tensorflow``,
-    ``h5py``, ``google.protobuf`` and the JAX package out of
-    ``sys.modules``."""
+    ``h5py``, ``google.protobuf``, ``gym``, ``gymnasium`` and the JAX
+    package out of ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import deeplearning4j_tpu_torch as pkg\n"
@@ -251,11 +251,16 @@ def test_port_imports_no_jax():
         "             'util.resources', 'util.sharded_checkpoint',\n"
         "             'modelimport.onnx.importer', 'modelimport.onnx.wire',\n"
         "             'modelimport.keras.importer', 'interop.onnx_runner',\n"
-        "             'interop.tf_runner', 'zoo.models'):\n"
+        "             'interop.tf_runner', 'zoo.models', 'text.word2vec',\n"
+        "             'text.paragraph_vectors', 'text.glove', 'text.fasttext',\n"
+        "             'text.serializer', 'text.vocab', 'graph.deepwalk',\n"
+        "             'graph.walker', 'rl.qlearning', 'rl.nstep_q', 'rl.a2c',\n"
+        "             'rl.env', 'rl.vector_env', 'arbiter.runner',\n"
+        "             'arbiter.generator', 'arbiter.space'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + want in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'optax', 'deeplearning4j_tpu.', "
-        "'tensorflow', 'h5py', 'google.protobuf')) "
+        "'tensorflow', 'h5py', 'google.protobuf', 'gym', 'gymnasium')) "
         "or m in ('deeplearning4j_tpu', 'google.protobuf'))\n"
         "assert not bad, bad\n"
         "print(len(names), 'clean')\n")
